@@ -1,0 +1,64 @@
+"""On an NVIDIA GPU: each CUDA kernel of vxtpu_torch against its plain
+PyTorch version on the same inputs, with the checks of chip_smoke.py
+phase 3 (vxtpu_torch.kernel_check). Skipped where there is no GPU; on the
+GPU machine (which need not have JAX, imported by tests/conftest.py) run
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from vxtpu_torch import kernel_check as kc
+from vxtpu_torch.render import kernel_march as km
+from vxtpu_torch.world import procgen
+from vxtpu_torch.world.packed import build_material_morton, build_packed_morton
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("name", kc.MARCH_CASES)
+def test_march_kernel_matches_plain(cuda, name):
+    km.reset_launch_counts()
+    m = kc.run_march_case(name, cuda)
+    kc.check_march_case(m, name)
+    assert km.LAUNCHES["march_shade_kernel"] == 1
+
+
+@pytest.mark.parametrize("name", kc.SHADE_CASES)
+def test_shade_matches_plain(cuda, name):
+    km.reset_launch_counts()
+    m = kc.run_shade_case(name, cuda)
+    kc.check_shade_case(m, name)
+    uses_shade_kernel = name in ("shade_kernel", "full_shadows_fog_composed")
+    assert (km.LAUNCHES["shade_kernel"] == 1) == uses_shade_kernel
+
+
+def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
+    """On CUDA tensors march() launches the kernel: no plain version is
+    called, not even as a fallback."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("march_shade_reference", "march_reference",
+                 "shade_reference"):
+        monkeypatch.setattr(km, name, boom)
+    grid = procgen.shell_sphere((16, 16, 16), device=cuda)
+    acc = build_packed_morton(grid.occupancy)
+    mats = build_material_morton(grid.occupancy)
+    o = torch.full((8, 3), 8.0, device=cuda)
+    d = torch.nn.functional.normalize(torch.ones((8, 3), device=cuda), dim=1)
+    km.reset_launch_counts()
+    rec, rgb = km.march(o, d, acc, (16, 16, 16), 50,
+                        shade_spec=km.ShadeSpec(n_lights=0), mats=mats,
+                        lights_arr=torch.zeros((8, 8), device=cuda))
+    torch.cuda.synchronize()
+    assert bool(rec.hit.all()) and bool(torch.isfinite(rgb).all())
+    assert km.LAUNCHES["march_shade_kernel"] == 1

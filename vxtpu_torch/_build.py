@@ -1,0 +1,90 @@
+"""Build and load the CUDA kernels of ``vxtpu_torch/csrc``.
+
+The sources are compiled at first use with nvcc into one shared library
+with a plain C interface, loaded with ctypes (no PyTorch headers, so the
+build takes seconds). The library lands in ``vxtpu_torch/_build/`` under
+a name derived from a hash of the sources and flags, so an edit to a
+source rebuilds it. A failed build raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels of vxtpu_torch are built with it")
+    return found
+
+
+def _sources() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libvxtpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into the shared library unless it exists; returns
+    its path. nvcc's output (ptxas register and spill counts) is kept in
+    a ``.log`` file beside the library."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points."""
+    lib = ctypes.CDLL(str(build()))
+    lib.vx_march_shade.argtypes = [
+        _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,   # inputs, params
+        _P, _P, _P, _P, _P, _P,                           # outputs
+        _P]                                               # stream
+    lib.vx_march_shade.restype = _I
+    lib.vx_shade.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
+                             _P, _P]
+    lib.vx_shade.restype = _I
+    lib.vx_error_string.argtypes = [_I]
+    lib.vx_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def error_string(code: int) -> str:
+    return f"{code} ({load().vx_error_string(code).decode()})"

@@ -1,0 +1,75 @@
+"""State carried across from the JAX package: vxtpu's arrays, given as
+numpy arrays, into this package's tensors and layouts. Lets the tests feed
+both packages the same world, camera and lights."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vxtpu_torch.camera.camera import Camera
+from vxtpu_torch.world.lights import Lights
+from vxtpu_torch.world.packed import PackedMorton
+
+
+def occupancy_from_numpy(occ: np.ndarray, device=None) -> torch.Tensor:
+    """uint8 [X, Y, Z] occupancy."""
+    return torch.as_tensor(np.array(occ, np.uint8), device=device)
+
+
+def _flat_words(rows128: np.ndarray, n: int, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """vxtpu's float32 [rows, 128] table -> flat [n] integer tensor; the
+    padding of a short last row is dropped. Raises if a word is not an
+    integer that ``dtype`` holds exactly."""
+    flat = np.asarray(rows128, np.float32).reshape(-1)
+    if flat.shape[0] < n:
+        raise ValueError(f"table holds {flat.shape[0]} words, need {n}")
+    flat = flat[:n]
+    info = torch.iinfo(dtype)
+    ints = flat.astype(np.int64)
+    if not (np.all(ints == flat) and ints.min(initial=0) >= info.min
+            and ints.max(initial=0) <= info.max):
+        raise ValueError(f"table words do not fit {dtype} exactly")
+    return torch.as_tensor(ints, device=device).to(dtype)
+
+
+def packed_morton_from_numpy(words_f32_rows128: np.ndarray, dims,
+                             device=None) -> PackedMorton:
+    """vxtpu ``PackedMorton.words`` -> int16 [S^3] signed words."""
+    cells = (dims[0] // 2) * (dims[1] // 2) * (dims[2] // 2)
+    return PackedMorton(words=_flat_words(words_f32_rows128, cells,
+                                          torch.int16, device))
+
+
+def material_morton_from_numpy(mats_f32_rows128: np.ndarray, dims,
+                               device=None) -> torch.Tensor:
+    """vxtpu ``build_material_morton`` table -> int32 [S^3]."""
+    cells = (dims[0] // 2) * (dims[1] // 2) * (dims[2] // 2)
+    return _flat_words(mats_f32_rows128, cells, torch.int32, device)
+
+
+def rgb8_morton_from_numpy(rgb8_f32_rows128: np.ndarray, dims,
+                           device=None) -> torch.Tensor:
+    """vxtpu ``build_rgb8_morton`` table -> int32 [X*Y*Z]."""
+    return _flat_words(rgb8_f32_rows128, dims[0] * dims[1] * dims[2],
+                       torch.int32, device)
+
+
+def camera_from_numpy(pos, yaw, pitch, fov_y, device=None) -> Camera:
+    """vxtpu ``Camera`` fields (fov_y in radians, as vxtpu stores it)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return Camera(pos=torch.tensor(np.asarray(pos, np.float32), **f32),
+                  yaw=torch.as_tensor(np.float32(yaw), **f32),
+                  pitch=torch.as_tensor(np.float32(pitch), **f32),
+                  fov_y=torch.as_tensor(np.float32(fov_y), **f32))
+
+
+def lights_from_numpy(pos, rgb, intensity, device=None) -> Lights:
+    """vxtpu ``Lights`` fields -> Lights."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return Lights(
+        pos=torch.tensor(np.asarray(pos, np.float32).reshape(-1, 3), **f32),
+        rgb=torch.tensor(np.asarray(rgb, np.float32).reshape(-1, 3), **f32),
+        intensity=torch.tensor(
+            np.asarray(intensity, np.float32).reshape(-1), **f32))

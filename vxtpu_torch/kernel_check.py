@@ -1,0 +1,179 @@
+"""Kernels against their plain PyTorch versions on the same inputs, on the
+GPU. Shared by ``chip_smoke.py`` (phase 3) and ``tests/test_torch_cuda.py``.
+
+Limits: hit, voxel, normal and steps equal on >= 99.9% of rays; t within
+rtol 1e-5 where both hit; rgb within 1e-5 on >= 99.9% of pixels. Both
+sides round every operation the same way (the kernels are built with
+-fmad=false), so the margin only absorbs rays that graze a voxel edge
+and the last bits of expf/powf.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vxtpu_torch.camera.camera import Camera
+from vxtpu_torch.camera.rays import generate_rays
+from vxtpu_torch.render import kernel_march as km
+from vxtpu_torch.render.fused import render_rays_fused
+from vxtpu_torch.render.settings import RenderSettings
+from vxtpu_torch.world import procgen
+from vxtpu_torch.world.lights import Lights
+from vxtpu_torch.world.packed import (build_material_morton,
+                                      build_packed_morton, build_rgb8_morton)
+
+RAY_AGREE = 0.999
+T_RTOL = 1e-5
+RGB_ATOL = 1e-5
+RGB_AGREE = 0.999
+
+
+def record_mismatch(a: km.HitRecord, b: km.HitRecord) -> dict:
+    """Counts of rays whose hit, voxel, normal or steps differ, and the
+    largest relative t difference where both hit."""
+    both = a.hit & b.hit
+    rel = ((a.t - b.t).abs() / b.t.abs().clamp(min=1e-30))[both]
+    return dict(
+        n=int(a.hit.numel()),
+        hit=int((a.hit != b.hit).sum()),
+        voxel=int((a.voxel != b.voxel).any(-1).sum()),
+        normal=int((a.normal != b.normal).any(-1).sum()),
+        steps=int((a.steps != b.steps).sum()),
+        t_rel=float(rel.max()) if rel.numel() else 0.0,
+    )
+
+
+def image_mismatch(a: torch.Tensor, b: torch.Tensor) -> dict:
+    diff = (a - b).abs().reshape(-1, 3).amax(-1)
+    return dict(n=int(diff.numel()), rgb=int((diff > RGB_ATOL).sum()),
+                max_abs=float(diff.max()) if diff.numel() else 0.0)
+
+
+def check_records(m: dict, what: str) -> None:
+    for k in ("hit", "voxel", "normal", "steps"):
+        if m[k] > (1.0 - RAY_AGREE) * m["n"]:
+            raise AssertionError(f"{what}: {k} differs on {m[k]} of "
+                                 f"{m['n']} rays")
+    if m["t_rel"] > T_RTOL:
+        raise AssertionError(f"{what}: t differs by rel {m['t_rel']:.3g}")
+
+
+def check_image(m: dict, what: str) -> None:
+    if m["rgb"] > (1.0 - RGB_AGREE) * m["n"]:
+        raise AssertionError(f"{what}: rgb differs by more than {RGB_ATOL} "
+                             f"on {m['rgb']} of {m['n']} pixels "
+                             f"(max {m['max_abs']:.3g})")
+
+
+def _scenes(D, device):
+    return {
+        "box": procgen.solid_box((D,) * 3, (D // 4,) * 3,
+                                 (3 * D // 4, 3 * D // 4, 5 * D // 8),
+                                 device=device),
+        "sphere": procgen.shell_sphere((D,) * 3, device=device),
+        "terrain": procgen.terrain((D,) * 3, seed=11, device=device),
+    }
+
+
+def _cameras(D, device):
+    return {
+        "outside": Camera.make(pos=(-0.625 * D, 0.5 * D, 1.25 * D),
+                               device=device).look_at(
+                                   (0.5 * D, 0.5 * D, 0.375 * D)),
+        "inside": Camera.make(pos=(0.5 * D, 0.5 * D, 0.875 * D), yaw=2.2,
+                              pitch=-0.5, device=device),
+    }
+
+
+MARCH_CASES = [f"{s}-{c}" for s in ("box", "sphere", "terrain")
+               for c in ("outside", "inside")] + ["terrain-outside-tmax"]
+SHADE_CASES = ["flat", "lambert", "full_fog", "full_shadows_fog_inkernel",
+               "full_shadows_fog_composed", "shade_kernel", "rgb8"]
+
+
+def run_march_case(name: str, device, D: int = 64, h: int = 256,
+                   w: int = 256) -> dict:
+    """march (the kernel) vs march_reference on one scene and camera."""
+    scene, cam_name, *rest = name.split("-")
+    grid = _scenes(D, device)[scene]
+    acc = build_packed_morton(grid.occupancy, cap=64)
+    o, d = generate_rays(_cameras(D, device)[cam_name], h, w)
+    t_max = None
+    if rest == ["tmax"]:
+        t_max = torch.full((o.shape[0],), 1.2 * D, device=device)
+    ms = 3 * D + 2
+    rec = km.march(o, d, acc, (D,) * 3, ms, t_max=t_max)
+    ref = km.march_reference(o, d, acc, (D,) * 3, ms, t_max=t_max)
+    m = record_mismatch(rec, ref)
+    m["hits"] = int(rec.hit.sum())
+    return m
+
+
+def run_shade_case(name: str, device, D: int = 64, h: int = 256,
+                   w: int = 256) -> dict:
+    """A shaded frame through the kernels vs the plain versions."""
+    dims = (D,) * 3
+    rgb8 = name == "rgb8"
+    grid = procgen.terrain(dims, seed=11, with_rgb=rgb8, device=device)
+    acc = build_packed_morton(grid.occupancy, cap=64)
+    mats = build_rgb8_morton(grid) if rgb8 else \
+        build_material_morton(grid.occupancy)
+    o, d = generate_rays(_cameras(D, device)["outside"], h, w)
+    one = Lights.single((0.8 * D, -0.3 * D, 1.9 * D), intensity=2.0,
+                        device=device)
+    two = Lights.make([(0.15 * D, -0.3 * D, 1.4 * D),
+                       (1.25 * D, 0.95 * D, 1.55 * D)],
+                      [(1.0, 0.9, 0.8), (0.4, 0.5, 1.0)], [2.0, 1.0],
+                      device=device)
+    full_sh = RenderSettings(shading="full", shadows=True, fog=True)
+    settings, lights, inkernel = {
+        "flat": (RenderSettings(shading="flat"), Lights.none(device), True),
+        "lambert": (RenderSettings(shading="lambert"), one, True),
+        "full_fog": (RenderSettings(shading="full", fog=True), two, True),
+        "full_shadows_fog_inkernel": (full_sh, two, True),
+        "full_shadows_fog_composed": (full_sh, two, False),
+        "shade_kernel": (full_sh, two, False),
+        "rgb8": (RenderSettings(shading="lambert"), one, True),
+    }[name]
+    ms = settings.resolve_max_steps(dims)
+    lights_arr = km.pack_lights(lights)
+    if name == "shade_kernel":
+        # the shade kernel alone, on the plain march's record and
+        # visibility, against shade_reference on the same inputs
+        rec = km.march_reference(o, d, acc, dims, ms)
+        vis = torch.stack([km.shadow_visibility_reference(
+            rec, o, d, acc, dims, ms, lights.pos[li])
+            for li in range(lights.count)], dim=-1)
+        spec = km.ShadeSpec.from_settings(settings, lights, use_vis=True,
+                                          shadows=False)
+        got = km.shade(rec, o, d, vis, mats, lights_arr, spec)
+        want = km.shade_reference(rec, o, d, vis, mats, lights_arr, spec)
+        m = image_mismatch(got, want)
+        m["hits"] = int(rec.hit.sum())
+        return m
+    got, rec = render_rays_fused(o, d, acc, mats, dims, lights, settings,
+                                 inkernel_shadows=inkernel, rgb8=rgb8)
+    shadowed = settings.shadows and lights.count > 0
+    spec = km.ShadeSpec.from_settings(settings, lights, shadows=shadowed,
+                                      rgb8=rgb8)
+    ref, want = km.march_shade_reference(o, d, acc, dims, ms, None, spec,
+                                         mats, lights_arr)
+    m = image_mismatch(got, want)
+    m.update({f"rec_{k}": v for k, v in record_mismatch(rec, ref).items()})
+    m["hits"] = int(rec.hit.sum())
+    return m
+
+
+def check_march_case(m: dict, what: str) -> None:
+    check_records(m, what)
+    if m["hits"] == 0:
+        raise AssertionError(f"{what}: no ray hit")
+
+
+def check_shade_case(m: dict, what: str) -> None:
+    check_image(m, what)
+    if "rec_n" in m:
+        check_records({k[4:]: v for k, v in m.items()
+                       if k.startswith("rec_")}, what)
+    if m["hits"] == 0:
+        raise AssertionError(f"{what}: no ray hit")
