@@ -11,6 +11,7 @@ import torch
 
 from vxtpu_torch import kernel_check as kc
 from vxtpu_torch.render import kernel_march as km
+from vxtpu_torch.render import kernel_sample as ks
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.packed import build_material_morton, build_packed_morton
 
@@ -62,3 +63,36 @@ def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert bool(rec.hit.all()) and bool(torch.isfinite(rgb).all())
     assert km.LAUNCHES["march_shade_kernel"] == 1
+
+
+@pytest.mark.parametrize("name", kc.SAMPLE_CASES)
+def test_sample_kernels_match_plain(cuda, name):
+    ks.reset_launch_counts()
+    m = kc.run_sample_case(name, cuda)
+    kc.check_sample_case(m, name)
+    assert ks.LAUNCHES == {"sample_fwd_kernel": 1, "sample_bwd_kernel": 2}
+
+
+def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
+    """On CUDA tensors the sampling path launches the kernels, forward and
+    backward: no plain version is called, not even as a fallback."""
+    from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
+                                                render_soft_rays_kernel)
+    from vxtpu_torch.render.settings import RenderSettings
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("sample_fields_fwd_reference", "sample_fields_bwd_reference"):
+        monkeypatch.setattr(ks, name, boom)
+    tabs = kc.sample_fields(16, cuda)
+    m = MortonSoftGrid(tabs[0].clone().requires_grad_(True),
+                       torch.stack(tabs[1:]).requires_grad_(True))
+    o, d = kc.sample_rays("outside", 16, 256, cuda)
+    ks.reset_launch_counts()
+    rgb = render_soft_rays_kernel(m, o, d, RenderSettings(), 16)
+    rgb.sum().backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(rgb).all())
+    assert bool(torch.isfinite(m.sigma_tab.grad).all())
+    assert ks.LAUNCHES == {"sample_fwd_kernel": 1, "sample_bwd_kernel": 1}

@@ -30,6 +30,7 @@ from vxtpu_torch.render.settings import RenderSettings
 
 D = 32
 DIMS = (D, D, D)
+CPU = torch.device("cpu")
 
 LIGHTS = {
     0: ([], [], []),
@@ -51,16 +52,17 @@ def _world(seed, with_rgb=False):
     jacc = jpacked.build_packed_morton(jg.occupancy, cap=64)
     jmats = (jpacked.build_rgb8_morton(jg) if with_rgb
              else jpacked.build_material_morton(jg.occupancy))
-    acc = convert.packed_morton_from_numpy(np.asarray(jacc.words), DIMS)
+    acc = convert.packed_morton_from_numpy(np.asarray(jacc.words), DIMS,
+                                           device=CPU)
     conv = (convert.rgb8_morton_from_numpy if with_rgb
             else convert.material_morton_from_numpy)
-    return jacc, jmats, acc, conv(np.asarray(jmats), DIMS)
+    return jacc, jmats, acc, conv(np.asarray(jmats), DIMS, device=CPU)
 
 
 def _lights(spec):
     pos, rgb, inten = spec
     return (JLights.make(pos, rgb, inten) if pos else JLights.none(),
-            convert.lights_from_numpy(pos, rgb, inten))
+            convert.lights_from_numpy(pos, rgb, inten, device=CPU))
 
 
 def _check_image(got, want, hit_got, hit_want, atol=2e-5):

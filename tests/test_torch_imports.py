@@ -28,7 +28,11 @@ def _imported_roots(path: Path):
 
 def test_scan_covers_the_package():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
-    assert "vxtpu_torch/render/kernel_march.py" in names
+    for mod in ("render/kernel_march.py", "render/dda.py", "render/soft.py",
+                "render/kernel_sample.py", "render/soft_kernel.py",
+                "train/loss.py", "train/loop.py", "train/checkpoint.py",
+                "camera/paths.py", "device.py", "convert.py"):
+        assert f"vxtpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
 
 

@@ -25,6 +25,7 @@ from vxtpu_torch.render.kernel_march import march
 
 DIMS = (32, 32, 32)
 MAX_STEPS = sum(DIMS) + 2
+CPU = torch.device("cpu")
 
 
 def jax_scenes():
@@ -54,7 +55,8 @@ def _both(scene, o, d, t_max=None, image_shape=None):
     """(vxtpu HitRecord as numpy dict, vxtpu_torch HitRecord)."""
     jacc = jbuild_packed_morton(jax_scenes()[scene].occupancy, cap=64)
     jrec = _jax_march(image_shape)(o, d, jacc, t_max=t_max)
-    acc = convert.packed_morton_from_numpy(np.asarray(jacc.words), DIMS)
+    acc = convert.packed_morton_from_numpy(np.asarray(jacc.words), DIMS,
+                                           device=CPU)
     tm = None if t_max is None else torch.tensor(np.asarray(t_max))
     rec = march(torch.tensor(np.asarray(o)), torch.tensor(np.asarray(d)),
                 acc, DIMS, MAX_STEPS, t_max=tm)
@@ -125,7 +127,7 @@ def test_march_cpu_launches_no_kernel():
 def test_march_rejects_bad_inputs():
     acc = convert.packed_morton_from_numpy(
         np.asarray(jbuild_packed_morton(jax_scenes()["box"].occupancy).words),
-        DIMS)
+        DIMS, device=CPU)
     o = torch.zeros((4, 3))
     d = torch.ones((4, 3))
     with pytest.raises(TypeError):

@@ -14,6 +14,7 @@ from vxtpu_torch.world import distfield, packed, procgen
 from vxtpu_torch.world.grid import VoxelGrid
 
 DIMS = (32, 32, 32)
+CPU = torch.device("cpu")
 
 
 def jax_scenes(dims=DIMS):
@@ -25,7 +26,8 @@ def jax_scenes(dims=DIMS):
 
 
 def _torch_grid(jgrid):
-    occ = convert.occupancy_from_numpy(np.asarray(jgrid.occupancy))
+    occ = convert.occupancy_from_numpy(np.asarray(jgrid.occupancy),
+                                       device=CPU)
     rgb = None if jgrid.rgb is None else torch.tensor(np.asarray(jgrid.rgb))
     return VoxelGrid(occupancy=occ, rgb=rgb)
 
@@ -39,7 +41,8 @@ def test_tables_equal_vxtpu(scene):
     assert got.words.dtype == torch.int16
     assert torch.equal(got.words,
                        convert.packed_morton_from_numpy(np.asarray(want),
-                                                        DIMS).words)
+                                                        DIMS,
+                                                        device=CPU).words)
     np.testing.assert_array_equal(got.to_rows128_f32().numpy(),
                                   np.asarray(want))
 
@@ -47,7 +50,7 @@ def test_tables_equal_vxtpu(scene):
     got_m = packed.build_material_morton(g.occupancy)
     assert got_m.dtype == torch.int32
     assert torch.equal(got_m, convert.material_morton_from_numpy(
-        np.asarray(want_m), DIMS))
+        np.asarray(want_m), DIMS, device=CPU))
     np.testing.assert_array_equal(packed.rows128_f32(got_m).numpy(),
                                   np.asarray(want_m))
 
@@ -62,7 +65,7 @@ def test_rgb8_table_equal_vxtpu():
     want = jpacked.build_rgb8_morton(jg)
     got = packed.build_rgb8_morton(_torch_grid(jg))
     assert torch.equal(got, convert.rgb8_morton_from_numpy(np.asarray(want),
-                                                           DIMS))
+                                                           DIMS, device=CPU))
 
 
 def test_short_table_padding_stripped():
@@ -74,7 +77,8 @@ def test_short_table_padding_stripped():
     assert got.words.shape == (64,)
     np.testing.assert_array_equal(got.to_rows128_f32().numpy(), want)
     assert torch.equal(
-        convert.packed_morton_from_numpy(want, (8, 8, 8)).words, got.words)
+        convert.packed_morton_from_numpy(want, (8, 8, 8), device=CPU).words,
+        got.words)
 
 
 def test_morton_is_bijection():
@@ -89,7 +93,7 @@ def test_morton_is_bijection():
 
 def test_terrain_matches_vxtpu():
     want = np.asarray(jprocgen.terrain(DIMS, seed=11, with_rgb=True).occupancy)
-    got = procgen.terrain(DIMS, seed=11, with_rgb=True)
+    got = procgen.terrain(DIMS, seed=11, with_rgb=True, device=CPU)
     differ = int((got.occupancy.numpy() != want).sum())
     print(f"terrain(seed=11) at 32^3: {differ} of {want.size} voxels differ")
     assert differ <= 0.001 * want.size
@@ -97,15 +101,16 @@ def test_terrain_matches_vxtpu():
 
 def test_terrain_rgb_matches_vxtpu():
     jg = jprocgen.terrain(DIMS, seed=3, with_rgb=True)
-    g = procgen.terrain(DIMS, seed=3, with_rgb=True)
+    g = procgen.terrain(DIMS, seed=3, with_rgb=True, device=CPU)
     np.testing.assert_allclose(g.rgb.numpy(), np.asarray(jg.rgb), atol=1e-6)
 
 
 def test_sphere_and_box_exact():
     np.testing.assert_array_equal(
-        procgen.shell_sphere(DIMS).occupancy.numpy(),
+        procgen.shell_sphere(DIMS, device=CPU).occupancy.numpy(),
         np.asarray(jprocgen.shell_sphere(DIMS).occupancy))
     np.testing.assert_array_equal(
-        procgen.solid_box(DIMS, (8, 8, 8), (24, 24, 20)).occupancy.numpy(),
+        procgen.solid_box(DIMS, (8, 8, 8), (24, 24, 20),
+                          device=CPU).occupancy.numpy(),
         np.asarray(jprocgen.solid_box(DIMS, (8, 8, 8),
                                       (24, 24, 20)).occupancy))

@@ -14,7 +14,17 @@ and writes, under ``vxtpu_torch/data/``:
   entry_frame.png         the frame of __graft_entry__.entry()'s scene
                           (128^3 terrain, seed 7, 256x512, full + shadows
                           + fog, light (25, -38, 180) at intensity 2)
-                          rendered by vxtpu's fused path in interpret mode.
+                          rendered by vxtpu's fused path in interpret mode;
+  c4_fit32_seed7.json     config 4's fit cut to 32^3 (terrain seed 7,
+                          one 64x64 view, S = 16, 5 steps, default TV
+                          weights) through vxtpu's fit_soft(field_kernel=
+                          True): the loss per step; and the checksums of
+                          vxtpu's sample_fields_fwd (lit, interpret mode)
+                          on the fixed inputs of
+                          vxtpu_torch.kernel_check.golden_sample_inputs.
+
+``--only c4`` writes only the last file (a few minutes: the Pallas
+kernels run in interpret mode).
 """
 
 from __future__ import annotations
@@ -67,10 +77,75 @@ def entry_frame() -> np.ndarray:
     return np.asarray(img)
 
 
+C4 = dict(dims=32, height=64, width=64, num_samples=16, steps=5, seed=7)
+
+
+def c4_fit() -> dict:
+    """vxtpu's config-4 fit at 32^3 through the Pallas field kernels, as
+    cmd_train runs it (single view)."""
+    from vxtpu.app.configs import CONFIGS
+    from vxtpu.camera.camera import Camera
+    from vxtpu.render.soft import SoftGrid, render_soft_image
+    from vxtpu.train.loop import TrainConfig, fit_soft
+    from vxtpu.world import procgen
+
+    n = C4["dims"]
+    dims = (n,) * 3
+    settings = CONFIGS["c4_512_diff"].settings
+    truth = SoftGrid.from_hard(procgen.terrain(dims, seed=C4["seed"],
+                                               with_rgb=True))
+    cam = Camera.make(pos=(-0.7 * n, 0.5 * n, 1.1 * n)).look_at(
+        (0.5 * n, 0.5 * n, 0.27 * n))
+    target = render_soft_image(truth, cam, settings, C4["height"],
+                               C4["width"], C4["num_samples"])
+    cfg = TrainConfig(steps=C4["steps"], num_samples=C4["num_samples"],
+                      ray_batch=0, seed=C4["seed"], field_kernel=True)
+    _, _, losses, _ = fit_soft(SoftGrid.zeros(dims), cam, target, settings,
+                               cfg)
+    return dict(C4, losses=[float(v) for v in losses],
+                target_sum=float(np.asarray(target, np.float64).sum()))
+
+
+def sample_checksums() -> dict:
+    """Per-channel sum and sum of |x| (float64) of vxtpu's
+    sample_fields_fwd, lit, on the fixed inputs."""
+    import jax.numpy as jnp
+
+    from vxtpu.render.kernel_sample import (build_field_morton,
+                                            sample_fields_fwd)
+    from vxtpu_torch.kernel_check import golden_sample_inputs
+
+    fields, o, d, t0, dt, S = golden_sample_inputs()
+    D = fields[0].shape[0]
+    tabs = tuple(build_field_morton(jnp.asarray(f)) for f in fields)
+    outs = sample_fields_fwd(tabs, jnp.asarray(o), jnp.asarray(d),
+                             jnp.asarray(t0), jnp.asarray(dt), S, D, lit=True,
+                             interpret=True)
+    outs = [np.asarray(x, np.float64) for x in outs]
+    return dict(D=D, n=int(o.shape[0]), S=S, lit=True,
+                sum=[float(x.sum()) for x in outs],
+                abs_sum=[float(np.abs(x).sum()) for x in outs])
+
+
 def main() -> int:
+    import argparse
+
     from vxtpu_torch.utils import save_png
 
+    p = argparse.ArgumentParser()
+    p.add_argument("--only", choices=["c4"], default=None)
+    args = p.parse_args()
     OUT.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    c4 = dict(source="vxtpu.train.loop.fit_soft(field_kernel=True) and "
+                     "vxtpu.render.kernel_sample.sample_fields_fwd("
+                     "interpret=True)",
+              fit=c4_fit(), sample_fwd=sample_checksums())
+    (OUT / "c4_fit32_seed7.json").write_text(json.dumps(c4, indent=1) + "\n")
+    print(f"c4 fit and sample checksums in {time.perf_counter() - t0:.1f} s:"
+          f" {c4}")
+    if args.only:
+        return 0
     t0 = time.perf_counter()
     fp = fingerprint()
     (OUT / "terrain512_seed7.json").write_text(json.dumps(fp, indent=1) + "\n")

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``vxtpu_torch/csrc``.
 
-The sources are compiled at first use with nvcc into one shared library
-with a plain C interface, loaded with ctypes (no PyTorch headers, so the
-build takes seconds). The library lands in ``vxtpu_torch/_build/`` under
-a name derived from a hash of the sources and flags, so an edit to a
-source rebuilds it. A failed build raises with nvcc's output.
+The sources are compiled at first use with nvcc, one nvcc process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so the build
+takes seconds). The library lands in ``vxtpu_torch/_build/`` under a name
+derived from a hash of the sources and flags, so an edit to a source
+rebuilds it. A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -21,8 +22,7 @@ _PKG = Path(__file__).resolve().parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -58,13 +58,34 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], None
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(f"$ {' '.join(cmd)}\n{out}")
+        if proc.returncode and failed is None:
+            failed = (cmd, proc.returncode, out)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    if failed is None:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode:
+            failed = (cmd, proc.returncode, proc.stdout + proc.stderr)
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, so)
     return so
 
@@ -81,6 +102,12 @@ def load() -> ctypes.CDLL:
     lib.vx_shade.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                              _P, _P]
     lib.vx_shade.restype = _I
+    lib.vx_sample_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P,
+                                  _P]
+    lib.vx_sample_fwd.restype = _I
+    lib.vx_sample_bwd.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P,
+                                  _P, _P, _P, _P, _P]
+    lib.vx_sample_bwd.restype = _I
     lib.vx_error_string.argtypes = [_I]
     lib.vx_error_string.restype = ctypes.c_char_p
     return lib

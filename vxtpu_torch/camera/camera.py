@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from vxtpu_torch.device import DEFAULT, resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
@@ -22,8 +24,9 @@ class Camera:
     fov_y: torch.Tensor
 
     @staticmethod
-    def make(pos, yaw=0.0, pitch=0.0, fov_y_deg=60.0, device=None) -> "Camera":
-        f32 = dict(dtype=torch.float32, device=device)
+    def make(pos, yaw=0.0, pitch=0.0, fov_y_deg=60.0,
+             device=DEFAULT) -> "Camera":
+        f32 = dict(dtype=torch.float32, device=resolve(device))
         return Camera(
             pos=torch.as_tensor(pos, **f32),
             yaw=torch.as_tensor(yaw, **f32),

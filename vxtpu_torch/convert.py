@@ -1,6 +1,8 @@
 """State carried across from the JAX package: vxtpu's arrays, given as
 numpy arrays, into this package's tensors and layouts. Lets the tests feed
-both packages the same world, camera and lights."""
+both packages the same world, camera, lights, soft grids and optimizer
+state. Every function makes its tensors on ``device``, the GPU unless
+asked otherwise (``vxtpu_torch.device``)."""
 
 from __future__ import annotations
 
@@ -8,13 +10,14 @@ import numpy as np
 import torch
 
 from vxtpu_torch.camera.camera import Camera
+from vxtpu_torch.device import DEFAULT, resolve
 from vxtpu_torch.world.lights import Lights
 from vxtpu_torch.world.packed import PackedMorton
 
 
-def occupancy_from_numpy(occ: np.ndarray, device=None) -> torch.Tensor:
+def occupancy_from_numpy(occ: np.ndarray, device=DEFAULT) -> torch.Tensor:
     """uint8 [X, Y, Z] occupancy."""
-    return torch.as_tensor(np.array(occ, np.uint8), device=device)
+    return torch.as_tensor(np.array(occ, np.uint8), device=resolve(device))
 
 
 def _flat_words(rows128: np.ndarray, n: int, dtype: torch.dtype,
@@ -31,11 +34,11 @@ def _flat_words(rows128: np.ndarray, n: int, dtype: torch.dtype,
     if not (np.all(ints == flat) and ints.min(initial=0) >= info.min
             and ints.max(initial=0) <= info.max):
         raise ValueError(f"table words do not fit {dtype} exactly")
-    return torch.as_tensor(ints, device=device).to(dtype)
+    return torch.as_tensor(ints, device=resolve(device)).to(dtype)
 
 
 def packed_morton_from_numpy(words_f32_rows128: np.ndarray, dims,
-                             device=None) -> PackedMorton:
+                             device=DEFAULT) -> PackedMorton:
     """vxtpu ``PackedMorton.words`` -> int16 [S^3] signed words."""
     cells = (dims[0] // 2) * (dims[1] // 2) * (dims[2] // 2)
     return PackedMorton(words=_flat_words(words_f32_rows128, cells,
@@ -43,33 +46,66 @@ def packed_morton_from_numpy(words_f32_rows128: np.ndarray, dims,
 
 
 def material_morton_from_numpy(mats_f32_rows128: np.ndarray, dims,
-                               device=None) -> torch.Tensor:
+                               device=DEFAULT) -> torch.Tensor:
     """vxtpu ``build_material_morton`` table -> int32 [S^3]."""
     cells = (dims[0] // 2) * (dims[1] // 2) * (dims[2] // 2)
     return _flat_words(mats_f32_rows128, cells, torch.int32, device)
 
 
 def rgb8_morton_from_numpy(rgb8_f32_rows128: np.ndarray, dims,
-                           device=None) -> torch.Tensor:
+                           device=DEFAULT) -> torch.Tensor:
     """vxtpu ``build_rgb8_morton`` table -> int32 [X*Y*Z]."""
     return _flat_words(rgb8_f32_rows128, dims[0] * dims[1] * dims[2],
                        torch.int32, device)
 
 
-def camera_from_numpy(pos, yaw, pitch, fov_y, device=None) -> Camera:
+def camera_from_numpy(pos, yaw, pitch, fov_y, device=DEFAULT) -> Camera:
     """vxtpu ``Camera`` fields (fov_y in radians, as vxtpu stores it)."""
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=resolve(device))
     return Camera(pos=torch.tensor(np.asarray(pos, np.float32), **f32),
                   yaw=torch.as_tensor(np.float32(yaw), **f32),
                   pitch=torch.as_tensor(np.float32(pitch), **f32),
                   fov_y=torch.as_tensor(np.float32(fov_y), **f32))
 
 
-def lights_from_numpy(pos, rgb, intensity, device=None) -> Lights:
+def lights_from_numpy(pos, rgb, intensity, device=DEFAULT) -> Lights:
     """vxtpu ``Lights`` fields -> Lights."""
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=resolve(device))
     return Lights(
         pos=torch.tensor(np.asarray(pos, np.float32).reshape(-1, 3), **f32),
         rgb=torch.tensor(np.asarray(rgb, np.float32).reshape(-1, 3), **f32),
         intensity=torch.tensor(
             np.asarray(intensity, np.float32).reshape(-1), **f32))
+
+
+def soft_grid_from_numpy(sigma_raw, rgb_raw, device=DEFAULT):
+    """vxtpu ``SoftGrid`` fields (sigma [X,Y,Z], rgb [3,X,Y,Z])."""
+    from vxtpu_torch.render.soft import SoftGrid
+
+    device = resolve(device)
+    return SoftGrid(
+        sigma_raw=torch.tensor(np.asarray(sigma_raw, np.float32),
+                               device=device),
+        rgb_raw=torch.tensor(np.asarray(rgb_raw, np.float32), device=device))
+
+
+def morton_soft_grid_from_numpy(sigma_tab_rows128, rgb_tab, device=DEFAULT):
+    """vxtpu ``MortonSoftGrid`` tables ([rows, 128] and [3, rows, 128])
+    -> flat Morton tables [D^3] and [3, D^3]."""
+    from vxtpu_torch.render.soft_kernel import MortonSoftGrid
+
+    device = resolve(device)
+    sig = np.asarray(sigma_tab_rows128, np.float32).reshape(-1)
+    rgb = np.asarray(rgb_tab, np.float32).reshape(3, -1)
+    return MortonSoftGrid(sigma_tab=torch.tensor(sig, device=device),
+                          rgb_tab=torch.tensor(rgb, device=device))
+
+
+def adam_state_from_optax_leaves(leaves, template, device=DEFAULT):
+    """optax adam state leaves (``jax.tree_util.tree_leaves`` of vxtpu's
+    opt_state, as numpy arrays) -> the port's optimizer state, shaped like
+    ``template`` (``train.loop.init_opt_state`` of the fit's parameters)."""
+    from vxtpu_torch.train.checkpoint import opt_state_from_leaves
+
+    return opt_state_from_leaves([np.asarray(x) for x in leaves], template,
+                                 device)

@@ -1,22 +1,32 @@
 """Kernels against their plain PyTorch versions on the same inputs, on the
 GPU. Shared by ``chip_smoke.py`` (phase 3) and ``tests/test_torch_cuda.py``.
 
-Limits: hit, voxel, normal and steps equal on >= 99.9% of rays; t within
-rtol 1e-5 where both hit; rgb within 1e-5 on >= 99.9% of pixels. Both
-sides round every operation the same way (the kernels are built with
--fmad=false), so the margin only absorbs rays that graze a voxel edge
-and the last bits of expf/powf.
+March and shade (K1, K2): hit, voxel, normal and steps equal on >= 99.9%
+of rays; t within rtol 1e-5 where both hit; rgb within 1e-5 on >= 99.9%
+of pixels. Both sides round every operation the same way (the kernels
+are built with -fmad=false), so the margin only absorbs rays that graze a
+voxel edge and the last bits of expf/powf.
+
+Field sampling (K3, K4): forward samples within |d| <= 1e-6 (the same
+operations in the same order); backward gradient tables and per-ray
+cotangents within rtol 1e-5 and atol 1e-6 x max|g|, because the kernel's
+float atomicAdd scatter sums in an order that changes from run to run
+(the plain version sums in float64; two runs of the kernel are held to
+the same limits).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.render import kernel_march as km
+from vxtpu_torch.render import kernel_sample as ks
 from vxtpu_torch.render.fused import render_rays_fused
 from vxtpu_torch.render.settings import RenderSettings
+from vxtpu_torch.render.soft_kernel import _enter_dt_soft
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.lights import Lights
 from vxtpu_torch.world.packed import (build_material_morton,
@@ -177,3 +187,131 @@ def check_shade_case(m: dict, what: str) -> None:
                        if k.startswith("rec_")}, what)
     if m["hits"] == 0:
         raise AssertionError(f"{what}: no ray hit")
+
+
+FWD_ATOL = 1e-6
+BWD_RTOL = 1e-5
+BWD_ATOL_REL = 1e-6
+
+SAMPLE_CASES = [f"{r}-{m}" for r in ("outside", "inside", "dt0", "random")
+                for m in ("unlit", "lit")]
+
+
+def allclose_excess(got, want, rtol, atol) -> float:
+    """max(|got - want| / (atol + rtol |want|)): <= 1 means allclose."""
+    lim = atol + rtol * want.abs()
+    return float(((got - want).abs() / lim).max()) if got.numel() else 0.0
+
+
+def grads_excess(got, want) -> float:
+    """Worst allclose excess over a backward's outputs (gradient tables
+    and ray cotangents), atol scaled by each output's max |g|."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        atol = BWD_ATOL_REL * max(float(w.abs().max()), 1e-30)
+        worst = max(worst, allclose_excess(g, w, BWD_RTOL, atol))
+    return worst
+
+
+def sample_fields(D, device, seed=0):
+    """Four random flat Morton tables [D^3] (sigma, r, g, b)."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple((torch.randn(D ** 3, generator=g) * s).to(device)
+                 for s in (2.0, 1.0, 1.0, 1.0))
+
+
+def sample_rays(kind, D, n, device, seed=1):
+    """Rays for the sampling kernels: 'outside' an image-ordered camera
+    view from outside the grid; 'inside' one from inside; 'dt0' half the
+    rays missing the grid (dt == 0) and a quarter with dt forced to 0;
+    'random' scattered origins and directions (incoherent)."""
+    g = torch.Generator().manual_seed(seed)
+    side = int(round(n ** 0.5))
+    if kind in ("outside", "inside", "dt0"):
+        cam = _cameras(D, device)["inside" if kind == "inside"
+                                  else "outside"]
+        o, d = generate_rays(cam, side, n // side)
+        if kind == "dt0":
+            d = torch.where((torch.arange(o.shape[0], device=device)
+                             % 2 == 0)[:, None], -d, d).contiguous()
+    else:
+        o = (torch.rand(n, 3, generator=g) * 1.6 - 0.3) * D
+        d = torch.nn.functional.normalize(torch.randn(n, 3, generator=g),
+                                          dim=1)
+        o, d = o.to(device), d.to(device)
+    return o, d
+
+
+def run_sample_case(name: str, device, D: int = 64, n: int = 16384,
+                    S: int = 64) -> dict:
+    """sample_fields_fwd / _bwd (the kernels) vs their plain versions on
+    one ray set; the backward also against a second kernel run."""
+    kind, mode = name.split("-")
+    lit = mode == "lit"
+    tabs = sample_fields(D, device)
+    o, d = sample_rays(kind, D, n, device)
+    t0, dt, _ = _enter_dt_soft(o, d, (D,) * 3, S, None)
+    if kind == "dt0":
+        dt = torch.where(torch.arange(n, device=device) % 4 == 1, 0.0, dt)
+    t0, dt = t0.contiguous(), dt.contiguous()
+    got = ks.sample_fields_fwd(tabs, o, d, t0, dt, S, D, lit)
+    want = ks.sample_fields_fwd_reference(tabs, o, d, t0, dt, S, D, lit)
+    fwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    g = torch.Generator().manual_seed(2)
+    cots = tuple(torch.randn(S, n, generator=g).to(device)
+                 for _ in range(7 if lit else 4))
+    kb = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit)
+    kb2 = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit)
+    pb = ks.sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, D, lit)
+    flat = [*kb[0], *kb[1:]]
+    flat2 = [*kb2[0], *kb2[1:]]
+    flatp = [*pb[0], *pb[1:]]
+    return dict(
+        n=n, S=S, active=int((dt > 0).sum()),
+        fwd_max_abs=fwd_err,
+        bwd_excess=grads_excess(flat, flatp),
+        tables_excess=grads_excess(flat[:4], flatp[:4]),
+        rays_excess=grads_excess(flat[4:], flatp[4:]),
+        bwd_max_abs=max(float((a - b).abs().max())
+                        for a, b in zip(flat, flatp)),
+        rerun_excess=grads_excess(flat2, flat),
+        finite=all(bool(torch.isfinite(x).all()) for x in (*got, *flat)),
+        zero_rays_clean=bool(all((x[:, dt == 0] == 0).all() for x in got)),
+    )
+
+
+def check_sample_case(m: dict, what: str) -> None:
+    if not m["finite"]:
+        raise AssertionError(f"{what}: non-finite output")
+    if m["fwd_max_abs"] > FWD_ATOL:
+        raise AssertionError(f"{what}: forward differs by "
+                             f"{m['fwd_max_abs']:.3g} > {FWD_ATOL}")
+    for k in ("bwd_excess", "rerun_excess"):
+        if m[k] > 1.0:
+            raise AssertionError(f"{what}: {k} {m[k]:.3g} (> 1 means beyond "
+                                 f"rtol {BWD_RTOL} / atol {BWD_ATOL_REL} "
+                                 f"x max|g|)")
+    if not m["zero_rays_clean"]:
+        raise AssertionError(f"{what}: a ray with dt == 0 sampled non-zero")
+    if m["active"] == 0:
+        raise AssertionError(f"{what}: no ray crosses the grid")
+
+
+def golden_sample_inputs(D: int = 16, n: int = 1024, S: int = 8,
+                         seed: int = 3):
+    """The fixed inputs of the JAX cross-check of K3 (numpy, float32):
+    four fields [D, D, D] (sigma, r, g, b), rays o, d [n, 3] and their
+    segments t0, dt [n] (computed on the CPU), S. tools/make_torch_golden.py
+    runs vxtpu's sample_fields_fwd on them; chip_smoke.py runs the kernel."""
+    rng = np.random.default_rng(seed)
+    fields = [(rng.normal(size=(D,) * 3) * s).astype(np.float32)
+              for s in (2.0, 1.0, 1.0, 1.0)]
+    o = rng.uniform(-0.5 * D, 1.5 * D, (n, 3))
+    o[: n // 4] = rng.uniform(0.1 * D, 0.9 * D, (n // 4, 3))
+    d = rng.uniform(0.1 * D, 0.9 * D, (n, 3)) - o
+    d[n // 2: n // 2 + 64] *= -1.0                     # some miss the grid
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = o.astype(np.float32)
+    t0, dt, _ = _enter_dt_soft(torch.from_numpy(o), torch.from_numpy(d),
+                               (D,) * 3, S, None)
+    return fields, o, d, t0.numpy(), dt.numpy(), S

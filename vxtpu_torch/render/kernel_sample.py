@@ -1,0 +1,309 @@
+"""The trilinear field-sampling kernels and their plain PyTorch versions.
+
+Counterpart of ``vxtpu/render/kernel_sample.py``: ``sample_fields_fwd``
+replaces the Pallas kernel ``_sample_fwd_kernel`` and
+``sample_fields_bwd`` replaces ``_sample_bwd_kernel``, its backward. Both
+kernels are hand-written CUDA C++ in ``vxtpu_torch/csrc/sample.cu``,
+built for sm_90a at first use.
+
+For ray n and sample s < S the forward takes p = o + (t0 + dt (s + 1/2)) d
+and samples four fields (sigma, r, g, b) trilinearly there, returning four
+[S, N] planes, and with ``lit`` three more: the spatial gradient of sigma.
+The backward walks the same samples again, scatter-adds the cotangents
+times the corner weights into four gradient tables, and sums each ray's
+cotangents of o, d, t0 and dt. Rays with dt == 0 give 0 in every channel
+and get no gradient. Gradients flow through the interpolation weights
+only: corner indices are constants, as in vxtpu.
+
+Tables are flat float32 [D^3] in fine-voxel Morton order (voxel (i,j,k) at
+``morton3(i, j, k)``), D a power of two; vxtpu keeps the same order as
+[D^3/128, 128] rows. Semantics are ``render/soft.trilinear`` /
+``trilinear_grad``, including their corner clamp (see ``soft._corners``).
+
+On a CUDA tensor the wrappers launch the kernels or raise; on a CPU tensor
+they run the plain versions, ``sample_fields_fwd_reference`` and
+``sample_fields_bwd_reference``, which repeat the kernels' arithmetic
+operation by operation. The kernels' scatter adds with float atomics in
+an order that changes between runs, so their gradient tables match the
+plain version (which sums in float64) and each other within rounding,
+not bit for bit; vxtpu's TPU scatter is bitwise deterministic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vxtpu_torch.render.kernel_march import _check, _device_kind
+from vxtpu_torch.world.packed import (_morton_order, _require_cubic_pow2,
+                                      morton3, part1by2)
+
+NCH = 4  # sigma, r, g, b
+
+# Kernel launches since the last reset_launch_counts(), by kernel name.
+# Each wrapper adds one where it launches its kernel, and nowhere else.
+LAUNCHES = {"sample_fwd_kernel": 0, "sample_bwd_kernel": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def build_field_morton(field: torch.Tensor) -> torch.Tensor:
+    """[D, D, D] field (D a power of two) -> flat float32 [D^3] in Morton
+    order, on the field's device."""
+    _require_cubic_pow2(tuple(field.shape))
+    return _morton_order(field.to(torch.float32))
+
+
+def field_from_morton(table: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inverse of build_field_morton: flat [dim^3] -> [dim, dim, dim]."""
+    r = torch.arange(dim, dtype=torch.int64, device=table.device)
+    mi = morton3(r[:, None, None], r[None, :, None], r[None, None, :])
+    return table.reshape(-1)[mi.reshape(-1)].reshape(dim, dim, dim)
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions (the kernels' arithmetic, operation by operation)
+
+
+def _positions(o, d, t0, dt, S):
+    """t and p = o + t d of every sample: [S, N] planes."""
+    s = torch.arange(S, dtype=torch.float32, device=o.device) + 0.5
+    t = t0[None, :] + dt[None, :] * s[:, None]
+    px = o[None, :, 0] + t * d[None, :, 0]
+    py = o[None, :, 1] + t * d[None, :, 1]
+    pz = o[None, :, 2] + t * d[None, :, 2]
+    return t, px, py, pz
+
+
+def _corner_setup(px, py, pz, D):
+    """Morton codes of the 8 corners (k = ex*4 + ey*2 + ez) and the
+    fractions, as csrc/sample.cu's corner_setup."""
+    fs, sp = [], []
+    for p in (px, py, pz):
+        q = p - 0.5
+        q0 = torch.floor(q)
+        fs.append(q - q0)
+        i0 = torch.clamp(q0, 0.0, float(D - 1)).to(torch.int64)
+        sp.append((part1by2(i0), part1by2(torch.clamp(i0 + 1, max=D - 1))))
+    sx, sy, sz = sp
+    codes = [sx[(k >> 2) & 1] | (sy[(k >> 1) & 1] << 1) | (sz[k & 1] << 2)
+             for k in range(8)]
+    return codes, fs[0], fs[1], fs[2]
+
+
+def _lerp_ladder(v, fx, fy, fz):
+    c00 = v[0] * (1.0 - fz) + v[1] * fz
+    c01 = v[2] * (1.0 - fz) + v[3] * fz
+    c10 = v[4] * (1.0 - fz) + v[5] * fz
+    c11 = v[6] * (1.0 - fz) + v[7] * fz
+    c0 = c00 * (1.0 - fy) + c01 * fy
+    c1 = c10 * (1.0 - fy) + c11 * fy
+    return c0 * (1.0 - fx) + c1 * fx
+
+
+def _grad_ladder(v, fx, fy, fz):
+    c000, c001, c010, c011, c100, c101, c110, c111 = v
+    gx = (((c100 - c000) * (1.0 - fy) + (c110 - c010) * fy) * (1.0 - fz)
+          + ((c101 - c001) * (1.0 - fy) + (c111 - c011) * fy) * fz)
+    gy = (((c010 - c000) * (1.0 - fx) + (c110 - c100) * fx) * (1.0 - fz)
+          + ((c011 - c001) * (1.0 - fx) + (c111 - c101) * fx) * fz)
+    gz = (((c001 - c000) * (1.0 - fx) + (c101 - c100) * fx) * (1.0 - fy)
+          + ((c011 - c010) * (1.0 - fx) + (c111 - c110) * fx) * fy)
+    return gx, gy, gz
+
+
+def _value_f_grads(v, fx, fy, fz):
+    c00 = v[0] * (1.0 - fz) + v[1] * fz
+    c01 = v[2] * (1.0 - fz) + v[3] * fz
+    c10 = v[4] * (1.0 - fz) + v[5] * fz
+    c11 = v[6] * (1.0 - fz) + v[7] * fz
+    c0 = c00 * (1.0 - fy) + c01 * fy
+    c1 = c10 * (1.0 - fy) + c11 * fy
+    dfx = c1 - c0
+    dfy = (c01 - c00) * (1.0 - fx) + (c11 - c10) * fx
+    dfz = (((v[1] - v[0]) * (1.0 - fy) + (v[3] - v[2]) * fy) * (1.0 - fx)
+           + ((v[5] - v[4]) * (1.0 - fy) + (v[7] - v[6]) * fy) * fx)
+    return dfx, dfy, dfz
+
+
+def _grad_f_grads(v, fx, fy, fz, ggx, ggy, ggz):
+    c000, c001, c010, c011, c100, c101, c110, c111 = v
+    dgx_dfy = (((c110 - c010) - (c100 - c000)) * (1.0 - fz)
+               + ((c111 - c011) - (c101 - c001)) * fz)
+    dgx_dfz = (((c101 - c001) * (1.0 - fy) + (c111 - c011) * fy)
+               - ((c100 - c000) * (1.0 - fy) + (c110 - c010) * fy))
+    dgy_dfx = (((c110 - c100) - (c010 - c000)) * (1.0 - fz)
+               + ((c111 - c101) - (c011 - c001)) * fz)
+    dgy_dfz = (((c011 - c001) * (1.0 - fx) + (c111 - c101) * fx)
+               - ((c010 - c000) * (1.0 - fx) + (c110 - c100) * fx))
+    dgz_dfx = (((c101 - c100) - (c001 - c000)) * (1.0 - fy)
+               + ((c111 - c110) - (c011 - c010)) * fy)
+    dgz_dfy = (((c011 - c010) * (1.0 - fx) + (c111 - c110) * fx)
+               - ((c001 - c000) * (1.0 - fx) + (c101 - c100) * fx))
+    return (ggy * dgy_dfx + ggz * dgz_dfx, ggx * dgx_dfy + ggz * dgz_dfy,
+            ggx * dgx_dfz + ggy * dgy_dfz)
+
+
+def _fetch(tab, codes, act):
+    """The 8 corner values of one table; 0 for inactive rays, which fetch
+    nothing."""
+    return [torch.where(act, tab[torch.where(act, c, 0)], 0.0) for c in codes]
+
+
+def sample_fields_fwd_reference(tabs, o, d, t0, dt, S: int, dim: int,
+                                lit: bool = False):
+    """Plain version of ``sample_fields_fwd``."""
+    act = (dt > 0)[None, :]
+    _, px, py, pz = _positions(o, d, t0, dt, S)
+    codes, fx, fy, fz = _corner_setup(px, py, pz, dim)
+    outs = []
+    for c, tab in enumerate(tabs):
+        v = _fetch(tab, codes, act)
+        outs.append(torch.where(act, _lerp_ladder(v, fx, fy, fz), 0.0))
+        if c == 0 and lit:
+            grads = [torch.where(act, g, 0.0)
+                     for g in _grad_ladder(v, fx, fy, fz)]
+    return tuple(outs + (grads if lit else []))
+
+
+def sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim: int,
+                                lit: bool = False):
+    """Plain version of ``sample_fields_bwd``: the scatter with index_add_,
+    summed in float64 (the exact sums that the kernel's float atomics
+    approximate, in whatever order they land), and the per-ray sums over
+    s in the kernel's order."""
+    S, n = cots[0].shape
+    act = (dt > 0)[None, :]
+    t, px, py, pz = _positions(o, d, t0, dt, S)
+    codes, fx, fy, fz = _corner_setup(px, py, pz, dim)
+    w = ((1.0 - fx, fx), (1.0 - fy, fy), (1.0 - fz, fz))
+    sel = act.expand(S, n)
+    gtabs = []
+    gfx = gfy = gfz = 0.0
+    for c, tab in enumerate(tabs):
+        g = torch.zeros_like(tab, dtype=torch.float64)
+        for k in range(8):
+            ex, ey, ez = (k >> 2) & 1, (k >> 1) & 1, k & 1
+            gc = cots[c] * (w[0][ex] * w[1][ey] * w[2][ez])
+            if c == 0 and lit:
+                dsx = (1.0 if ex else -1.0) * w[1][ey] * w[2][ez]
+                dsy = w[0][ex] * (1.0 if ey else -1.0) * w[2][ez]
+                dsz = w[0][ex] * w[1][ey] * (1.0 if ez else -1.0)
+                gc = gc + cots[4] * dsx + cots[5] * dsy + cots[6] * dsz
+            g.index_add_(0, codes[k][sel], gc[sel].double())
+        gtabs.append(g.float())
+        v = _fetch(tab, codes, act)
+        dfx, dfy, dfz = _value_f_grads(v, fx, fy, fz)
+        gfx = gfx + cots[c] * dfx
+        gfy = gfy + cots[c] * dfy
+        gfz = gfz + cots[c] * dfz
+        if c == 0 and lit:
+            g2 = _grad_f_grads(v, fx, fy, fz, cots[4], cots[5], cots[6])
+    if lit:
+        gfx, gfy, gfz = gfx + g2[0], gfy + g2[1], gfz + g2[2]
+    gdot = gfx * d[None, :, 0] + gfy * d[None, :, 1] + gfz * d[None, :, 2]
+    terms = (gfx, gfy, gfz, gfx * t, gfy * t, gfz * t, gdot,
+             gdot * (torch.arange(S, dtype=torch.float32,
+                                  device=o.device) + 0.5)[:, None])
+    # the kernel's per-ray sums run s = 0..S-1 in order
+    acc = [torch.zeros(n, dtype=torch.float32, device=o.device)
+           for _ in terms]
+    for s in range(S):
+        acc = [a + x[s] for a, x in zip(acc, terms)]
+    acc = [torch.where(act[0], a, 0.0) for a in acc]
+    go = torch.stack(acc[0:3], dim=-1)
+    gd = torch.stack(acc[3:6], dim=-1)
+    return tuple(gtabs), go, gd, acc[6], acc[7]
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _check_rays(tabs, o, d, t0, dt, dim):
+    device = o.device
+    _device_kind(device)
+    _require_cubic_pow2((dim,) * 3)
+    if len(tabs) != NCH:
+        raise ValueError(f"expected {NCH} tables, got {len(tabs)}")
+    f32 = torch.float32
+    for c, tab in enumerate(tabs):
+        _check(f"tabs[{c}]", tab, f32, (dim ** 3,), device)
+    n = o.shape[0]
+    _check("o", o, f32, (n, 3), device)
+    _check("d", d, f32, (n, 3), device)
+    _check("t0", t0, f32, (n,), device)
+    _check("dt", dt, f32, (n,), device)
+    return device, n
+
+
+def _ptrs(xs):
+    return (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
+
+
+def sample_fields_fwd(tabs, o, d, t0, dt, S: int, dim: int,
+                      lit: bool = False):
+    """Raw trilinear samples along rays: (sigma, r, g, b[, gsx, gsy, gsz]),
+    each float32 [S, N]. tabs: four flat Morton tables [dim^3]; o, d
+    [N, 3]; t0, dt [N]. CUDA tensors launch ``sample_fwd_kernel``; CPU
+    tensors run the plain version."""
+    device, n = _check_rays(tabs, o, d, t0, dt, dim)
+    if device.type == "cpu":
+        return sample_fields_fwd_reference(tabs, o, d, t0, dt, S, dim, lit)
+
+    from vxtpu_torch import _build
+
+    lib = _build.load()
+    outs = [torch.empty((S, n), dtype=torch.float32, device=device)
+            for _ in range(7 if lit else 4)]
+    if n and S:
+        rc = lib.vx_sample_fwd(
+            o.data_ptr(), d.data_ptr(), t0.data_ptr(), dt.data_ptr(), n, S,
+            _ptrs(tabs), dim, int(lit), _ptrs(outs),
+            torch.cuda.current_stream(device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"sample_fwd_kernel launch failed: "
+                               f"{_build.error_string(rc)}")
+        LAUNCHES["sample_fwd_kernel"] += 1
+    return tuple(outs)
+
+
+def sample_fields_bwd(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False):
+    """Backward of ``sample_fields_fwd``: cotangents ``cots`` of its
+    outputs (4, or 7 when lit, each [S, N]) -> (gradient tables (4 x
+    [dim^3]), go [N, 3], gd [N, 3], gt0 [N], gdt [N]). CUDA tensors
+    launch ``sample_bwd_kernel``; CPU tensors run the plain version."""
+    device, n = _check_rays(tabs, o, d, t0, dt, dim)
+    if len(cots) != (7 if lit else 4):
+        raise ValueError(f"expected {7 if lit else 4} cotangents, "
+                         f"got {len(cots)}")
+    S = cots[0].shape[0] if cots[0].dim() == 2 else -1
+    for c, x in enumerate(cots):
+        _check(f"cots[{c}]", x, torch.float32, (S, n), device)
+    if device.type == "cpu":
+        return sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim, lit)
+
+    from vxtpu_torch import _build
+
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=device)
+    gtabs = [torch.zeros(dim ** 3, **f32) for _ in range(NCH)]
+    go = torch.empty((n, 3), **f32)
+    gd = torch.empty((n, 3), **f32)
+    gt0 = torch.empty(n, **f32)
+    gdt = torch.empty(n, **f32)
+    if n:
+        rc = lib.vx_sample_bwd(
+            o.data_ptr(), d.data_ptr(), t0.data_ptr(), dt.data_ptr(), n, S,
+            _ptrs(tabs), dim, int(lit), _ptrs(cots), _ptrs(gtabs),
+            go.data_ptr(), gd.data_ptr(), gt0.data_ptr(), gdt.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"sample_bwd_kernel launch failed: "
+                               f"{_build.error_string(rc)}")
+        LAUNCHES["sample_bwd_kernel"] += 1
+    return tuple(gtabs), go, gd, gt0, gdt

@@ -1,0 +1,254 @@
+"""Inverse rendering: fit a SoftGrid (voxel densities and colours), and
+optionally the camera pose, to target images (counterpart of
+``vxtpu/train/loop.py``).
+
+  fit_soft        one target view (+ optional camera-pose refinement);
+  fit_soft_views  N posed views, rays drawn from all of them.
+
+PyTorch runs eagerly, so a step is a plain loop body: loss, backward,
+``torch.optim.Adam`` (vxtpu's ``optax.adam``: betas (0.9, 0.999), eps
+1e-8, the same update up to rounding). With ``field_kernel`` the scene is
+trained in fine-voxel Morton layout through the sampling kernels
+(``render/soft_kernel.py``) with the Morton TV prior; otherwise through
+the plain soft renderer and autograd.
+
+The optimizer state handed in and out (``opt_state``) is a list of
+``AdamGroupState`` in optax's order: one group (``soft``), or two
+(``cam``, then ``soft``) when the camera is optimised, as
+``optax.multi_transform`` keeps them; within a group the step count and
+the moments of each parameter in field order. So a state saved by either
+package resumes in the other (``train/checkpoint.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from vxtpu_torch.camera.camera import Camera
+from vxtpu_torch.camera.rays import generate_rays
+from vxtpu_torch.render.settings import RenderSettings
+from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
+from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
+                                            render_soft_rays_kernel)
+from vxtpu_torch.train.loss import mse, tv_loss, tv_loss_morton
+
+BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+CAM_FIELDS = ("pos", "yaw", "pitch", "fov_y")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """vxtpu's TrainConfig without ``field_window`` (a TPU window size).
+    ``use_custom_vjp`` and ``occ_mask`` are not ported yet and raise."""
+
+    lr: float = 5e-2
+    steps: int = 200
+    num_samples: int = 128          # ray samples for the soft renderer
+    tv_sigma: float = 1e-4          # TV regulariser weight on densities
+    tv_rgb: float = 1e-5
+    ray_batch: int = 0              # 0 = all rays every step; else minibatch
+    optimize_camera: bool = False
+    cam_lr: float = 1e-3
+    seed: int = 0
+    nan_check_every: int = 25       # pull the loss to the host every k
+    use_custom_vjp: bool = False
+    occ_mask: bool = False
+    mask_scale: int = 4
+    mask_refresh: int = 50
+    mask_tau: float = 0.01
+    field_kernel: bool = False      # train through the sampling kernels
+
+
+@dataclasses.dataclass
+class AdamGroupState:
+    """Adam's state for one parameter group: the step count and the first
+    and second moments, one tensor per parameter."""
+
+    count: int
+    mu: list
+    nu: list
+
+
+def _loss_fn(model, cam: Camera, o, d, target, hw,
+             settings: RenderSettings, cfg: TrainConfig):
+    """target is flat [N, 3]. When the camera is optimised the rays come
+    from the current pose (full image, hw = (H, W)), so the pose gets
+    gradients through ray generation."""
+    if cfg.optimize_camera:
+        o, d = generate_rays(cam, *hw)
+    if cfg.field_kernel:
+        pred = render_soft_rays_kernel(model, o, d, settings,
+                                       cfg.num_samples)
+        loss = mse(pred, target)
+        if cfg.tv_sigma:
+            loss = loss + cfg.tv_sigma * tv_loss_morton(model.sigma_tab)
+        if cfg.tv_rgb:
+            loss = loss + cfg.tv_rgb * tv_loss_morton(model.rgb_tab)
+        return loss
+    pred, _ = render_soft_rays(model, o, d, settings, cfg.num_samples)
+    loss = mse(pred, target)
+    if cfg.tv_sigma:
+        loss = loss + cfg.tv_sigma * tv_loss(model.sigma_raw)
+    if cfg.tv_rgb:
+        loss = loss + cfg.tv_rgb * tv_loss(model.rgb_raw)
+    return loss
+
+
+def make_optimizer(cfg: TrainConfig, params, cam_params=None):
+    """The Adam that the fit uses: ``params`` (the scene's tensors) at
+    ``cfg.lr``, and with ``cfg.optimize_camera`` the camera's four
+    tensors at ``cfg.cam_lr`` (every leaf, as optax treats them)."""
+    groups = [dict(params=list(params), lr=cfg.lr, name="soft")]
+    if cfg.optimize_camera:
+        groups.insert(0, dict(params=list(cam_params), lr=cfg.cam_lr,
+                              name="cam"))
+    return torch.optim.Adam(groups, betas=BETAS, eps=ADAM_EPS)
+
+
+def init_opt_state(groups) -> list:
+    """A fresh state (count 0, zero moments) for parameter groups given
+    as lists of tensors, in optax's order: the template that
+    ``checkpoint.load_opt_state`` fills."""
+    return [AdamGroupState(0, [torch.zeros_like(p) for p in ps],
+                           [torch.zeros_like(p) for p in ps])
+            for ps in groups]
+
+
+def read_opt_state(opt: torch.optim.Optimizer) -> list:
+    out = []
+    for group in opt.param_groups:
+        ps = group["params"]
+        states = [opt.state.get(p, {}) for p in ps]
+        count = int(states[0]["step"]) if states[0] else 0
+        out.append(AdamGroupState(
+            count,
+            [s["exp_avg"].detach().clone() if s else torch.zeros_like(p)
+             for s, p in zip(states, ps)],
+            [s["exp_avg_sq"].detach().clone() if s else torch.zeros_like(p)
+             for s, p in zip(states, ps)]))
+    return out
+
+
+def write_opt_state(opt: torch.optim.Optimizer, state: list) -> None:
+    if len(state) != len(opt.param_groups):
+        raise ValueError(f"optimizer state has {len(state)} groups, the "
+                         f"optimizer {len(opt.param_groups)}")
+    for group, gs in zip(opt.param_groups, state):
+        for p, m, v in zip(group["params"], gs.mu, gs.nu, strict=True):
+            if m.shape != p.shape or v.shape != p.shape:
+                raise ValueError(f"optimizer moment of shape "
+                                 f"{tuple(m.shape)} for a parameter of "
+                                 f"shape {tuple(p.shape)}")
+            if gs.count == 0:
+                opt.state.pop(p, None)
+                continue
+            opt.state[p] = {
+                "step": torch.tensor(float(gs.count), dtype=torch.float32),
+                "exp_avg": m.detach().to(p.device, torch.float32).clone(),
+                "exp_avg_sq": v.detach().to(p.device, torch.float32).clone(),
+            }
+
+
+def fit_soft_views(soft: SoftGrid, cams: list, target_imgs: torch.Tensor,
+                   settings: RenderSettings, cfg: TrainConfig,
+                   log_fn: Callable[[int, float], None] | None = None,
+                   opt_state=None, step_hook=None):
+    """Fit a soft grid to V posed views (cams; target_imgs [V, H, W, 3]);
+    each step draws a ray minibatch from all views' rays (cfg.ray_batch;
+    0 = every ray of every view). Poses are known and fixed. Returns
+    (soft', losses [steps], opt_state')."""
+    if target_imgs.dim() != 4 or target_imgs.shape[0] != len(cams):
+        raise ValueError("target_imgs must be [V, H, W, 3] for V cameras")
+    V, H, W = target_imgs.shape[:3]
+    rays = [generate_rays(c, H, W) for c in cams]
+    o = torch.cat([r[0] for r in rays])
+    d = torch.cat([r[1] for r in rays])
+    cfg = dataclasses.replace(cfg, optimize_camera=False)
+    soft, _, losses, opt_state = _fit_rays(
+        soft, cams[0], o, d, target_imgs.reshape(-1, 3), (H, W), settings,
+        cfg, log_fn, opt_state, step_hook)
+    return soft, losses, opt_state
+
+
+def fit_soft(soft: SoftGrid, cam: Camera, target_img: torch.Tensor,
+             settings: RenderSettings, cfg: TrainConfig,
+             log_fn: Callable[[int, float], None] | None = None,
+             opt_state=None, step_hook=None):
+    """Fit soft grid (and, with cfg.optimize_camera, the camera pose) to
+    target_img [H, W, 3] seen from cam. ``opt_state`` resumes Adam from a
+    checkpoint; ``step_hook(i, loss)`` is called after every step (the
+    loss tensor, not synchronised). Returns (soft', cam', losses [steps],
+    opt_state')."""
+    H, W = target_img.shape[:2]
+    o, d = generate_rays(cam, H, W)
+    return _fit_rays(soft, cam, o, d, target_img.reshape(-1, 3), (H, W),
+                     settings, cfg, log_fn, opt_state, step_hook)
+
+
+def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
+              settings: RenderSettings, cfg: TrainConfig,
+              log_fn=None, opt_state=None, step_hook=None):
+    """The loop. Minibatch indices come from a torch.Generator seeded
+    with cfg.seed: the same seed draws other rays than vxtpu's
+    jax.random, so minibatched runs of the two packages differ."""
+    if cfg.use_custom_vjp:
+        raise NotImplementedError(
+            "use_custom_vjp: vxtpu's custom-VJP scan (render/vjp.py) is not "
+            "ported; see ROADMAP.md queue 1 #13 (field_kernel=True is the "
+            "port's fast path)")
+    if cfg.occ_mask:
+        raise NotImplementedError(
+            "occ_mask: the occupancy mask (render/occmask.py) is not ported "
+            "yet; see ROADMAP.md queue 1 #11")
+    minibatched = bool(cfg.ray_batch) and cfg.ray_batch < o.shape[0]
+    if cfg.optimize_camera and minibatched:
+        raise ValueError("optimize_camera requires full-image steps "
+                         "(ray_batch=0)")
+    cls = MortonSoftGrid if cfg.field_kernel else SoftGrid
+    start = MortonSoftGrid.from_soft(soft) if cfg.field_kernel else soft
+    params = [getattr(start, f.name).detach().clone().requires_grad_(True)
+              for f in dataclasses.fields(start)]
+    model = cls(*params)
+    cam_params = [getattr(cam, f).detach().clone().requires_grad_(
+        cfg.optimize_camera) for f in CAM_FIELDS]
+    opt = make_optimizer(cfg, params, cam_params)
+    if opt_state is not None:
+        write_opt_state(opt, opt_state)
+
+    gen = torch.Generator().manual_seed(cfg.seed)
+    n = o.shape[0]
+    losses = []
+    for i in range(cfg.steps):
+        if minibatched:
+            idx = torch.randint(0, n, (cfg.ray_batch,), generator=gen)
+            idx = idx.to(o.device)
+            o_b, d_b, t_b = o[idx], d[idx], target[idx]
+        else:
+            o_b, d_b, t_b = o, d, target
+        opt.zero_grad(set_to_none=True)
+        loss = _loss_fn(model, Camera(*cam_params), o_b, d_b, t_b, hw,
+                        settings, cfg)
+        loss.backward()
+        opt.step()
+        loss = loss.detach()
+        losses.append(loss)
+        if step_hook is not None:
+            step_hook(i, loss)
+        if cfg.nan_check_every and (i % cfg.nan_check_every == 0
+                                    or i == cfg.steps - 1):
+            lv = float(loss)
+            if not (lv == lv and abs(lv) != float("inf")):
+                raise FloatingPointError(
+                    f"fit_soft: non-finite loss {lv} at step {i}")
+        if log_fn is not None and (i % 20 == 0 or i == cfg.steps - 1):
+            log_fn(i, float(loss))
+    losses = [float(v) for v in losses]
+    out = cls(*[p.detach() for p in params])
+    if cfg.field_kernel:
+        out = out.to_soft()
+    cam_out = Camera(*[p.detach() for p in cam_params])
+    return out, cam_out, losses, read_opt_state(opt)

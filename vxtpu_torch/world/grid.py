@@ -13,6 +13,8 @@ import dataclasses
 
 import torch
 
+from vxtpu_torch.device import DEFAULT, resolve
+
 # Material palette (id 0 = empty and never shaded): water, sand, grass,
 # stone, snow and two accents. Float32 values equal vxtpu's.
 MATERIAL_RGB = (
@@ -27,9 +29,10 @@ MATERIAL_RGB = (
 )
 
 
-def material_rgb(device=None) -> torch.Tensor:
+def material_rgb(device=DEFAULT) -> torch.Tensor:
     """The palette as a float32 [8, 3] tensor on ``device``."""
-    return torch.tensor(MATERIAL_RGB, dtype=torch.float32, device=device)
+    return torch.tensor(MATERIAL_RGB, dtype=torch.float32,
+                        device=resolve(device))
 
 
 @dataclasses.dataclass(frozen=True)

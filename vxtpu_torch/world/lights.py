@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from vxtpu_torch.device import DEFAULT, resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class Lights:
@@ -23,16 +25,18 @@ class Lights:
         return self.pos.shape[0]
 
     @staticmethod
-    def single(pos, rgb=(1.0, 1.0, 1.0), intensity=1.0, device=None) -> "Lights":
+    def single(pos, rgb=(1.0, 1.0, 1.0), intensity=1.0,
+               device=DEFAULT) -> "Lights":
         return Lights.make([pos], [rgb], [intensity], device=device)
 
     @staticmethod
-    def none(device=None) -> "Lights":
+    def none(device=DEFAULT) -> "Lights":
         return Lights.make([], [], [], device=device)
 
     @staticmethod
-    def make(pos_list, rgb_list, intensity_list, device=None) -> "Lights":
-        f32 = dict(dtype=torch.float32, device=device)
+    def make(pos_list, rgb_list, intensity_list,
+             device=DEFAULT) -> "Lights":
+        f32 = dict(dtype=torch.float32, device=resolve(device))
         return Lights(
             pos=torch.tensor(pos_list, **f32).reshape(-1, 3),
             rgb=torch.tensor(rgb_list, **f32).reshape(-1, 3),

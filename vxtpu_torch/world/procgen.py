@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from vxtpu_torch.device import DEFAULT, resolve
 from vxtpu_torch.world.grid import VoxelGrid, material_rgb
 
 _M32 = 0xFFFFFFFF
@@ -79,9 +80,10 @@ def fractal_noise2(x, y, seed: int, octaves: int = 4, lacunarity: float = 2.0,
 
 def terrain(dims: tuple[int, int, int], seed: int = 0,
             feature_scale: float = 0.25, water_frac: float = 0.22,
-            with_rgb: bool = False, device=None) -> VoxelGrid:
+            with_rgb: bool = False, device=DEFAULT) -> VoxelGrid:
     """Heightmap terrain with material bands by altitude (water, sand,
     grass, stone, snow)."""
+    device = resolve(device)
     X, Y, Z = dims
     f32 = dict(dtype=torch.float32, device=device)
     xs = (torch.arange(X, **f32) + 0.5) / X
@@ -114,8 +116,9 @@ def terrain(dims: tuple[int, int, int], seed: int = 0,
 
 
 def shell_sphere(dims: tuple[int, int, int], material: int = 4,
-                 device=None) -> VoxelGrid:
+                 device=DEFAULT) -> VoxelGrid:
     """A hollow sphere test scene."""
+    device = resolve(device)
     X, Y, Z = dims
     f32 = dict(dtype=torch.float32, device=device)
     r = 0.35 * min(dims)
@@ -128,8 +131,8 @@ def shell_sphere(dims: tuple[int, int, int], material: int = 4,
 
 
 def solid_box(dims: tuple[int, int, int], lo, hi, material: int = 3,
-              device=None) -> VoxelGrid:
+              device=DEFAULT) -> VoxelGrid:
     """Axis-aligned solid box [lo, hi)."""
-    occ = torch.zeros(dims, dtype=torch.uint8, device=device)
+    occ = torch.zeros(dims, dtype=torch.uint8, device=resolve(device))
     occ[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = material
     return VoxelGrid(occupancy=occ)
