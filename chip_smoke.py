@@ -32,11 +32,25 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              library yardstick, used nowhere in the port), and a profiled
              step's device time by kernel;
   7. cross   the fit at 32^3 against the JAX package's loss trajectory and
-             K3's outputs against its checksums (vxtpu_torch/data).
+             K3's outputs against its checksums (vxtpu_torch/data);
+  8. pipeline the composable render pipeline (render / animate / bench
+             --kernel pallas) through the row-major march kernel K5:
+             K5 against its plain version (64^3 and non-cubic cases, then
+             every primary and shadow ray of the c3_256_shadows frame,
+             exactly); the c3 frame (256^3 terrain seed 7, per-voxel RGB,
+             1024x1024, full + shadows + fog) through render_image, with
+             and without the face-texture atlas; K5 against K1 (march-
+             only) on the 512^3/1080p lambert frame of phase 4; the animate
+             and bench commands; K5 and the row-major table against the
+             JAX package's checksums (vxtpu_torch/data/packed_seed7.json).
+             Runs between phases 5 and 6, on phase 4's 512^3 world.
 
 Phases 3 and 6 also hold K3/K4 against their plain versions: forward
 |d| <= 1e-6; backward within rtol 1e-5 / atol 1e-6 x max|g| (the float
 atomics of the scatter sum in a varying order).
+
+Phase 8 holds K5 to its plain version exactly: hit, voxel, normal and
+steps equal on every ray, |t difference| <= 1e-6.
 
 The line before the last is one JSON object with the kernels' counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
@@ -73,6 +87,10 @@ FWD_OPS, FWD_OPS_LIT = 113, 39
 BWD_OPS, BWD_OPS_LIT = 257, 156
 # float32 operations per ray (set-up, shading) and per DDA step of K1
 MARCH_OPS_RAY, MARCH_OPS_STEP = 60, 20
+# float32 operations of K5 (csrc/march_packed.cu) per ray (inverse
+# directions, slab clip, entry voxel) and per iteration (three axis exits,
+# their minimum, the next voxel's position, floor and clamps, the tests)
+K5_OPS_RAY, K5_OPS_STEP = 40, 45
 
 
 def _require_checkout() -> None:
@@ -436,6 +454,284 @@ def cross_entry_frame(device) -> None:
     if close < 0.995:
         raise AssertionError(f"entry frame: only {close:.4f} of pixels "
                              f"within 2/255 of JAX's")
+
+
+def k5_bound(n, steps, with_tmax) -> dict:
+    """Least time (ms) of one K5 launch over n rays that take ``steps``
+    iterations in all: each ray's inputs (o, d: 24 B; t_max: 4 B) read
+    once and its outputs (hit 1, t 4, voxel 12, normal 12, steps 4 B)
+    written once, over the HBM rate; the table words the marches read are
+    not counted (as for K1), so this is a lower bound. Operations:
+    K5_OPS_RAY per ray and K5_OPS_STEP per iteration over the float32
+    peak."""
+    b = n * (24 + (4 if with_tmax else 0) + 33)
+    f = n * K5_OPS_RAY + steps * K5_OPS_STEP
+    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
+    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def _run_cli(argv) -> list:
+    """Run a vxtpu_torch command in this process; its stdout lines."""
+    import contextlib
+    import io
+
+    from vxtpu_torch.app import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv}: exit code {rc}")
+    return buf.getvalue().splitlines()
+
+
+def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
+                   runs=RUNS, save=None, frames=24, case_d=64,
+                   case_hw=256, cli_size=()) -> dict:
+    """Phase 8: the composable pipeline through K5 (see the module
+    docstring). big_grid: phase 4's world, for the K5-vs-K1 frame."""
+    import tempfile
+
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.app.run import build_scene
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render import kernel_packed as kp
+    from vxtpu_torch.render.pipeline import (render_image, render_rays,
+                                             shadow_ray_batch)
+    from vxtpu_torch.utils import save_png
+    from vxtpu_torch.world.atlas import build_procedural_atlas
+    from vxtpu_torch.world.packed import build_packed
+
+    err = 0.0
+    for name in kc.PACKED_CASES:
+        m = kc.run_packed_case(name, device, D=case_d, h=case_hw, w=case_hw)
+        print(f"phase 8 pipeline: K5 {name}: {m['hits']} hits of {m['n']}; "
+              f"mismatches hit {m['hit']} voxel {m['voxel']} normal "
+              f"{m['normal']} steps {m['steps']}; max |dt| {m['t_abs']:.3g}; "
+              f"{m['steps_total']} iterations")
+        kc.check_packed_case(m, f"K5 {name}")
+        err = max(err, m["t_abs"])
+
+    cfg = CONFIGS["c3_256_shadows"]
+    dims = (D,) * 3
+    t0 = time.perf_counter()
+    grid, accel, cam, lights = build_scene(cfg, dims, "packed", device)
+    _sync(device)
+    print(f"phase 8 pipeline: {cfg.name} at {D}^3: terrain + row-major table "
+          f"in {time.perf_counter() - t0:.2f} s; table "
+          f"{accel.words.numel() * 4 / 2**20:.0f} MiB int32")
+    settings = cfg.settings
+    ms = settings.resolve_max_steps(dims)
+    o, d = generate_rays(cam, h, w)
+    rec = kp.march_packed(o, d, accel, dims, ms)
+    ref = kp.march_packed_reference(o, d, accel, dims, ms)
+    m = kc.packed_mismatch(rec, ref)
+    kc.check_packed(m, "K5 c3 primary rays")
+    err = max(err, m["t_abs"])
+    sp, sd, stm = shadow_ray_batch(rec, o, d, lights.pos[0])
+    srec = kp.march_packed(sp, sd, accel, dims, ms, t_max=stm)
+    sref = kp.march_packed_reference(sp, sd, accel, dims, ms, t_max=stm)
+    sm = kc.packed_mismatch(srec, sref)
+    kc.check_packed(sm, "K5 c3 shadow rays")
+    err = max(err, sm["t_abs"])
+    steps = int(rec.steps.sum(dtype=torch.int64))
+    ssteps = int(srec.steps.sum(dtype=torch.int64))
+    print(f"phase 8 pipeline: K5 vs plain on all {m['n']} primary rays of the "
+          f"{h}x{w} frame: mismatches hit/voxel/normal/steps "
+          f"{m['hit']}/{m['voxel']}/{m['normal']}/{m['steps']}, max |dt| "
+          f"{m['t_abs']:.3g}; on their {sm['n']} shadow rays "
+          f"{sm['hit']}/{sm['voxel']}/{sm['normal']}/{sm['steps']}, max |dt| "
+          f"{sm['t_abs']:.3g}")
+
+    # the main path, counted: the frame, and the frame with the atlas
+    atlas = build_procedural_atlas(tex_size=16, device=device)
+    kp.reset_launch_counts()
+    img = render_image(kp.make_march_packed, grid, cam, lights, settings, h,
+                       w, accel)
+    img_atlas = render_image(kp.make_march_packed, grid, cam, lights,
+                             settings, h, w, accel, atlas=atlas)
+    _sync(device)
+    launches = dict(kp.LAUNCHES)
+    hit_frac = float(rec.hit.float().mean())
+    for what, im in (("frame", img), ("atlas frame", img_atlas)):
+        if im.shape != (h, w, 3) or not bool(torch.isfinite(im).all()):
+            raise AssertionError(f"c3 {what}: not finite or misshapen")
+    print(f"phase 8 pipeline: launches during the two c3 frames (plain, "
+          f"atlas): {launches}; finite; hit fraction {hit_frac:.4f}; the "
+          f"atlas changes {int((img != img_atlas).any(-1).sum())} pixels")
+    if device.type == "cuda" and launches["march_packed_kernel"] != 4:
+        raise AssertionError(f"expected 2 K5 launches per frame: {launches}")
+    if not 0.0 < hit_frac < 1.0:
+        raise AssertionError(f"c3 hit fraction {hit_frac}")
+    if save:
+        Path(save).mkdir(parents=True, exist_ok=True)
+        save_png(str(Path(save) / "c3_pipeline.png"), img)
+        save_png(str(Path(save) / "c3_pipeline_atlas.png"), img_atlas)
+
+    # measurement (not counted)
+    frame_ms = median_ms(lambda: render_image(
+        kp.make_march_packed, grid, cam, lights, settings, h, w, accel),
+        device, runs)
+    k5_ms = median_ms(lambda: kp.march_packed(o, d, accel, dims, ms), device,
+                      runs)
+    k5_shadow_ms = median_ms(lambda: kp.march_packed(sp, sd, accel, dims, ms,
+                                                     t_max=stm), device, runs)
+    plain_ms = median_ms(lambda: kp.march_packed_reference(
+        o, d, accel, dims, ms), device, 3)
+    bound = k5_bound(h * w, steps, False)
+    times = dict(ms=k5_ms, plain_ms=plain_ms, shadow_ms=k5_shadow_ms,
+                 frame_ms=frame_ms, steps=steps, shadow_steps=ssteps,
+                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    sb = k5_bound(h * w, ssteps, True)
+    print(f"phase 8 pipeline: c3 frame {frame_ms:.3f} ms "
+          f"({h * w / frame_ms / 1e3:.1f} Mrays/s); K5 alone on the primary "
+          f"rays {k5_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']}), on the shadow rays {k5_shadow_ms:.3f} ms "
+          f"(bound {sb['bound_ms']:.4f} ms by {sb['bound_by']}); plain "
+          f"{plain_ms:.1f} ms; rec.steps total primary {steps} shadow "
+          f"{ssteps}")
+    if device.type == "cuda":
+        kernels, dense, wall = _profile_step(
+            lambda: render_image(kp.make_march_packed, grid, cam, lights,
+                                 settings, h, w, accel), device, big=h * w)
+        busy = sum(kernels.values())
+        k5_dev = sum(v for k, v in kernels.items() if "march_packed" in k)
+        print(f"phase 8 pipeline: profiled c3 frame: wall {wall:.3f} ms, "
+              f"device busy {busy:.3f} ms ({busy / wall * 100:.1f}%), K5 "
+              f"(2 launches) {k5_dev:.3f} ms, the rest (torch shading, rays, "
+              f"shadow set-up) {busy - k5_dev:.3f} ms")
+        for name, kms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"phase 8 pipeline:   kernel {kms:8.3f} ms  {name[:90]}")
+        times["profile"] = dict(wall_ms=wall, busy_ms=busy, k5_ms=k5_dev)
+    del grid, img, img_atlas, rec, ref, srec, sref
+
+    # K5 against K1 (march-only) on phase 4's lambert frame
+    B = big_grid.dims[0]
+    bdims = big_grid.dims
+    light, requests = _main_scene(device, B)
+    _, bcam, lam, _ = requests[0]
+    bo, bd = generate_rays(bcam, bh, bw)
+    bpacked = build_packed(big_grid.occupancy)
+    occ_flat = big_grid.occupancy.reshape(-1)
+    m5 = kp.make_march_packed(occ_flat, bdims, lam, bpacked)
+    m1 = km.make_march(occ_flat, bdims, lam)
+    albedo = big_grid.albedo()
+    rgb5, r5 = render_rays(m5, bo, bd, albedo, bdims, light, lam)
+    rgb1, r1 = render_rays(m1, bo, bd, albedo, bdims, light, lam)
+    either = r5.hit | r1.hit
+    same = ((r5.hit == r1.hit) & (r5.t == r1.t)
+            & (r5.voxel == r1.voxel).all(-1)
+            & (r5.normal == r1.normal).all(-1))
+    n_hit = int(either.sum())
+    share = float((same & either).sum()) / max(n_hit, 1)
+    misses = ~either
+    miss_vox = int(((r5.voxel != r1.voxel).any(-1) & misses).sum())
+    miss_steps = int(((r5.steps != r1.steps) & misses).sum())
+    img_same = int(((rgb5 - rgb1).abs() > kc.RGB_ATOL).any(-1).sum())
+    b5 = median_ms(lambda: m5(bo, bd), device, runs)
+    b1 = median_ms(lambda: m1(bo, bd), device, runs)
+    f5 = median_ms(lambda: render_rays(m5, bo, bd, albedo, bdims, light,
+                                       lam), device, runs)
+    f1 = median_ms(lambda: render_rays(m1, bo, bd, albedo, bdims, light,
+                                       lam), device, runs)
+    s5 = int(r5.steps.sum(dtype=torch.int64))
+    print(f"phase 8 pipeline: K5 vs K1 at {B}^3 {bh}x{bw} lambert: hit, t, "
+          f"voxel and normal agree on {share * 100:.4f}% of the {n_hit} rays "
+          f"that either hits; of the {int(misses.sum())} misses, voxel "
+          f"differs on {miss_vox} and steps on {miss_steps} (K5's contract); "
+          f"rgb beyond {kc.RGB_ATOL} on {img_same} px. K5 alone {b5:.3f} ms "
+          f"on a {bpacked.words.numel() * 4 / 2**20:.0f} MiB table, K1 "
+          f"march-only {b1:.3f} ms; pipeline frame K5 {f5:.3f} ms, K1 "
+          f"{f1:.3f} ms; K5 iterations {s5}")
+    if share < 0.999:
+        raise AssertionError(f"K5 and K1 agree on only {share:.5f} of the "
+                             f"hit rays")
+    times["big"] = dict(k5_ms=b5, k1_ms=b1, frame_k5_ms=f5, frame_k1_ms=f1,
+                        agree=share, steps=s5)
+    if device.type == "cuda":
+        # device times: events around one call measure its launch too
+        for tag, fn in (("K5", lambda: m5(bo, bd)),
+                        ("K1", lambda: m1(bo, bd))):
+            kernels, _, _ = _profile_step(fn, device, big=bh * bw, steps=5)
+            dev = max(kernels.values())
+            times["big"][f"{tag.lower()}_device_ms"] = dev
+            print(f"phase 8 pipeline: {tag} march alone at {B}^3 {bh}x{bw}: "
+                  f"{dev:.4f} ms of device time per launch (profiler, 5 "
+                  f"launches)")
+        kernels, _, _ = _profile_step(
+            lambda: kp.march_packed(o, d, accel, dims, ms), device, big=h * w,
+            steps=5)
+        times["device_ms"] = max(kernels.values())
+        print(f"phase 8 pipeline: K5 alone on the c3 primary rays: "
+              f"{times['device_ms']:.4f} ms of device time per launch")
+    del bpacked, m5, m1, r5, r1, rgb5, rgb1
+
+    # the commands themselves
+    with tempfile.TemporaryDirectory() as tmp:
+        kp.reset_launch_counts()
+        out = _run_cli(["animate", "--config", "c1_64_flat", "--kernel",
+                        "pallas", "--frames", str(frames), "--out",
+                        str(Path(tmp) / "anim"), "--device", device.type,
+                        *cli_size])
+        fps = json.loads(out[0])
+        n_png = len(list((Path(tmp) / "anim").glob("frame_*.png")))
+        print(f"phase 8 pipeline: animate: {out[0]}; {n_png} PNGs; "
+              f"launches {dict(kp.LAUNCHES)}")
+        if fps.get("sink") != "native" or n_png != frames:
+            raise AssertionError(f"animate: {out}")
+        if device.type == "cuda" and kp.LAUNCHES["march_packed_kernel"] == 0:
+            raise AssertionError("animate did not launch K5")
+    kp.reset_launch_counts()
+    out = _run_cli(["bench", "--config", cfg.name, "--kernel", "pallas",
+                    "--device", device.type, *cli_size])
+    bench = json.loads(out[-1])
+    print(f"phase 8 pipeline: bench: {out[-1]}; launches "
+          f"{dict(kp.LAUNCHES)}")
+    if not bench.get("value", 0) > 0:
+        raise AssertionError(f"bench: {out}")
+    # the default --accel (distfield) makes the factory rebuild the
+    # row-major table in every frame, as vxtpu does; --accel packed builds
+    # it once
+    out = _run_cli(["bench", "--config", cfg.name, "--kernel", "pallas",
+                    "--accel", "packed", "--device", device.type, *cli_size])
+    print(f"phase 8 pipeline: bench --accel packed: {out[-1]}")
+    times.update(fps=fps, bench=bench, bench_packed=json.loads(out[-1]))
+
+    # the JAX package's checksums
+    gold = json.loads((DATA / "packed_seed7.json").read_text())
+    if D == gold["table"]["dims"]:
+        got = kc.table_checksums(accel.words)
+        want = gold["table"]["checksums"]
+        print(f"phase 8 pipeline: {D}^3 seed-7 row-major table checksums "
+              f"{got} vs JAX {want}")
+        if got != want:
+            raise AssertionError("the row-major table differs from JAX's")
+    gm = gold["march"]
+    gdims = (gm["D"],) * 3
+    go, gd, gt = (torch.from_numpy(x).to(device)
+                  for x in kc.golden_march_inputs(gm["D"], gm["n"],
+                                                  gm["seed"]))
+    from vxtpu_torch.world import procgen
+
+    gacc = build_packed(procgen.terrain(gdims, seed=gm["terrain_seed"],
+                                        device=device).occupancy)
+    grec = kp.march_packed(go, gd, gacc, gdims, gm["max_steps"], t_max=gt)
+    gsum = kc.march_checksums(*(x.cpu().numpy() for x in (
+        grec.hit, grec.t, grec.voxel, grec.normal, grec.steps)), gdims)
+    print(f"phase 8 pipeline: K5 on the {gm['n']} fixed rays at "
+          f"{gm['D']}^3: {gsum} vs JAX {gm['checksums']}")
+    for k in ("hits", "steps", "voxel_index_sum", "normal_sum"):
+        if gsum[k] != gm["checksums"][k]:
+            raise AssertionError(f"K5 checksum {k} differs from JAX's")
+    if abs(gsum["t_sum"] - gm["checksums"]["t_sum"]) > \
+            1e-6 * abs(gm["checksums"]["t_sum"]):
+        raise AssertionError("K5 t checksum differs from JAX's")
+    return {"launches": launches, "err": err, "times": times}
 
 
 class StepTimer:
@@ -915,7 +1211,8 @@ def main(argv=None) -> int:
     err3 = phase_kernels(device)
     main_run = phase_main(device, save=args.save)
     cross_fingerprint(main_run["grid"], main_run["accel"])
-    del main_run["grid"], main_run["accel"]
+    del main_run["accel"]
+    pipe = phase_pipeline(device, main_run.pop("grid"), save=args.save)
     cross_entry_frame(device)
     train = phase_train(device)
     cross_train(device)
@@ -955,6 +1252,15 @@ def main(argv=None) -> int:
             "ms": tt[k]["ms"], "plain_ms": tt[k]["plain_ms"],
             "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
             "library_ms": tt[k]["library_ms"]})
+    pt = pipe["times"]
+    kernels.append({
+        "name": "march_packed_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/march_packed.cu",
+        "replaces": "vxtpu/render/kernel_pallas.py:85",
+        "launches": pipe["launches"]["march_packed_kernel"],
+        "max_abs_err": pipe["err"], "ms": pt["ms"],
+        "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
+        "bound_by": pt["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels, "gpu": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

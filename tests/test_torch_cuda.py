@@ -11,6 +11,7 @@ import torch
 
 from vxtpu_torch import kernel_check as kc
 from vxtpu_torch.render import kernel_march as km
+from vxtpu_torch.render import kernel_packed as kp
 from vxtpu_torch.render import kernel_sample as ks
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.packed import build_material_morton, build_packed_morton
@@ -96,3 +97,37 @@ def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
     assert bool(torch.isfinite(rgb).all())
     assert bool(torch.isfinite(m.sigma_tab.grad).all())
     assert ks.LAUNCHES == {"sample_fwd_kernel": 1, "sample_bwd_kernel": 1}
+
+
+@pytest.mark.parametrize("name", kc.PACKED_CASES)
+def test_packed_march_kernel_matches_plain(cuda, name):
+    kp.reset_launch_counts()
+    m = kc.run_packed_case(name, cuda)
+    kc.check_packed_case(m, name)
+    assert kp.LAUNCHES["march_packed_kernel"] == 1
+
+
+def test_cuda_tensor_never_reaches_packed_plain_version(cuda, monkeypatch):
+    """On CUDA tensors the pipeline's row-major march launches the kernel
+    for the primary and the shadow rays: no plain version is called."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.render.pipeline import render_image
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.world.lights import Lights
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(kp, "march_packed_reference", boom)
+    grid = procgen.terrain((32, 32, 16), seed=3, with_rgb=True, device=cuda)
+    cam = Camera.make(pos=(-20.0, 16.0, 30.0), device=cuda).look_at(
+        (16.0, 16.0, 4.0))
+    kp.reset_launch_counts()
+    img = render_image(kp.make_march_packed, grid, cam,
+                       Lights.single((6.0, -9.0, 40.0), intensity=2.0,
+                                     device=cuda),
+                       RenderSettings(shading="full", shadows=True, fog=True),
+                       24, 32)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img).all())
+    assert kp.LAUNCHES["march_packed_kernel"] == 2

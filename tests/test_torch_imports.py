@@ -31,7 +31,10 @@ def test_scan_covers_the_package():
     for mod in ("render/kernel_march.py", "render/dda.py", "render/soft.py",
                 "render/kernel_sample.py", "render/soft_kernel.py",
                 "train/loss.py", "train/loop.py", "train/checkpoint.py",
-                "camera/paths.py", "device.py", "convert.py"):
+                "camera/paths.py", "device.py", "convert.py",
+                "render/kernel_packed.py", "render/pipeline.py",
+                "world/atlas.py", "obs/log.py", "obs/metrics.py",
+                "native/framesink.py"):
         assert f"vxtpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
 

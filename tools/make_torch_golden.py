@@ -21,10 +21,17 @@ and writes, under ``vxtpu_torch/data/``:
                           True): the loss per step; and the checksums of
                           vxtpu's sample_fields_fwd (lit, interpret mode)
                           on the fixed inputs of
-                          vxtpu_torch.kernel_check.golden_sample_inputs.
+                          vxtpu_torch.kernel_check.golden_sample_inputs;
+  packed_seed7.json       checksums of vxtpu's row-major build_packed
+                          words for the 256^3 terrain of seed 7, and of
+                          the HitRecord of vxtpu's march_pallas
+                          (interpret mode) over the 64^3 terrain of seed 7
+                          on the fixed rays of
+                          vxtpu_torch.kernel_check.golden_march_inputs.
 
-``--only c4`` writes only the last file (a few minutes: the Pallas
-kernels run in interpret mode).
+``--only c4`` writes only c4_fit32_seed7.json (a few minutes: the Pallas
+kernels run in interpret mode); ``--only packed`` writes only
+packed_seed7.json.
 """
 
 from __future__ import annotations
@@ -127,15 +134,62 @@ def sample_checksums() -> dict:
                 abs_sum=[float(np.abs(x).sum()) for x in outs])
 
 
+PACKED = dict(table_dims=256, D=64, n=4096, seed=5, terrain_seed=7)
+
+
+def packed_checksums() -> dict:
+    """Checksums of vxtpu's build_packed table at 256^3 and of its
+    march_pallas record at 64^3 (interpret mode)."""
+    import jax.numpy as jnp
+    import torch
+
+    from vxtpu.render.kernel_pallas import march_pallas
+    from vxtpu.world import procgen
+    from vxtpu.world.packed import build_packed
+    from vxtpu_torch.kernel_check import (golden_march_inputs,
+                                          march_checksums, table_checksums)
+
+    T = PACKED["table_dims"]
+    g = procgen.terrain((T,) * 3, seed=PACKED["terrain_seed"])
+    cells = (T // 2) ** 3
+    words = np.asarray(build_packed(g.occupancy).words).reshape(-1)[:cells]
+    table = dict(dims=T, checksums=table_checksums(
+        torch.from_numpy(words.astype(np.int64))))
+
+    D = PACKED["D"]
+    dims = (D,) * 3
+    o, d, t_max = golden_march_inputs(D, PACKED["n"], PACKED["seed"])
+    acc = build_packed(procgen.terrain(dims,
+                                       seed=PACKED["terrain_seed"]).occupancy)
+    max_steps = 3 * D + 2
+    rec = march_pallas(jnp.asarray(o), jnp.asarray(d), acc, dims, max_steps,
+                       t_max=jnp.asarray(t_max), interpret=True)
+    march = dict(D=D, n=PACKED["n"], seed=PACKED["seed"],
+                 terrain_seed=PACKED["terrain_seed"], max_steps=max_steps,
+                 checksums=march_checksums(rec.hit, rec.t, rec.voxel,
+                                           rec.normal, rec.steps, dims))
+    return dict(source="vxtpu.world.packed.build_packed and "
+                       "vxtpu.render.kernel_pallas.march_pallas("
+                       "interpret=True)", table=table, march=march)
+
+
 def main() -> int:
     import argparse
 
     from vxtpu_torch.utils import save_png
 
     p = argparse.ArgumentParser()
-    p.add_argument("--only", choices=["c4"], default=None)
+    p.add_argument("--only", choices=["c4", "packed"], default=None)
     args = p.parse_args()
     OUT.mkdir(parents=True, exist_ok=True)
+    if args.only in (None, "packed"):
+        t0 = time.perf_counter()
+        pk = packed_checksums()
+        (OUT / "packed_seed7.json").write_text(json.dumps(pk, indent=1)
+                                               + "\n")
+        print(f"packed checksums in {time.perf_counter() - t0:.1f} s: {pk}")
+        if args.only:
+            return 0
     t0 = time.perf_counter()
     c4 = dict(source="vxtpu.train.loop.fit_soft(field_kernel=True) and "
                      "vxtpu.render.kernel_sample.sample_fields_fwd("

@@ -102,6 +102,11 @@ def load() -> ctypes.CDLL:
     lib.vx_shade.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                              _P, _P]
     lib.vx_shade.restype = _I
+    lib.vx_march_packed.argtypes = [
+        _P, _P, _P, _I, _P, _I, _I, _I, _I,               # inputs, params
+        _P, _P, _P, _P, _P,                               # outputs
+        _P]                                               # stream
+    lib.vx_march_packed.restype = _I
     lib.vx_sample_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P,
                                   _P]
     lib.vx_sample_fwd.restype = _I

@@ -12,7 +12,7 @@ import torch
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.device import DEFAULT, resolve
 from vxtpu_torch.world.lights import Lights
-from vxtpu_torch.world.packed import PackedMorton
+from vxtpu_torch.world.packed import PackedAccel, PackedMorton, coarse_dims
 
 
 def occupancy_from_numpy(occ: np.ndarray, device=DEFAULT) -> torch.Tensor:
@@ -43,6 +43,25 @@ def packed_morton_from_numpy(words_f32_rows128: np.ndarray, dims,
     cells = (dims[0] // 2) * (dims[1] // 2) * (dims[2] // 2)
     return PackedMorton(words=_flat_words(words_f32_rows128, cells,
                                           torch.int16, device))
+
+
+def packed_accel_from_numpy(words_f32_rows128: np.ndarray, dims,
+                            device=DEFAULT) -> PackedAccel:
+    """vxtpu ``PackedAccel.words`` (row-major) -> int32 [cx*cy*cz]."""
+    cx, cy, cz = coarse_dims(dims)
+    return PackedAccel(words=_flat_words(words_f32_rows128, cx * cy * cz,
+                                         torch.int32, device))
+
+
+def atlas_from_numpy(channels, tex_size: int, device=DEFAULT):
+    """vxtpu ``TextureAtlas`` (three float32 [M*T*T] planes) ->
+    TextureAtlas."""
+    from vxtpu_torch.world.atlas import TextureAtlas
+
+    device = resolve(device)
+    return TextureAtlas(
+        channels=tuple(torch.tensor(np.asarray(c, np.float32), device=device)
+                       for c in channels), tex_size=int(tex_size))
 
 
 def material_morton_from_numpy(mats_f32_rows128: np.ndarray, dims,

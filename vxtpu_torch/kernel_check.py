@@ -7,6 +7,10 @@ of pixels. Both sides round every operation the same way (the kernels
 are built with -fmad=false), so the margin only absorbs rays that graze a
 voxel edge and the last bits of expf/powf.
 
+Row-major march (K5): hit, voxel, normal and steps equal on every ray
+and |t difference| <= 1e-6 (the same operations in the same order, no
+grazing-ray margin).
+
 Field sampling (K3, K4): forward samples within |d| <= 1e-6 (the same
 operations in the same order); backward gradient tables and per-ray
 cotangents within rtol 1e-5 and atol 1e-6 x max|g|, because the kernel's
@@ -23,13 +27,15 @@ import torch
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.render import kernel_march as km
+from vxtpu_torch.render import kernel_packed as kp
 from vxtpu_torch.render import kernel_sample as ks
 from vxtpu_torch.render.fused import render_rays_fused
+from vxtpu_torch.render.pipeline import shadow_ray_batch
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft_kernel import _enter_dt_soft
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.lights import Lights
-from vxtpu_torch.world.packed import (build_material_morton,
+from vxtpu_torch.world.packed import (build_material_morton, build_packed,
                                       build_packed_morton, build_rgb8_morton)
 
 RAY_AGREE = 0.999
@@ -86,11 +92,16 @@ def _scenes(D, device):
 
 
 def _cameras(D, device):
+    return _cameras_dims((D,) * 3, device)
+
+
+def _cameras_dims(dims, device):
+    X, Y, Z = dims
     return {
-        "outside": Camera.make(pos=(-0.625 * D, 0.5 * D, 1.25 * D),
+        "outside": Camera.make(pos=(-0.625 * X, 0.5 * Y, 1.25 * Z),
                                device=device).look_at(
-                                   (0.5 * D, 0.5 * D, 0.375 * D)),
-        "inside": Camera.make(pos=(0.5 * D, 0.5 * D, 0.875 * D), yaw=2.2,
+                                   (0.5 * X, 0.5 * Y, 0.375 * Z)),
+        "inside": Camera.make(pos=(0.5 * X, 0.5 * Y, 0.875 * Z), yaw=2.2,
                               pitch=-0.5, device=device),
     }
 
@@ -187,6 +198,126 @@ def check_shade_case(m: dict, what: str) -> None:
                        if k.startswith("rec_")}, what)
     if m["hits"] == 0:
         raise AssertionError(f"{what}: no ray hit")
+
+
+PACKED_T_ATOL = 1e-6
+# scene[_XxYxZ]-camera[-variant]; without a size the scene is D^3
+PACKED_CASES = ([f"{s}-{c}" for s in ("box", "sphere", "terrain")
+                 for c in ("outside", "inside")]
+                + ["terrain-outside-tmax", "terrain-outside-shadow",
+                   "terrain-outside-n117", "terrain_64x64x32-outside",
+                   "terrain_64x64x32-inside", "terrain_48x80x32-outside",
+                   "sphere_48x80x32-outside-shadow"])
+
+
+def packed_mismatch(a: km.HitRecord, b: km.HitRecord) -> dict:
+    """record_mismatch plus the largest |t difference| over all rays."""
+    m = record_mismatch(a, b)
+    m["t_abs"] = float((a.t - b.t).abs().max()) if a.t.numel() else 0.0
+    return m
+
+
+def run_packed_case(name: str, device, D: int = 64, h: int = 256,
+                    w: int = 256) -> dict:
+    """march_packed (the kernel) vs march_packed_reference on one scene and
+    ray set: a camera's rays, capped at t_max = 1.2 D ('tmax'), or the
+    shadow rays toward a light from the plain march's hits ('shadow');
+    'n117' takes 9 x 13 rays, no multiple of the block size."""
+    scene, cam_name, *rest = name.split("-")
+    scene, _, size = scene.partition("_")
+    dims = tuple(int(x) for x in size.split("x")) if size else (D,) * 3
+    if scene == "box":
+        X, Y, Z = dims
+        grid = procgen.solid_box(dims, (X // 4, Y // 4, Z // 4),
+                                 (3 * X // 4, 3 * Y // 4, 5 * Z // 8),
+                                 device=device)
+    elif scene == "sphere":
+        grid = procgen.shell_sphere(dims, device=device)
+    else:
+        grid = procgen.terrain(dims, seed=11, device=device)
+    acc = build_packed(grid.occupancy)
+    if rest == ["n117"]:
+        h, w = 9, 13
+    o, d = generate_rays(_cameras_dims(dims, device)[cam_name], h, w)
+    ms = sum(dims) + 2
+    t_max = None
+    if rest == ["tmax"]:
+        t_max = torch.full((o.shape[0],), 1.2 * max(dims), device=device)
+    elif rest == ["shadow"]:
+        X, Y, Z = dims
+        light = torch.tensor((0.8 * X, -0.3 * Y, 1.9 * Z), device=device)
+        prim = kp.march_packed_reference(o, d, acc, dims, ms)
+        o, d, t_max = shadow_ray_batch(prim, o, d, light)
+    rec = kp.march_packed(o, d, acc, dims, ms, t_max=t_max)
+    ref = kp.march_packed_reference(o, d, acc, dims, ms, t_max=t_max)
+    m = packed_mismatch(rec, ref)
+    m["hits"] = int(rec.hit.sum())
+    m["steps_total"] = int(ref.steps.sum(dtype=torch.int64))
+    return m
+
+
+def check_packed(m: dict, what: str) -> None:
+    """Exact agreement: no ray may differ in hit, voxel, normal or steps,
+    and t within PACKED_T_ATOL."""
+    for k in ("hit", "voxel", "normal", "steps"):
+        if m[k]:
+            raise AssertionError(f"{what}: {k} differs on {m[k]} of "
+                                 f"{m['n']} rays")
+    if m["t_abs"] > PACKED_T_ATOL:
+        raise AssertionError(f"{what}: t differs by {m['t_abs']:.3g}")
+
+
+def check_packed_case(m: dict, what: str) -> None:
+    check_packed(m, what)
+    if m["hits"] == 0:
+        raise AssertionError(f"{what}: no ray hit")
+
+
+def golden_march_inputs(D: int = 64, n: int = 4096, seed: int = 5):
+    """The fixed inputs of the JAX cross-check of K5 (numpy float32): rays
+    o, d [n, 3] (a quarter start inside the grid, 64 point away from it)
+    and t_max [n] (the last quarter capped inside the grid, the rest 1e30).
+    tools/make_torch_golden.py runs vxtpu's march_pallas on them over the
+    D^3 terrain of seed 7; chip_smoke.py and the CPU tests run the port."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.5 * D, 1.5 * D, (n, 3))
+    o[: n // 4] = rng.uniform(0.1 * D, 0.9 * D, (n // 4, 3))
+    d = rng.uniform(0.1 * D, 0.9 * D, (n, 3)) - o
+    d[n // 2: n // 2 + 64] *= -1.0
+    d = d / np.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]
+                    + d[:, 2] * d[:, 2])[:, None]
+    t_max = np.full((n,), 1e30)
+    t_max[3 * n // 4:] = rng.uniform(0.0, D, n - 3 * n // 4)
+    return (o.astype(np.float32), d.astype(np.float32),
+            t_max.astype(np.float32))
+
+
+def march_checksums(hit, t, voxel, normal, steps, dims) -> dict:
+    """Checksums of a HitRecord given as numpy arrays: hits, total steps,
+    the sum of every ray's row-major voxel index, the sum of t over hits
+    (float64) and of normal . (1, 2, 4) over hits."""
+    hit = np.asarray(hit).astype(bool)
+    v = np.asarray(voxel).astype(np.int64)
+    _, Y, Z = dims
+    nrm = np.asarray(normal, np.float64)[hit]
+    return dict(hits=int(hit.sum()),
+                steps=int(np.asarray(steps, np.int64).sum()),
+                voxel_index_sum=int(((v[:, 0] * Y + v[:, 1]) * Z
+                                     + v[:, 2]).sum()),
+                t_sum=float(np.asarray(t, np.float64)[hit].sum()),
+                normal_sum=float((nrm @ np.array([1.0, 2.0, 4.0])).sum()))
+
+
+def table_checksums(words: torch.Tensor) -> dict:
+    """Checksums of a flat integer word table: cells, sum, a sum weighted
+    by (index mod 1000003) + 1, occupied cells (child bits != 0) and the
+    sum of the distance fields (word >> 8)."""
+    w = words.to(torch.int64)
+    i = torch.arange(w.numel(), dtype=torch.int64, device=w.device)
+    return dict(cells=int(w.numel()), sum=int(w.sum()),
+                weighted_sum=int(((i % 1000003 + 1) * w).sum()),
+                occupied=int(((w & 255) != 0).sum()),
+                dist_sum=int((w >> 8).sum()))
 
 
 FWD_ATOL = 1e-6

@@ -1,3 +1,3 @@
-"""March and shade (the CUDA kernels, their plain versions, fused frames)
-and the differentiable soft renderers (plain, and on the field-sampling
-kernels)."""
+"""March and shade (the CUDA kernels, their plain versions, fused frames,
+the composable pipeline) and the differentiable soft renderers (plain,
+and on the field-sampling kernels)."""

@@ -29,15 +29,17 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
 from vxtpu_torch.render.settings import RenderSettings
-from vxtpu_torch.render.shade import SHADOW_EPS, shade as shade_math
+from vxtpu_torch.render.shade import SHADOW_EPS, shade_albedo
 from vxtpu_torch.render.types import HitRecord
 from vxtpu_torch.world.grid import MATERIAL_RGB
 from vxtpu_torch.world.lights import Lights
-from vxtpu_torch.world.packed import PackedMorton, morton3
+from vxtpu_torch.world.packed import (PackedMorton, build_packed_morton,
+                                      morton3)
 
 EPS = 1e-4          # reinit samples the voxel at t + EPS
 BIG = 3.0e30        # stands in for 1/d where |d| < 1e-12
@@ -351,8 +353,8 @@ def shade_reference(rec: HitRecord, o, d, vis, mats, lights_arr,
     albedo fetched from ``mats``. vis: [N, L] visibility or None (1)."""
     albedo = fetch_albedo(rec, mats, spec)
     lights = unpack_lights(lights_arr, spec.n_lights)
-    return shade_math(rec, o, d, albedo, lights, spec.settings(),
-                      shadow_vis=vis)
+    return shade_albedo(rec, o, d, albedo, lights, spec.settings(),
+                        shadow_vis=vis)
 
 
 def shadow_visibility_reference(rec: HitRecord, o, d, accel, dims, max_steps,
@@ -566,3 +568,14 @@ def shade(rec: HitRecord, o, d, vis, mats, lights_arr,
                                f"{_build.error_string(rc)}")
         LAUNCHES["shade_kernel"] += 1
     return rgb
+
+
+def make_march(occ_flat, dims, settings: RenderSettings, accel=None):
+    """Pipeline march factory of ``march`` in march-only mode (vxtpu's
+    ``make_march_pallas_v2`` without its TPU tiling arguments): returns
+    ``march(o, d, t_max=None) -> HitRecord``. ``accel`` must be a
+    PackedMorton; it is built from the grid when it is not."""
+    if not isinstance(accel, PackedMorton):
+        accel = build_packed_morton(occ_flat.reshape(dims))
+    return functools.partial(march, accel=accel, dims=dims,
+                             max_steps=settings.resolve_max_steps(dims))

@@ -1,7 +1,12 @@
 """Shading after the march hit: face-normal lighting, shadow visibility,
-fog and sky (counterpart of ``vxtpu/render/shade.py``, without atlas
-textures). This is the math of the kernel's shade epilogue, as plain
-tensor code over a fetched albedo."""
+face textures, fog and sky (counterpart of ``vxtpu/render/shade.py``).
+
+``shade`` is vxtpu's full dispatch: it fetches each hit voxel's albedo
+from an ``Albedo`` source (or a face texture from a ``TextureAtlas``) and
+shades it; the composable pipeline (``render/pipeline.py``) calls it.
+``shade_albedo`` is the same math on an albedo already fetched: the plain
+version of the fused kernels' shade epilogue (``render/kernel_march.py``).
+"""
 
 from __future__ import annotations
 
@@ -9,6 +14,7 @@ import torch
 
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.types import HitRecord
+from vxtpu_torch.world.grid import linear_index
 from vxtpu_torch.world.lights import Lights
 
 SHADOW_EPS = 1e-3
@@ -71,8 +77,8 @@ def apply_fog(rgb, t, d, hit, settings: RenderSettings):
     return rgb * (1.0 - fog_f) + sky_color(d, settings) * fog_f
 
 
-def shade(rec: HitRecord, o, d, albedo, lights: Lights,
-          settings: RenderSettings, shadow_vis=None) -> torch.Tensor:
+def shade_albedo(rec: HitRecord, o, d, albedo, lights: Lights,
+                 settings: RenderSettings, shadow_vis=None) -> torch.Tensor:
     """HitRecord [N] + albedo [N,3] -> rgb [N,3] in [0, 1]."""
     if settings.shading == "flat":
         rgb = flat_shade(albedo, rec.normal)
@@ -84,3 +90,31 @@ def shade(rec: HitRecord, o, d, albedo, lights: Lights,
         rgb = apply_fog(rgb, rec.t, d, rec.hit, settings)
     rgb = torch.where(rec.hit[..., None], rgb, sky_color(d, settings))
     return torch.clamp(rgb, 0.0, 1.0)
+
+
+def shade(rec: HitRecord, o, d, albedo_src, dims, lights: Lights,
+          settings: RenderSettings, shadow_vis=None, atlas=None,
+          material_ids=None) -> torch.Tensor:
+    """Full shading dispatch: HitRecord [N] -> rgb [N,3] in [0, 1].
+
+    albedo_src: a ``world.grid.Albedo``. atlas: an optional
+    ``world.atlas.TextureAtlas``; with it a hit's colour is its face
+    texture at the hit point, looked up by material id (``material_ids``,
+    uint8 [X*Y*Z], default ``albedo_src.ids``)."""
+    idx = torch.clamp(linear_index(rec.voxel.to(torch.int64), dims), 0,
+                      albedo_src.size - 1)
+    albedo = albedo_src.at(idx)
+    if atlas is not None:
+        from vxtpu_torch.world.atlas import sample_atlas
+
+        ids_flat = material_ids if material_ids is not None else \
+            albedo_src.ids
+        if ids_flat is None:
+            raise ValueError("atlas shading needs material ids "
+                             "(palette-mode albedo or material_ids=)")
+        p_hit = o + rec.t[..., None] * d
+        albedo = torch.where(rec.hit[..., None],
+                             sample_atlas(atlas, ids_flat[idx], p_hit,
+                                          rec.normal),
+                             albedo)
+    return shade_albedo(rec, o, d, albedo, lights, settings, shadow_vis)

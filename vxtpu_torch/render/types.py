@@ -17,7 +17,9 @@ class HitRecord:
     voxel:  int32   [N, 3] hit voxel; the last voxel reached on a miss.
     normal: float32 [N, 3] outward unit normal of the entered face; 0 on
                            a miss.
-    steps:  int32   [N]    DDA advances after the entry fetch.
+    steps:  int32   [N]    march cost: DDA advances after the entry fetch
+                           (the fused march), or loop iterations (the
+                           row-major march, ``kernel_packed``).
     """
 
     hit: torch.Tensor

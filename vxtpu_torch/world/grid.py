@@ -46,3 +46,65 @@ class VoxelGrid:
     @property
     def dims(self) -> tuple[int, int, int]:
         return tuple(self.occupancy.shape)  # type: ignore[return-value]
+
+    def albedo_flat(self) -> torch.Tensor:
+        """float32 [X*Y*Z, 3] albedo of every voxel."""
+        if self.rgb is not None:
+            return self.rgb.reshape(-1, 3)
+        occ = self.occupancy.reshape(-1).to(torch.int64)
+        return material_rgb(self.occupancy.device)[torch.clamp(occ, max=7)]
+
+    def albedo(self) -> "Albedo":
+        """The colour source of the shading pipeline."""
+        if self.rgb is not None:
+            return Albedo(channels=tuple(self.rgb[..., c].reshape(-1)
+                                         for c in range(3)))
+        return Albedo(ids=self.occupancy.reshape(-1),
+                      palette=material_rgb(self.occupancy.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Albedo:
+    """Per-hit-voxel colour source; exactly one mode is set:
+      * ids uint8 [X*Y*Z] material ids + palette float32 [M, 3];
+      * channels: three float32 [X*Y*Z] planes (per-voxel RGB)."""
+
+    ids: torch.Tensor | None = None
+    palette: torch.Tensor | None = None
+    channels: tuple | None = None
+
+    def at(self, idx: torch.Tensor) -> torch.Tensor:
+        """Albedo [N, 3] at in-range linear voxel indices idx [N]."""
+        idx = idx.to(torch.int64)
+        if self.channels is not None:
+            return torch.stack([c[idx] for c in self.channels], dim=-1)
+        ids = self.ids[idx].to(torch.int64)
+        return self.palette[torch.clamp(ids, max=self.palette.shape[0] - 1)]
+
+    @property
+    def size(self) -> int:
+        return (self.ids.shape[0] if self.ids is not None
+                else self.channels[0].shape[0])
+
+
+def linear_index(v: torch.Tensor, dims) -> torch.Tensor:
+    """Row-major linear index of integer voxel coords v[..., 3] (no bounds
+    check)."""
+    _, Y, Z = dims
+    return (v[..., 0] * Y + v[..., 1]) * Z + v[..., 2]
+
+
+def in_bounds(v: torch.Tensor, dims) -> torch.Tensor:
+    """Bool [...]: all three coords inside the grid."""
+    return ((v >= 0).all(dim=-1) & (v[..., 0] < dims[0])
+            & (v[..., 1] < dims[1]) & (v[..., 2] < dims[2]))
+
+
+def occupancy_at(grid_occ_flat: torch.Tensor, v: torch.Tensor,
+                 dims) -> torch.Tensor:
+    """Occupancy at integer coords v[..., 3] of the flat uint8 [X*Y*Z]
+    grid; out-of-bounds reads give 0."""
+    ok = in_bounds(v, dims)
+    idx = torch.where(ok, linear_index(v, dims), 0).to(torch.int64)
+    val = grid_occ_flat[idx]
+    return torch.where(ok, val, torch.zeros_like(val))

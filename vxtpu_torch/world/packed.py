@@ -1,6 +1,15 @@
-"""Morton-ordered coarse-cell tables for the march kernel (counterpart of
+"""Coarse-cell tables for the march kernels (counterpart of
 ``vxtpu/world/packed.py``).
 
+Row-major (``build_packed``, the table of the row-major march kernel):
+cell c = 2x2x2 fine voxels, word[c] = child_bits | (D << 8), D = 0 iff
+the cell holds a solid voxel, else its coarse chessboard distance to the
+nearest occupied cell (capped). The cell's linear index is
+``(cx * cyd + cy) * czd + cz`` over ``coarse_dims`` (any even dims). On
+the GPU the table is int32 [cx*cy*cz] (a word reaches 65,535 with cap up
+to 255, too much for int16; 8 MB at 256^3).
+
+Morton (``build_packed_morton``, the table of the fused march kernel):
     cell c = 2x2x2 fine voxels; its signed occupancy word is
         +child_bits (1..255)  if the cell holds a solid voxel
                                 (bit (x&1)<<2 | (y&1)<<1 | (z&1))
@@ -75,11 +84,37 @@ def _child_bits(occupancy: torch.Tensor) -> torch.Tensor:
     return bits
 
 
+def coarse_dims(dims) -> tuple[int, int, int]:
+    """Coarse (2x2x2-cell) grid shape of even fine dims; raises on odd."""
+    if any(int(n) % 2 for n in dims):
+        raise ValueError(f"packed tables need even dims, got {tuple(dims)}")
+    return tuple(int(n) // 2 for n in dims)  # type: ignore[return-value]
+
+
 def _packed_words(occupancy: torch.Tensor, cap: int) -> torch.Tensor:
     """int32 [cx, cy, cz]: child_bits | (coarse chessboard D << 8)."""
+    coarse_dims(occupancy.shape)
     bits = _child_bits(occupancy)
     d = build_distance_field(bits > 0, cap=min(cap, 255)).to(torch.int32)
     return bits | (d << 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedAccel:
+    """words: int32 [cx*cy*cz], child_bits | D << 8 of each coarse cell in
+    row-major order."""
+
+    words: torch.Tensor
+
+    def to_rows128_f32(self) -> torch.Tensor:
+        """vxtpu's ``PackedAccel.words`` layout (comparisons only)."""
+        return rows128_f32(self.words)
+
+
+def build_packed(occupancy: torch.Tensor, cap: int = 64) -> PackedAccel:
+    """Row-major word table of a uint8 occupancy grid [X, Y, Z] (even
+    dims)."""
+    return PackedAccel(words=_packed_words(occupancy, cap).reshape(-1))
 
 
 @dataclasses.dataclass(frozen=True)
