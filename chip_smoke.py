@@ -43,7 +43,24 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              only) on the 512^3/1080p lambert frame of phase 4; the animate
              and bench commands; K5 and the row-major table against the
              JAX package's checksums (vxtpu_torch/data/packed_seed7.json).
-             Runs between phases 5 and 6, on phase 4's 512^3 world.
+             Runs between phases 5 and 6, on phase 4's 512^3 world;
+  9. resume  the last two TPU kernels, on phase 4's 512^3 world (run after
+             phase 8): the resume-mode march K1' (march_resume_kernel)
+             against its plain version at 64^3 (budgets 0, 1, 3, 24, and
+             the resume from the plain round 0) and on all 1080x1920
+             lambert rays (budget 24, then a resume); the march-cost probe
+             K6 (march_probe_kernel) against its plain version for every
+             variant and layout at 64^3 (with the identity-table words)
+             and on the 1080x1920 rays at 48 iterations; the sorted
+             multi-round march march_sorted on the lambert and the
+             inside_air_lambert rays against single-round K1 march-only,
+             with a forced drain; the warp coherence of the single round,
+             of the survivors in launch order and of the sorted resume
+             round; the times: K1' round 0 and resume rounds beside K1
+             march-only (profiler device times), the sorted march and
+             an argsort alone (sorted_probe), K6's ns per ray-iteration
+             for each variant x layout x {128, 256, 512} threads
+             (cost_probe), each one's plain time and bound.
 
 Phases 3 and 6 also hold K3/K4 against their plain versions: forward
 |d| <= 1e-6; backward within rtol 1e-5 / atol 1e-6 x max|g| (the float
@@ -51,6 +68,11 @@ atomics of the scatter sum in a varying order).
 
 Phase 8 holds K5 to its plain version exactly: hit, voxel, normal and
 steps equal on every ray, |t difference| <= 1e-6.
+
+Phase 9 holds K1' to its plain version exactly (hit, t, voxel, normal,
+steps, done, dist on every ray), march_sorted to single-round K1 exactly
+(hit, t, voxel, normal, steps), and K6's acc to its plain version bit for
+bit.
 
 The line before the last is one JSON object with the kernels' counts,
 errors, times and bounds; the last line is {"ok": true, "device": {...}}.
@@ -61,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +114,13 @@ MARCH_OPS_RAY, MARCH_OPS_STEP = 60, 20
 # directions, slab clip, entry voxel) and per iteration (three axis exits,
 # their minimum, the next voxel's position, floor and clamps, the tests)
 K5_OPS_RAY, K5_OPS_STEP = 40, 45
+# float32 operations of K6 (csrc/probe.cu) per ray (inverse directions,
+# start voxel) and per iteration by variant: the DDA / empty-box target
+# (three axis exits 33, their minimum and tests 5, the target's position 9,
+# floor and clamps 9) and the acc add (1; nofetch converts and scales x: 2)
+PROBE_OPS_RAY = 15
+PROBE_OPS_ITER = {"empty": 1, "nofetch": 59, "nomath": 1, "full": 57,
+                  "static": 57}
 
 
 def _require_checkout() -> None:
@@ -149,6 +179,16 @@ def phase_device():
     return torch.device("cuda", 0), name, smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name, with its integer template arguments, from its
+    mangled name."""
+    m = re.search(r"([A-Za-z_]+_kernel)(I((?:Li-?\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"Li(-?\d+)E", m.group(3) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
 def phase_build() -> float:
     from vxtpu_torch import _build
 
@@ -156,9 +196,15 @@ def phase_build() -> float:
     _build.load()
     dt = time.perf_counter() - t0
     log = _build.library_path().with_suffix(".log")
+    name, spill = "?", ""
     for line in log.read_text().splitlines() if log.exists() else []:
-        if "registers" in line or "spill" in line:
-            print(f"phase 2 build: ptxas {line.strip()}")
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            print(f"phase 2 build: ptxas {name}: "
+                  f"{line.split(':', 1)[1].strip()}; {spill}")
     print(f"phase 2 build: {_build.library_path().name} in {dt:.1f} s")
     return dt
 
@@ -281,7 +327,8 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
         if frames[name].shape != (h, w, 3) or \
                 not bool(torch.isfinite(frames[name]).all()):
             raise AssertionError(f"{name}: frame not finite or misshapen")
-    launches = dict(km.LAUNCHES)
+    launches = {k: km.LAUNCHES[k] for k in ("march_shade_kernel",
+                                             "shade_kernel")}
     print(f"phase 4 main: launches during the {len(requests)} requests: "
           f"{launches}")
     if device.type == "cuda" and min(launches.values()) == 0:
@@ -732,6 +779,303 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
             1e-6 * abs(gm["checksums"]["t_sum"]):
         raise AssertionError("K5 t checksum differs from JAX's")
     return {"launches": launches, "err": err, "times": times}
+
+
+def k1r_bound(n, steps, resumed, with_tmax) -> dict:
+    """Least time (ms) of one K1' launch over n rays that take ``steps``
+    DDA steps in all: each ray's inputs (o, d: 24 B; t_max: 4 B; the
+    resume state voxel, dist, steps: 20 B) read once and its outputs (hit
+    1, t 4, voxel 12, normal 12, steps 4, done 1, dist 4 B) written once,
+    over the HBM rate; the table words the marches read are not counted
+    (as for K1). Operations: MARCH_OPS_RAY per ray and MARCH_OPS_STEP per
+    step over the float32 peak."""
+    b = n * (24 + (4 if with_tmax else 0) + (20 if resumed else 0) + 38)
+    f = n * MARCH_OPS_RAY + steps * MARCH_OPS_STEP
+    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
+    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def probe_bound(n, n_iters, variant, table_bytes) -> dict:
+    """Least time (ms) of one K6 launch: 28 B of ray I/O per ray (o, d
+    read, acc written; empty's acc depends on no input, so 4 B) plus, for
+    the variants that read it, the table read once, over the HBM rate;
+    PROBE_OPS_RAY (not for empty) + n_iters x PROBE_OPS_ITER[variant]
+    float32 operations per ray over the float32 peak."""
+    empty = variant == "empty"
+    reads = variant in ("nomath", "full", "static")
+    b = n * (4 if empty else 28) + (table_bytes if reads else 0)
+    f = n * ((0 if empty else PROBE_OPS_RAY)
+             + n_iters * PROBE_OPS_ITER[variant])
+    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
+    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def warp_coherence(steps) -> float:
+    """Sum of steps over the sum, over consecutive 32-ray groups in launch
+    order, of 32 x the group's largest steps: the share of a warp's
+    iterations that its rays use (1 = no divergence tail)."""
+    import torch
+
+    s = steps.to(torch.int64)
+    s = torch.cat([s, s.new_zeros((-s.numel()) % 32)]).view(-1, 32)
+    lanes = 32 * int(s.amax(1).sum())
+    return int(s.sum()) / lanes if lanes else 1.0
+
+
+def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
+                 budgets=None, runs=RUNS, reps=10, drain_r0=8,
+                 drain_frac=256, threads=None) -> dict:
+    """Phase 9: K1' and K6 (see the module docstring). big_grid: phase
+    4's world."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render import probe
+    from vxtpu_torch.world.packed import (build_packed, build_packed_morton,
+                                          morton3)
+
+    t_phase = time.perf_counter()
+    budgets = kc.RESUME_BUDGETS if budgets is None else budgets
+    err = {"march_resume_kernel": 0.0, "march_probe_kernel": 0.0}
+    for name in kc.MARCH_CASES:
+        m = kc.run_resume_case(name, device, case_d, case_hw, case_hw,
+                               budgets)
+        print(f"phase 9 resume: K1' {name}: survivors by budget "
+              f"{m['survivors']}; mismatches {m['mismatch']}; merged rounds "
+              f"vs the single round differ on {m['merged']} of {m['n']}")
+        kc.check_resume_case(m, f"K1' {name}")
+    for name in kc.PROBE_CASES:
+        m = kc.run_probe_case(name, device, case_d, case_hw, case_hw)
+        print(f"phase 9 resume: K6 {name}: acc differs on {m['acc']} of "
+              f"{m['n']} rays (max {m['max_abs']:.3g}), sum "
+              f"{m['acc_sum']:.6g}"
+              + (f"; identity words wrong on {m['expected']}"
+                 if "expected" in m else ""))
+        kc.check_probe_case(m, f"K6 {name}")
+        err["march_probe_kernel"] = max(err["march_probe_kernel"],
+                                        m["max_abs"])
+
+    dims = big_grid.dims
+    D = dims[0]
+    accel = build_packed_morton(big_grid.occupancy, cap=64)
+    packed = build_packed(big_grid.occupancy)
+    tables = {"morton16": accel.words, "rowmajor32": packed.words}
+    _, requests = _main_scene(device, D)
+    cams = {name: (cam, st) for name, cam, st, _ in requests}
+    ms = cams["lambert"][1].resolve_max_steps(dims)
+    sets = ("lambert", "inside_air_lambert")
+    rays = {k: generate_rays(cams[k][0], h, w) for k in sets}
+    o, d = rays["lambert"]
+    n = o.shape[0]
+
+    # the main path, counted: the sorted march of both ray sets, then the
+    # cost probe over both tables
+    km.reset_launch_counts()
+    stats = {k: {} for k in sets}
+    srec = {k: km.march_sorted(*rays[k], accel, dims, ms, stats=stats[k])
+            for k in sets}
+    _sync(device)
+    launches = dict(km.LAUNCHES)
+    print(f"phase 9 resume: launches during march_sorted of the {len(sets)} "
+          f"ray sets at {D}^3 {h}x{w}: {launches}")
+    if device.type == "cuda" and launches["march_resume_kernel"] == 0:
+        raise AssertionError("march_sorted did not launch "
+                             "march_resume_kernel")
+    probe.reset_launch_counts()
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        cost = probe.cost_probe(o, d, tables, dims, reps=reps,
+                                threads=threads or probe.THREADS)
+    else:
+        cost = []
+        for layout, table in tables.items():
+            for v in probe.VARIANTS:
+                probe.march_probe(o, d, table, dims, probe.N_ITERS, v,
+                                  layout)
+    _sync(device)
+    cost_s = time.perf_counter() - t0
+    probe_launches = probe.LAUNCHES["march_probe_kernel"]
+    blocks = f" x {len(threads or probe.THREADS)} block sizes" if cost else ""
+    print(f"phase 9 resume: launches during the cost probe "
+          f"({len(tables)} layouts x {len(probe.VARIANTS)} variants{blocks}, "
+          f"{cost_s:.1f} s): march_probe_kernel {probe_launches}")
+    if device.type == "cuda" and probe_launches == 0:
+        raise AssertionError("the cost probe did not launch "
+                             "march_probe_kernel")
+
+    # comparisons with the plain versions and single-round K1 (not
+    # counted)
+    single = {k: km.march(*rays[k], accel, dims, ms) for k in sets}
+    for k in sets:
+        bad = kc.exact_mismatch(srec[k], single[k])
+        st = stats[k]
+        print(f"phase 9 resume: march_sorted {k}: {st['survivors']} of {n} "
+              f"rays live after round 0 ({st['rounds']} resume round(s) of "
+              f"{st['buffer']}); vs single-round K1 march-only: "
+              f"hit/t/voxel/normal/steps differ on {bad} rays")
+        if bad:
+            raise AssertionError(f"march_sorted {k} differs from the single "
+                                 f"round on {bad} rays")
+    dstats = {}
+    drained = km.march_sorted(o, d, accel, dims, ms, round0_iters=drain_r0,
+                              survivor_frac=drain_frac, stats=dstats)
+    bad = kc.exact_mismatch(drained, single["lambert"])
+    print(f"phase 9 resume: march_sorted lambert, round0_iters {drain_r0}, "
+          f"survivor_frac {drain_frac}: buffer {dstats['buffer']}, "
+          f"{dstats['rounds']} resume rounds for {dstats['survivors']} "
+          f"survivors; differs from the single round on {bad} rays")
+    if bad or dstats["rounds"] < 2:
+        raise AssertionError(f"forced drain: {dstats['rounds']} rounds, "
+                             f"{bad} rays differ")
+    del drained
+
+    # K1' against its plain version on every lambert ray
+    r0k, e0k = km.march(o, d, accel, dims, ms, iter_budget=24, extended=True)
+    r0p, e0p = km.march_reference(o, d, accel, dims, ms, iter_budget=24,
+                                  extended=True)
+    m0 = kc.resume_mismatch(r0k, e0k, r0p, e0p)
+    state = (r0p.voxel, torch.where(e0p["done"], -1, e0p["dist"]),
+             r0p.steps)
+    r1k, e1k = km.march(o, d, accel, dims, ms, resume_state=state,
+                        extended=True)
+    r1p, e1p = km.march_reference(o, d, accel, dims, ms,
+                                  resume_state=state, extended=True)
+    m1 = kc.resume_mismatch(r1k, e1k, r1p, e1p)
+    merged = kc.exact_mismatch(kc.merge_rounds(e0k["done"], r0k, r1k),
+                               single["lambert"])
+    err["march_resume_kernel"] = max(
+        float((r0k.t - r0p.t).abs().max()), float((r1k.t - r1p.t).abs().max()))
+    print(f"phase 9 resume: K1' on all {n} lambert rays at {D}^3: round 0 "
+          f"(budget 24) mismatches {m0}; resume mismatches {m1}; the two "
+          f"rounds vs single-round K1 differ on {merged} rays")
+    if any(m0.values()) or any(m1.values()) or merged or \
+            not bool(e1k["done"].all()):
+        raise AssertionError("K1' differs from its plain version on the "
+                             "lambert rays")
+    del r0p, e0p, r1p, e1p
+
+    # warp coherence (host arithmetic on steps)
+    coh = {}
+    for k in sets:
+        st = stats[k]
+        live0 = ~st["round0_done"]
+        coh[k] = dict(
+            single=warp_coherence(single[k].steps),
+            survivors=st["survivors"],
+            unsorted=warp_coherence(
+                (srec[k].steps - st["round0_steps"])[live0]),
+            sorted=warp_coherence(st["resume_steps"][0])
+            if st["resume_steps"] else 1.0)
+        print(f"phase 9 resume: warp coherence {k} (steps / 32 x warp max): "
+              f"single round in launch order {coh[k]['single']:.4f}; the "
+              f"{st['survivors']} survivors of round 0, their resume steps "
+              f"in launch order {coh[k]['unsorted']:.4f}, in the sorted "
+              f"resume round's order {coh[k]['sorted']:.4f}")
+
+    # K6 against its plain version on the 512^3 rays
+    acc_sum = {}
+    for layout, table in tables.items():
+        for v in probe.VARIANTS:
+            got = probe.march_probe(o, d, table, dims, probe.N_ITERS, v,
+                                    layout)
+            want = probe.march_probe_reference(o, d, table, dims,
+                                               probe.N_ITERS, v, layout)
+            nbad = int((got != want).sum())
+            err["march_probe_kernel"] = max(err["march_probe_kernel"],
+                                            float((got - want).abs().max()))
+            acc_sum[(v, layout)] = float(got.double().sum())
+            if nbad:
+                raise AssertionError(f"K6 {v} {layout} at {D}^3: acc differs "
+                                     f"on {nbad} rays")
+    print(f"phase 9 resume: K6 on all {n} rays at {D}^3, {probe.N_ITERS} "
+          f"iterations: acc equal to the plain version bit for bit for "
+          f"every variant and layout; acc sums "
+          + ", ".join(f"{v}/{lay} {x:.6g}" for (v, lay), x in acc_sum.items()))
+
+    times = dict(coherence=coh, cost=cost, launches=launches,
+                 probe_launches=probe_launches)
+    steps0 = int((r0k.steps).sum(dtype=torch.int64))
+    alive = ~e0k["done"]
+    steps1 = int((r1k.steps - r0k.steps)[alive].sum(dtype=torch.int64))
+    times["bound0"] = k1r_bound(n, steps0, False, False)
+    if device.type == "cuda":
+        round0 = lambda: km.march(o, d, accel, dims, ms, iter_budget=24,
+                                  extended=True)
+        resume_all = lambda: km.march(o, d, accel, dims, ms,
+                                      resume_state=state, extended=True)
+        # the survivors alone, in launch order and in Morton order
+        ids = torch.nonzero(alive).squeeze(1)
+        v = r0k.voxel
+        key = torch.where(alive, morton3(v[:, 0] >> 1, v[:, 1] >> 1,
+                                         v[:, 2] >> 1), 1 << 30)
+        sids = torch.argsort(key, stable=True)[:ids.numel()]
+        bufs = {}
+        for tag, sel in (("launch order", ids), ("Morton order", sids)):
+            bufs[tag] = (o[sel], d[sel], (v[sel], e0k["dist"][sel],
+                                          r0k.steps[sel]))
+        t = dict(
+            round0_ms=probe.device_ms(round0, reps, "march_resume_kernel"),
+            round0_events_ms=median_ms(round0, device, runs),
+            resume_all_ms=probe.device_ms(resume_all, reps,
+                                          "march_resume_kernel"),
+            k1_ms=probe.device_ms(lambda: km.march(o, d, accel, dims, ms),
+                                  reps, "march_shade_kernel"),
+            round0_plain_ms=median_ms(lambda: km.march_reference(
+                o, d, accel, dims, ms, iter_budget=24, extended=True),
+                device, 3))
+        for tag, (bo, bd, bs) in bufs.items():
+            t[f"survivors_{tag.split()[0]}_ms"] = probe.device_ms(
+                lambda bo=bo, bd=bd, bs=bs: km.march(
+                    bo, bd, accel, dims, ms, resume_state=bs, extended=True),
+                reps, "march_resume_kernel")
+        b1 = k1r_bound(n, steps1, True, False)
+        times.update(t)
+        times["bound1"] = b1
+        print(f"phase 9 resume: device time per launch at {D}^3 {h}x{w} "
+              f"(profiler, {reps} launches): K1' round 0 (budget 24) "
+              f"{t['round0_ms']:.4f} ms (events {t['round0_events_ms']:.3f} "
+              f"ms; bound {times['bound0']['bound_ms']:.4f} ms by "
+              f"{times['bound0']['bound_by']}; plain "
+              f"{t['round0_plain_ms']:.1f} ms); K1' resume of all rays "
+              f"{t['resume_all_ms']:.4f} ms (bound {b1['bound_ms']:.4f} ms by "
+              f"{b1['bound_by']}); the {ids.numel()} survivors alone in "
+              f"launch order {t['survivors_launch_ms']:.4f} ms, in Morton "
+              f"order {t['survivors_Morton_ms']:.4f} ms; K1 march-only "
+              f"{t['k1_ms']:.4f} ms; round-0 steps {steps0}, resume steps "
+              f"{steps1}")
+        sp = probe.sorted_probe(o, d, accel, dims, ms, reps=runs)
+        times["sorted_probe"] = sp
+        print(f"phase 9 resume: sorted_probe at {D}^3 {h}x{w} (events, "
+              f"{runs} calls): argsort of {sp['n']} keys "
+              f"{sp['argsort_ms']:.3f} ms; single-round K1 march-only "
+              f"{sp['single_ms']:.3f} ms ({sp['single_device_ms']:.4f} ms "
+              f"device); march_sorted "
+              + "; ".join(f"round0_iters {r0}: {x['ms']:.3f} ms, "
+                          f"{x['survivors']} survivors, {x['rounds']} "
+                          f"round(s)" for r0, x in sp["sorted"].items()))
+        for row in cost:
+            row["bound"] = probe_bound(
+                n, probe.N_ITERS, row["variant"],
+                tables[row["layout"]].numel()
+                * tables[row["layout"]].element_size())
+            print(f"phase 9 resume: K6 {row['variant']:8s} "
+                  f"{row['layout']:10s} {row['threads']:3d} threads: "
+                  f"{row['ms']:.4f} ms device ({row['events_ms']:.4f} ms "
+                  f"events), {row['ns_per_ray_iter']:.6f} ns per "
+                  f"ray-iteration; bound {row['bound']['bound_ms']:.4f} ms "
+                  f"by {row['bound']['bound_by']}")
+        times["probe_plain_ms"] = median_ms(
+            lambda: probe.march_probe_reference(o, d, accel.words, dims),
+            device, 3)
+        print(f"phase 9 resume: K6 full/morton16 plain version "
+              f"{times['probe_plain_ms']:.1f} ms")
+    secs = time.perf_counter() - t_phase
+    print(f"phase 9 resume: {secs:.1f} s")
+    return {"err": err, "times": times, "seconds": secs}
 
 
 class StepTimer:
@@ -1212,7 +1556,10 @@ def main(argv=None) -> int:
     main_run = phase_main(device, save=args.save)
     cross_fingerprint(main_run["grid"], main_run["accel"])
     del main_run["accel"]
-    pipe = phase_pipeline(device, main_run.pop("grid"), save=args.save)
+    grid = main_run.pop("grid")
+    pipe = phase_pipeline(device, grid, save=args.save)
+    resume = phase_resume(device, grid)
+    del grid
     cross_entry_frame(device)
     train = phase_train(device)
     cross_train(device)
@@ -1261,6 +1608,34 @@ def main(argv=None) -> int:
         "max_abs_err": pipe["err"], "ms": pt["ms"],
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
         "bound_by": pt["bound_by"], "library_ms": None})
+    rt = resume["times"]
+    kernels.append({
+        "name": "march_resume_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/march.cu",
+        "replaces": "vxtpu/render/kernel_pallas_v2.py:434 (resume mode) "
+                    "and :1105 (march_pallas_v2_sorted)",
+        "launches": rt["launches"]["march_resume_kernel"],
+        "max_abs_err": resume["err"]["march_resume_kernel"],
+        "ms": rt["round0_ms"], "plain_ms": rt["round0_plain_ms"],
+        "bound_ms": rt["bound0"]["bound_ms"],
+        "bound_by": rt["bound0"]["bound_by"], "library_ms": None})
+    full = next(r for r in rt["cost"] if (r["variant"], r["layout"],
+                                          r["threads"]) ==
+                ("full", "morton16", 256))
+    kernels.append({
+        "name": "march_probe_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/probe.cu",
+        "replaces": ", ".join(f"tools/{f}" for f in (
+            "probe_pallas2_cost.py:164", "probe_pallas2_fixed.py:122",
+            "probe_r5_fetch.py:175", "probe_r5_fetch2.py:177",
+            "probe_r5_fetch3.py:152", "probe_r4_tune.py:181",
+            "probe_r4_tile16.py:133", "probe_r4_matfetch.py:96",
+            "probe_r4_matfetch.py:102")),
+        "launches": rt["probe_launches"],
+        "max_abs_err": resume["err"]["march_probe_kernel"],
+        "ms": full["ms"], "plain_ms": rt["probe_plain_ms"],
+        "bound_ms": full["bound"]["bound_ms"],
+        "bound_by": full["bound"]["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels, "gpu": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -13,6 +13,7 @@ from vxtpu_torch import kernel_check as kc
 from vxtpu_torch.render import kernel_march as km
 from vxtpu_torch.render import kernel_packed as kp
 from vxtpu_torch.render import kernel_sample as ks
+from vxtpu_torch.render import probe
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.packed import build_material_morton, build_packed_morton
 
@@ -131,3 +132,46 @@ def test_cuda_tensor_never_reaches_packed_plain_version(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(img).all())
     assert kp.LAUNCHES["march_packed_kernel"] == 2
+
+
+@pytest.mark.parametrize("name", kc.MARCH_CASES)
+def test_resume_kernel_matches_plain(cuda, name):
+    km.reset_launch_counts()
+    m = kc.run_resume_case(name, cuda)
+    kc.check_resume_case(m, name)
+    # a capped round 0 and a resume per budget
+    assert km.LAUNCHES["march_resume_kernel"] == 2 * len(kc.RESUME_BUDGETS)
+    assert km.LAUNCHES["march_shade_kernel"] == 0
+
+
+@pytest.mark.parametrize("name", kc.PROBE_CASES)
+def test_probe_kernel_matches_plain(cuda, name):
+    probe.reset_launch_counts()
+    m = kc.run_probe_case(name, cuda)
+    kc.check_probe_case(m, name)
+    assert probe.LAUNCHES["march_probe_kernel"] == \
+        (2 if name.startswith("identity") else 1)
+
+
+def test_cuda_tensor_never_reaches_resume_or_probe_plain_versions(
+        cuda, monkeypatch):
+    """On CUDA tensors the resume mode, the sorted march and the probe
+    launch their kernels: no plain version is called, not even as a
+    fallback."""
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(km, "march_reference", boom)
+    monkeypatch.setattr(probe, "march_probe_reference", boom)
+    grid = procgen.terrain((32, 32, 32), seed=3, device=cuda)
+    acc = build_packed_morton(grid.occupancy)
+    o, d = kc.sample_rays("outside", 32, 4096, cuda)
+    km.reset_launch_counts()
+    probe.reset_launch_counts()
+    rec = km.march_sorted(o, d, acc, (32, 32, 32), 98, round0_iters=2)
+    accs = [probe.march_probe(o, d, acc.words, (32, 32, 32), 8, v)
+            for v in probe.VARIANTS]
+    torch.cuda.synchronize()
+    assert bool(rec.hit.any()) and all(bool(a.isfinite().all()) for a in accs)
+    assert km.LAUNCHES["march_resume_kernel"] >= 2
+    assert probe.LAUNCHES["march_probe_kernel"] == len(probe.VARIANTS)

@@ -162,7 +162,8 @@ def test_render_path_end_to_end_matches_vxtpu():
     assert torch.isfinite(img).all()
     # no kernel launches on CPU tensors
     assert kernel_march.LAUNCHES == {"march_shade_kernel": 0,
-                                     "shade_kernel": 0}
+                                     "shade_kernel": 0,
+                                     "march_resume_kernel": 0}
 
     jcfg = JCONFIGS["c5_1080p_pod"]
     jg, _, jcam, jlights = jbuild_scene(jcfg, DIMS, "none")

@@ -121,7 +121,8 @@ def test_march_cpu_launches_no_kernel():
     o, d = jgenerate_rays(jax_cameras()["outside"], 8, 8)
     _both("box", o, d)
     assert kernel_march.LAUNCHES == {"march_shade_kernel": 0,
-                                     "shade_kernel": 0}
+                                     "shade_kernel": 0,
+                                     "march_resume_kernel": 0}
 
 
 def test_march_rejects_bad_inputs():

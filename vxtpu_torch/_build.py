@@ -102,6 +102,16 @@ def load() -> ctypes.CDLL:
     lib.vx_shade.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                              _P, _P]
     lib.vx_shade.restype = _I
+    lib.vx_march_resume.argtypes = [
+        _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I,   # inputs, params
+        _P, _P, _P, _P, _P, _P, _P,                       # outputs
+        _P]                                               # stream
+    lib.vx_march_resume.restype = _I
+    lib.vx_march_probe.argtypes = [
+        _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,       # inputs, params
+        _P,                                               # output
+        _P]                                               # stream
+    lib.vx_march_probe.restype = _I
     lib.vx_march_packed.argtypes = [
         _P, _P, _P, _I, _P, _I, _I, _I, _I,               # inputs, params
         _P, _P, _P, _P, _P,                               # outputs

@@ -53,6 +53,18 @@ def packed_accel_from_numpy(words_f32_rows128: np.ndarray, dims,
                                          torch.int32, device))
 
 
+def resume_state_from_numpy(voxel, dist, steps, done,
+                            device=DEFAULT) -> tuple:
+    """vxtpu's round outputs (``rec.voxel`` [N, 3], ``ext["dist"]``,
+    ``rec.steps``, ``ext["done"]`` of ``march_pallas_v2(...,
+    extended=True)``) -> the port's ``resume_state`` (voxel, dist, steps),
+    int32; the rays that are done become dead slots (dist -1)."""
+    device = resolve(device)
+    dist = np.where(np.asarray(done).astype(bool), -1, np.asarray(dist))
+    return tuple(torch.as_tensor(np.array(x, np.int32), device=device)
+                 for x in (voxel, dist, steps))
+
+
 def atlas_from_numpy(channels, tex_size: int, device=DEFAULT):
     """vxtpu ``TextureAtlas`` (three float32 [M*T*T] planes) ->
     TextureAtlas."""

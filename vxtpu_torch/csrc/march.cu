@@ -7,7 +7,13 @@
 //                          dispatch, and the _shade_epilogue;
 //   shade_kernel        <- _shade_only_kernel (via shade_pallas_v2): the
 //                          epilogue alone on a stored hit record plus
-//                          per-light visibility.
+//                          per-light visibility;
+//   march_resume_kernel <- _march_kernel in resume mode (resume=True,
+//                          iter_budget, the extended done / dist outputs),
+//                          the round kernel of march_pallas_v2_sorted: a
+//                          march-only round capped at iter_cap iterations
+//                          per ray that restarts from a stored (voxel,
+//                          dist, steps) state.
 //
 // What bounds it on this card: one thread per ray runs a divergent loop
 // whose every cell change is a dependent table read, so the march is
@@ -17,6 +23,8 @@
 // cell's child bits stay in registers, so steps inside one occupied 2x2x2
 // cell read nothing; an empty cell's -D word jumps the ray across the whole
 // provably-empty box. The material / RGB8 word is read once per hit ray.
+//// The resume kernel shares the march (march_ray<true>): the same bound and
+// design, one more read per resumed ray for its cell's child bits.
 //
 // Floating point: built with -fmad=false and without fast math, so every
 // add, multiply, divide and sqrtf rounds as the plain PyTorch version's
@@ -57,6 +65,18 @@ struct MarchResult {
   int vx, vy, vz;
   int ax, sg;  // face axis and DDA step sign of the hit
   int steps;
+  // resume mode only: the ray ended (hit, left the grid, passed t_max, or
+  // was dead); the dist channel (-2: the entry fetch is still pending)
+  int done, dist;
+};
+
+// Resume-mode state of one ray (vxtpu's resume_state): the voxel, the dist
+// channel (-1 a dead slot, -2 the entry fetch is pending, else the current
+// cell's empty-box radius) and the steps of earlier rounds. given == 0
+// starts the ray at the slab clip's entry voxel, as K1 does.
+struct ResumeIn {
+  int given;
+  int vx, vy, vz, dist, steps;
 };
 
 __device__ __forceinline__ int part1by2(int v) {
@@ -105,10 +125,23 @@ __device__ __forceinline__ float axis_t(int v, int dist, float o, float d,
 // [0,X]x[0,Y]x[0,Z] capped at t_max, an entry fetch at the entry voxel
 // (not a step), then DDA advances until a hit, leaving the grid, passing
 // t_max, or iter_cap iterations (the entry fetch counts as one).
+//
+// kResume (march_resume_kernel; K1 instantiates it false, and then none of
+// the resume code exists): the ray starts from `rin` when it is given. A
+// dead slot (dist -1) or an invalid ray is done at once; a pending one
+// (dist -2) fetches its given voxel as the entry voxel, with the entry t
+// and face of the slab clip; any other ray continues from (voxel, dist),
+// its iteration count starting at 0 and its steps at rin.steps. A resumed
+// ray has no child bits in registers yet, so it first reads its current
+// cell's word (vxtpu's cbok carry): that read is neither a step nor an
+// iteration. With iter_cap < 1 nothing runs, and a pending ray reports
+// dist -2.
+template <bool kResume>
 __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
                                  float dy, float dz, float t_max,
                                  const int16_t* __restrict__ occ, int X, int Y,
-                                 int Z, int iter_cap) {
+                                 int Z, int iter_cap,
+                                 ResumeIn rin = ResumeIn{}) {
   MarchResult r;
   r.hit = 0;
   r.t = kBigT;
@@ -138,26 +171,60 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
   int vx = floor_clip(ox + (t_enter + kEps) * dx, X);
   int vy = floor_clip(oy + (t_enter + kEps) * dy, Y);
   int vz = floor_clip(oz + (t_enter + kEps) * dz, Z);
-  r.vx = vx;
-  r.vy = vy;
-  r.vz = vz;
-  if (!valid) return r;
+  bool entry = true;  // the first iteration fetches the entry voxel
+  int it = 1;         // the entry fetch counts as an iteration
+  if constexpr (kResume) {
+    r.done = 1;
+    r.dist = 0;
+    if (rin.given) {
+      vx = min(max(rin.vx, 0), X - 1);
+      vy = min(max(rin.vy, 0), Y - 1);
+      vz = min(max(rin.vz, 0), Z - 1);
+      r.steps = rin.steps;
+      r.dist = max(rin.dist, 0);
+      entry = rin.dist == -2;
+    }
+    r.vx = vx;
+    r.vy = vy;
+    r.vz = vz;
+    if (!valid || (rin.given && rin.dist == -1)) return r;
+    r.done = 0;
+    if (iter_cap < 1) {
+      if (entry) r.dist = -2;
+      return r;
+    }
+  } else {
+    r.vx = vx;
+    r.vy = vy;
+    r.vz = vz;
+    if (!valid) return r;
+  }
 
   // entry fetch: the entry face is the axis with the largest near-slab t,
   // ties toward the lowest axis
   int w = __ldg(occ + morton3(vx >> 1, vy >> 1, vz >> 1));
   int cb = max(w, 0);
   int dist = max(-w, 0);
-  if (child_bit(cb, vx, vy, vz)) {
+  if constexpr (kResume) {
+    if (!entry) {  // a resumed ray: the word gave its cell's child bits
+      dist = r.dist;
+      it = 0;
+    }
+  }
+  if (entry && child_bit(cb, vx, vy, vz)) {
     const float tn_max = fmaxf(fmaxf(nx, ny), nz);
     r.hit = 1;
     r.t = t_enter;
     r.ax = nx >= tn_max ? 0 : (ny >= tn_max ? 1 : 2);
     r.sg = r.ax == 0 ? sgx : (r.ax == 1 ? sgy : sgz);
+    if constexpr (kResume) {
+      r.done = 1;
+      r.dist = dist;
+    }
     return r;
   }
 
-  for (int it = 1; it < iter_cap; ++it) {
+  for (; it < iter_cap; ++it) {
     const float tx = axis_t(vx, dist, ox, dx, ivx);
     const float ty = axis_t(vy, dist, oy, dy, ivy);
     const float tz = axis_t(vz, dist, oz, dz, ivz);
@@ -184,7 +251,10 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
       inside = (mx && fx_ >= 0 && fx_ < X) || (my && fy_ >= 0 && fy_ < Y) ||
                (mz && fz_ >= 0 && fz_ < Z);
     }
-    if (!inside || t_new > t_end) break;
+    if (!inside || t_new > t_end) {
+      if constexpr (kResume) r.done = 1;
+      break;
+    }
 
     // a step inside the current occupied cell resolves from the child
     // bits already in registers; any other step reads the target's word
@@ -204,12 +274,14 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
       r.t = t_new;
       r.ax = mx ? 0 : (my ? 1 : 2);
       r.sg = mx ? sgx : (my ? sgy : sgz);
+      if constexpr (kResume) r.done = 1;
       break;
     }
   }
   r.vx = vx;
   r.vy = vy;
   r.vz = vz;
+  if constexpr (kResume) r.dist = dist;
   return r;
 }
 
@@ -317,7 +389,7 @@ march_shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
   const float tm = t_max ? t_max[i] : kBigT;
   const MarchResult r =
-      march_ray(ox, oy, oz, dx, dy, dz, tm, occ, X, Y, Z, iter_cap);
+      march_ray<false>(ox, oy, oz, dx, dy, dz, tm, occ, X, Y, Z, iter_cap);
   const bool hit = r.hit != 0;
   const float sgf = -(float)r.sg;
   const float nx = hit && r.ax == 0 ? sgf : 0.0f;
@@ -352,7 +424,7 @@ march_shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
       const float ndl = nx * ldx + ny * ldy + nz * ldz;
       vis[li] = 1.0f;
       if (hit && ndl > 0.0f) {
-        const MarchResult s = march_ray(px, py, pz, ldx, ldy, ldz,
+        const MarchResult s = march_ray<false>(px, py, pz, ldx, ldy, ldz,
                                         ldist - 2.0f * kShadowEps, occ, X, Y,
                                         Z, iter_cap);
         if (s.hit) vis[li] = 0.0f;
@@ -362,6 +434,51 @@ march_shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
   shade_pixel(P, lights, mats, mats_len, hit, r.t, r.vx, r.vy, r.vz, nx, ny,
               nz, ox, oy, oz, dx, dy, dz, P.shadows ? vis : nullptr,
               rgb_out + 3 * i);
+}
+
+// One march-only round per ray (K1's march_ray in resume mode): the
+// HitRecord plus done and the dist channel. rvox / rdist / rsteps are the
+// resume state, or all null to start every ray at its entry voxel.
+__global__ void __launch_bounds__(kThreads)
+march_resume_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                    const float* __restrict__ t_max, int n,
+                    const int32_t* __restrict__ rvox,
+                    const int32_t* __restrict__ rdist,
+                    const int32_t* __restrict__ rsteps,
+                    const int16_t* __restrict__ occ, int X, int Y, int Z,
+                    int iter_cap, uint8_t* __restrict__ hit_out,
+                    float* __restrict__ t_out, int32_t* __restrict__ vox_out,
+                    float* __restrict__ nrm_out,
+                    int32_t* __restrict__ steps_out,
+                    uint8_t* __restrict__ done_out,
+                    int32_t* __restrict__ dist_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  ResumeIn rin = {0, 0, 0, 0, 0, 0};
+  if (rvox != nullptr) {
+    rin.given = 1;
+    rin.vx = rvox[3 * i];
+    rin.vy = rvox[3 * i + 1];
+    rin.vz = rvox[3 * i + 2];
+    rin.dist = rdist[i];
+    rin.steps = rsteps[i];
+  }
+  const MarchResult r = march_ray<true>(
+      o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
+      d[3 * i + 2], t_max ? t_max[i] : kBigT, occ, X, Y, Z, iter_cap, rin);
+  const bool hit = r.hit != 0;
+  const float sgf = -(float)r.sg;
+  hit_out[i] = hit ? 1 : 0;
+  t_out[i] = r.t;
+  vox_out[3 * i] = r.vx;
+  vox_out[3 * i + 1] = r.vy;
+  vox_out[3 * i + 2] = r.vz;
+  nrm_out[3 * i] = hit && r.ax == 0 ? sgf : 0.0f;
+  nrm_out[3 * i + 1] = hit && r.ax == 1 ? sgf : 0.0f;
+  nrm_out[3 * i + 2] = hit && r.ax == 2 ? sgf : 0.0f;
+  steps_out[i] = r.steps;
+  done_out[i] = r.done ? 1 : 0;
+  dist_out[i] = r.dist;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -408,6 +525,21 @@ extern "C" int vx_march_shade(const float* o, const float* d,
   march_shade_kernel<<<blocks, kThreads, 0, stream>>>(
       o, d, t_max, n, occ, X, Y, Z, iter_cap, mats, mats_len, lights, P,
       do_shade, hit, t, vox, nrm, steps, rgb);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int vx_march_resume(const float* o, const float* d,
+                               const float* t_max, int n,
+                               const int32_t* rvox, const int32_t* rdist,
+                               const int32_t* rsteps, const int16_t* occ,
+                               int X, int Y, int Z, int iter_cap,
+                               uint8_t* hit, float* t, int32_t* vox,
+                               float* nrm, int32_t* steps, uint8_t* done,
+                               int32_t* dist, cudaStream_t stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  march_resume_kernel<<<blocks, kThreads, 0, stream>>>(
+      o, d, t_max, n, rvox, rdist, rsteps, occ, X, Y, Z, iter_cap, hit, t,
+      vox, nrm, steps, done, dist);
   return (int)cudaGetLastError();
 }
 

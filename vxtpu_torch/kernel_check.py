@@ -11,6 +11,15 @@ Row-major march (K5): hit, voxel, normal and steps equal on every ray
 and |t difference| <= 1e-6 (the same operations in the same order, no
 grazing-ray margin).
 
+Resume march (K1', march_resume_kernel): hit, t, voxel, normal, steps,
+done and dist equal on every ray, for a capped round 0 and for the resume
+from the plain round 0's state (both sides make the same operations in the
+same order, as K1's do).
+
+March-cost probe (K6, march_probe_kernel): acc equal bit for bit on every
+ray, and on an identity table equal to the count computed from the index
+formula alone.
+
 Field sampling (K3, K4): forward samples within |d| <= 1e-6 (the same
 operations in the same order); backward gradient tables and per-ray
 cotangents within rtol 1e-5 and atol 1e-6 x max|g|, because the kernel's
@@ -29,6 +38,7 @@ from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.render import kernel_march as km
 from vxtpu_torch.render import kernel_packed as kp
 from vxtpu_torch.render import kernel_sample as ks
+from vxtpu_torch.render import probe
 from vxtpu_torch.render.fused import render_rays_fused
 from vxtpu_torch.render.pipeline import shadow_ray_batch
 from vxtpu_torch.render.settings import RenderSettings
@@ -198,6 +208,176 @@ def check_shade_case(m: dict, what: str) -> None:
                        if k.startswith("rec_")}, what)
     if m["hits"] == 0:
         raise AssertionError(f"{what}: no ray hit")
+
+
+RESUME_BUDGETS = (0, 1, 3, 24)
+RESUME_FIELDS = ("hit", "t", "voxel", "normal", "steps", "done", "dist")
+
+
+def resume_mismatch(rec_a, ext_a, rec_b, ext_b) -> dict:
+    """Rays on which two resume-mode results differ, field by field
+    (exact, t included)."""
+    m = {}
+    for f in RESUME_FIELDS:
+        a = ext_a[f] if f in ext_a else getattr(rec_a, f)
+        b = ext_b[f] if f in ext_b else getattr(rec_b, f)
+        ne = a != b
+        m[f] = int((ne.any(-1) if ne.dim() == 2 else ne).sum())
+    return m
+
+
+def merge_rounds(done0, rec0, rec1) -> km.HitRecord:
+    """The final record of two rounds: round 0's for the rays it finished,
+    the resume round's for the rest."""
+    def pick(a, b):
+        return torch.where(done0[:, None] if a.dim() == 2 else done0, a, b)
+
+    return km.HitRecord(*(pick(getattr(rec0, f), getattr(rec1, f))
+                          for f in ("hit", "t", "voxel", "normal", "steps")))
+
+
+def exact_mismatch(a: km.HitRecord, b: km.HitRecord) -> int:
+    """Rays on which two records differ in hit, t, voxel, normal or
+    steps."""
+    ne = ((a.hit != b.hit) | (a.t != b.t) | (a.steps != b.steps)
+          | (a.voxel != b.voxel).any(-1) | (a.normal != b.normal).any(-1))
+    return int(ne.sum())
+
+
+def run_resume_case(name: str, device, D: int = 64, h: int = 256,
+                    w: int = 256, budgets=RESUME_BUDGETS) -> dict:
+    """march in resume mode (the kernel) vs march_reference's resume mode
+    on one march case, for each budget: round 0 capped at the budget, and
+    the resume from the plain round 0's state (the rays it finished as
+    dead slots); the merged record against the plain single round."""
+    scene, cam_name, *rest = name.split("-")
+    dims = (D,) * 3
+    grid = _scenes(D, device)[scene]
+    acc = build_packed_morton(grid.occupancy, cap=64)
+    o, d = generate_rays(_cameras(D, device)[cam_name], h, w)
+    t_max = None
+    if rest == ["tmax"]:
+        t_max = torch.full((o.shape[0],), 1.2 * D, device=device)
+    ms = 3 * D + 2
+    single = km.march_reference(o, d, acc, dims, ms, t_max=t_max)
+    out = dict(n=int(o.shape[0]), hits=int(single.hit.sum()),
+               mismatch={f: 0 for f in RESUME_FIELDS}, merged=0,
+               unfinished=0, survivors={})
+    for b in budgets:
+        rk, ek = km.march(o, d, acc, dims, ms, t_max=t_max, iter_budget=b,
+                          extended=True)
+        rp, ep = km.march_reference(o, d, acc, dims, ms, t_max,
+                                    iter_budget=b, extended=True)
+        state = (rp.voxel, torch.where(ep["done"], -1, ep["dist"]), rp.steps)
+        rk1, ek1 = km.march(o, d, acc, dims, ms, t_max=t_max,
+                            resume_state=state, extended=True)
+        rp1, ep1 = km.march_reference(o, d, acc, dims, ms, t_max,
+                                      resume_state=state, extended=True)
+        for m in (resume_mismatch(rk, ek, rp, ep),
+                  resume_mismatch(rk1, ek1, rp1, ep1)):
+            for f, v in m.items():
+                out["mismatch"][f] += v
+        out["merged"] += exact_mismatch(
+            merge_rounds(ek["done"], rk, rk1), single)
+        out["unfinished"] += int((~ek1["done"]).sum())
+        out["survivors"][b] = int((~ek["done"]).sum())
+    return out
+
+
+def check_resume_case(m: dict, what: str) -> None:
+    """Exact: no field of any ray differs, every ray is done after the
+    resume, and the merged rounds equal the single round."""
+    bad = {f: v for f, v in m["mismatch"].items() if v}
+    if bad:
+        raise AssertionError(f"{what}: kernel and plain version differ on "
+                             f"{bad} (of {m['n']} rays per round)")
+    if m["unfinished"] or m["merged"]:
+        raise AssertionError(f"{what}: {m['unfinished']} rays unfinished, "
+                             f"{m['merged']} differ from the single round")
+    if m["hits"] == 0:
+        raise AssertionError(f"{what}: no ray hit")
+
+
+PROBE_CASES = ([f"{v}-{lay}-{c}" for v in probe.VARIANTS
+                for lay in probe.LAYOUTS for c in ("outside", "inside")]
+               + [f"identity-{lay}" for lay in probe.LAYOUTS])
+
+
+def probe_table(layout, grid):
+    """The world's table in a probe layout."""
+    if layout == "morton16":
+        return build_packed_morton(grid.occupancy, cap=64).words
+    return build_packed(grid.occupancy).words
+
+
+def probe_identity_expected(o, d, dims, n_iters, layout) -> torch.Tensor:
+    """acc of the nomath probe over ``probe.identity_table(layout)``,
+    computed from the index formula alone: each ray steps diagonally from
+    its clipped floor, and the word of coarse cell c is its index (the
+    bits of c interleaved, or row-major) mod 2^15."""
+    X, Y, Z = dims
+    lim = torch.tensor([X - 1, Y - 1, Z - 1], device=o.device)
+    v = torch.minimum(torch.clamp(torch.floor(o), min=0.0).long(), lim)
+    sg = torch.where(d >= 0, 1, -1).long()
+    acc = torch.zeros(o.shape[0], dtype=torch.float32, device=o.device)
+    for _ in range(n_iters):
+        v = torch.minimum(torch.clamp(v + sg, min=0), lim)
+        c = v >> 1
+        if layout == "morton16":
+            idx = sum(((c[:, a] >> b) & 1) << (3 * b + a)
+                      for b in range(10) for a in range(3))
+        else:
+            idx = (c[:, 0] * (Y // 2) + c[:, 1]) * (Z // 2) + c[:, 2]
+        word = idx % (1 << 15)
+        cb = word if layout == "morton16" else word & 255
+        ci = ((v[:, 0] & 1) << 2) | ((v[:, 1] & 1) << 1) | (v[:, 2] & 1)
+        acc = acc + ((cb >> ci) & 1).to(torch.float32)
+    return acc
+
+
+def run_probe_case(name: str, device, D: int = 64, h: int = 256,
+                   w: int = 256, n_iters: int = probe.N_ITERS) -> dict:
+    """march_probe (the kernel) vs march_probe_reference: variant-layout-
+    camera on the D^3 terrain (seed 11), or identity-layout (the nomath
+    and full variants over probe.identity_table, the nomath one also
+    against probe_identity_expected), outside camera."""
+    kind, layout, *cam = name.split("-")
+    dims = (D,) * 3
+    o, d = generate_rays(_cameras(D, device)[cam[0] if cam else "outside"],
+                         h, w)
+    if kind == "identity":
+        table = probe.identity_table(layout, dims, device)
+        runs = ("nomath", "full")
+    else:
+        table = probe_table(layout, procgen.terrain(dims, seed=11,
+                                                    device=device))
+        runs = (kind,)
+    # acc of static is 0 where the start cell is empty (every ray of the
+    # outside camera starts on the grid's face, in the air)
+    m = dict(n=int(o.shape[0]), acc=0, max_abs=0.0, acc_sum=0.0,
+             may_be_zero=kind == "static")
+    for variant in runs:
+        got = probe.march_probe(o, d, table, dims, n_iters, variant, layout)
+        want = probe.march_probe_reference(o, d, table, dims, n_iters,
+                                           variant, layout)
+        m["acc"] += int((got != want).sum())
+        m["max_abs"] = max(m["max_abs"], float((got - want).abs().max()))
+        m["acc_sum"] += float(got.double().sum())
+        if variant == "nomath" and kind == "identity":
+            m["expected"] = int((got != probe_identity_expected(
+                o, d, dims, n_iters, layout)).sum())
+    return m
+
+
+def check_probe_case(m: dict, what: str) -> None:
+    """acc bit for bit on every ray (and the identity table's words)."""
+    if m["acc"] or m.get("expected", 0):
+        raise AssertionError(f"{what}: acc differs on {m['acc']} of "
+                             f"{m['n']} rays (max {m['max_abs']:.3g}); "
+                             f"identity words wrong on "
+                             f"{m.get('expected', 0)}")
+    if m["acc_sum"] <= 0 and not m["may_be_zero"]:
+        raise AssertionError(f"{what}: acc is 0 on every ray")
 
 
 PACKED_T_ATOL = 1e-6

@@ -20,6 +20,13 @@ material or RGB8 word is read once per hit ray. None of the TPU
 machinery (row windows, one-hot MXU fetch, bf16 casts, [8,128] tiles,
 tuning knobs, per-tile iteration counters) carries over.
 
+Resume mode (vxtpu's ``iter_budget``, ``resume_state`` and ``extended``
+arguments of ``march_pallas_v2``) launches ``march_resume_kernel``, the
+same march in a march-only round capped at a number of iterations per ray
+that restarts from a stored (voxel, dist, steps) state. ``march_sorted``
+replaces ``march_pallas_v2_sorted``: a capped round 0, then resume rounds
+over the survivors sorted by Morton cell, until every ray is done.
+
 On a CUDA tensor ``march`` and ``shade`` launch the kernel (or raise);
 on a CPU tensor they run ``march_reference`` / ``shade_reference``, the
 plain versions with the same per-ray semantics, including ``steps``.
@@ -48,7 +55,8 @@ MAX_LIGHTS = 8
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
 # Each wrapper adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"march_shade_kernel": 0, "shade_kernel": 0}
+LAUNCHES = {"march_shade_kernel": 0, "shade_kernel": 0,
+            "march_resume_kernel": 0}
 
 
 def reset_launch_counts() -> None:
@@ -154,7 +162,10 @@ def _fetch(words: torch.Tensor, vx, vy, vz):
 def march_reference(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
                     dims: tuple[int, int, int], max_steps: int,
                     t_max: torch.Tensor | None = None,
-                    active: torch.Tensor | None = None) -> HitRecord:
+                    active: torch.Tensor | None = None,
+                    iter_budget: int | None = None,
+                    resume_state: tuple | None = None,
+                    extended: bool = False):
     """Plain version of the march: a vectorised masked loop over all rays
     that compacts the live rays after every iteration.
 
@@ -162,8 +173,21 @@ def march_reference(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
     fetch at the entry voxel (not a step); then DDA advances, each either
     one fine voxel or, from an empty cell (word -D), a jump to the exit of
     the empty box [2c - 2(D-1), 2c + 2D). A ray ends when it leaves the
-    grid, passes t_max, hits, or reaches max_steps*8 + 1024 iterations.
-    ``active`` (bool [N]) marches only those rays; the rest miss at once.
+    grid, passes t_max, hits, or reaches max_steps*8 + 1024 iterations
+    (the entry fetch counts as one). ``active`` (bool [N]) marches only
+    those rays; the rest miss at once.
+
+    Resume mode, the plain version of ``march_resume_kernel``:
+    ``iter_budget`` caps the iterations of each ray in this call;
+    ``resume_state`` = (voxel int32 [N,3], dist int32 [N], steps int32
+    [N]) restarts the rays: dist -1 marks a dead slot (done at once, a
+    miss at the clipped given voxel with the given steps), -2 a ray whose
+    entry fetch is pending (it fetches the clipped given voxel, with the
+    entry t and face of the slab clip), anything else a ray that
+    continues from (voxel, dist) with its steps going on from the given
+    count and its iterations from 0. ``extended`` also returns
+    {"done": bool [N], "dist": int32 [N]}, the state of the next round
+    (dist -2 where a valid ray had no iteration).
     """
     X, Y, Z = dims
     n = o.shape[0]
@@ -209,30 +233,68 @@ def march_reference(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
             inside
 
     vx, vy, vz, _ = reinit(ox, oy, oz, dx, dy, dz, t_enter)
+    steps = torch.zeros(n, dtype=torch.int32, device=dev)
+    dist_out = torch.zeros(n, dtype=torch.int32, device=dev)
+    live = valid
+    fresh = valid                   # the first iteration is the entry fetch
+    if resume_state is not None:
+        rv, rd, rs = resume_state
+        vx = torch.clamp(rv[:, 0], 0, X - 1)
+        vy = torch.clamp(rv[:, 1], 0, Y - 1)
+        vz = torch.clamp(rv[:, 2], 0, Z - 1)
+        steps = rs.clone()
+        dist_out = torch.clamp(rd, min=0)
+        live = valid & (rd != -1)
+        fresh = live & (rd == -2)
+    iter_cap = max_steps * 8 + 1024
+    if iter_budget is not None:
+        iter_cap = min(iter_budget, iter_cap)
+    done = ~live
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
     t_hit = torch.full((n,), BIG_T, dtype=torch.float32, device=dev)
     rax = torch.zeros(n, dtype=torch.int32, device=dev)
     rsg = torch.zeros(n, dtype=torch.int32, device=dev)
-    steps = torch.zeros(n, dtype=torch.int32, device=dev)
     vox = torch.stack([vx, vy, vz], dim=-1)
 
-    # entry fetch at the entry voxel (the first loop iteration; no step)
+    def result():
+        rec = _hit_record(hit, t_hit, vox, rax, rsg, steps)
+        return (rec, {"done": done, "dist": dist_out}) if extended else rec
+
+    if iter_cap < 1:
+        dist_out = torch.where(fresh, -2, dist_out)
+        return result()
+
+    # entry fetch at the entry voxel (the first loop iteration; no step);
+    # a resumed ray keeps its given dist
     cb, dist = _fetch(words, vx, vy, vz)
-    entry_hit = valid & _childbit(cb, vx, vy, vz)
+    entry_hit = fresh & _childbit(cb, vx, vy, vz)
     hit |= entry_hit
     t_hit = torch.where(entry_hit, t_enter, t_hit)
     rax = torch.where(entry_hit, eax, rax)
     rsg = torch.where(entry_hit, esg, rsg)
+    dist = torch.where(fresh, dist, dist_out)
+    dist_out = dist
+    done = done | entry_hit
 
     # live rays, compacted: constants and carry
-    live = valid & ~entry_hit
-    idx = torch.nonzero(live).squeeze(1)
+    idx = torch.nonzero(live & ~entry_hit).squeeze(1)
     c = [x[idx] for x in (ox, oy, oz, dx, dy, dz, ivx, ivy, ivz,
                           sgx, sgy, sgz, t_end)]
     s = [x[idx] for x in (vx, vy, vz, cb, dist)]
-    nstep = torch.zeros(idx.shape[0], dtype=torch.int32, device=dev)
-    iter_cap = max_steps * 8 + 1024
-    for _ in range(1, iter_cap):
+    nstep = steps[idx]
+    # a ray that fetched its entry voxel here has spent one iteration
+    spent = fresh[idx]
+    for k in range(iter_cap):
+        if k == iter_cap - 1 and bool(spent.any()):
+            # the rays that fetched an entry voxel reach the cap here
+            fi = idx[spent]
+            vox[fi] = torch.stack([x[spent] for x in s[:3]], dim=-1)
+            steps[fi] = nstep[spent]
+            dist_out[fi] = s[4][spent]
+            keep = ~spent
+            idx, nstep, spent = idx[keep], nstep[keep], spent[keep]
+            c = [x[keep] for x in c]
+            s = [x[keep] for x in s]
         if idx.numel() == 0:
             break
         (cox, coy, coz, cdx, cdy, cdz, civx, civy, civz,
@@ -278,6 +340,7 @@ def march_reference(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
         cvy = torch.where(adv, nvy, cvy)
         cvz = torch.where(adv, nvz, cvz)
         nstep = nstep + adv.to(torch.int32)
+        ndist = torch.where(adv, ndist, cdist)
 
         fin = new_hit | ~adv
         if bool(fin.any()):
@@ -289,18 +352,22 @@ def march_reference(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
             rsg[fi] = torch.where(hi_, sg[fin], rsg[fi])
             vox[fi] = torch.stack([cvx[fin], cvy[fin], cvz[fin]], dim=-1)
             steps[fi] = nstep[fin]
+            dist_out[fi] = ndist[fin]
+            done[fi] = True
             keep = ~fin
             idx = idx[keep]
             c = [x[keep] for x in c]
             s = [x[keep] for x in (cvx, cvy, cvz, ncb, ndist)]
             nstep = nstep[keep]
+            spent = spent[keep]
         else:
             s = [cvx, cvy, cvz, ncb, ndist]
-    # rays still live at the iteration cap end as misses where they stand
+    # rays still live at the iteration cap end where they stand, not done
     if idx.numel():
         vox[idx] = torch.stack(s[:3], dim=-1)
         steps[idx] = nstep
-    return _hit_record(hit, t_hit, vox, rax, rsg, steps)
+        dist_out[idx] = s[4]
+    return result()
 
 
 def _hit_record(hit, t_hit, vox, rax, rsg, steps) -> HitRecord:
@@ -461,12 +528,32 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _check_resume_state(resume_state, n, device):
+    """(voxel, dist[, steps]) -> (voxel, dist, steps), steps 0 where not
+    given; raises on anything else."""
+    if not isinstance(resume_state, (tuple, list)) or \
+            len(resume_state) not in (2, 3):
+        raise ValueError("resume_state: expected (voxel, dist[, steps])")
+    rv, rd = resume_state[0], resume_state[1]
+    _check("resume voxel", rv, torch.int32, (n, 3), device)
+    _check("resume dist", rd, torch.int32, (n,), device)
+    if len(resume_state) == 3:
+        rs = resume_state[2]
+        _check("resume steps", rs, torch.int32, (n,), device)
+    else:
+        rs = torch.zeros(n, dtype=torch.int32, device=device)
+    return rv, rd, rs
+
+
 def march(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
           dims: tuple[int, int, int], max_steps: int,
           t_max: torch.Tensor | None = None,
           shade_spec: ShadeSpec | None = None,
           mats: torch.Tensor | None = None,
-          lights_arr: torch.Tensor | None = None):
+          lights_arr: torch.Tensor | None = None, *,
+          iter_budget: int | None = None,
+          resume_state: tuple | None = None,
+          extended: bool = False):
     """March rays o, d (float32 [N, 3]) through the Morton table.
 
     Returns a HitRecord; with ``shade_spec`` (plus ``mats``, the material
@@ -474,7 +561,18 @@ def march(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
     (HitRecord, rgb [N, 3]), shading in the same kernel, after the
     per-light shadow marches when ``shade_spec.shadows`` is set.
     CUDA tensors launch ``march_shade_kernel``; CPU tensors run the plain
-    version."""
+    version.
+
+    Resume mode, as ``march_pallas_v2`` takes it: ``iter_budget`` caps
+    each ray's iterations in this call (the entry fetch counts as one;
+    vxtpu caps a whole [8,128] tile, stalls included); ``resume_state`` =
+    (voxel int32 [N,3], dist int32 [N][, steps int32 [N]]) restarts the
+    rays (dist -1: a dead slot, -2: the entry fetch is pending; steps 0
+    where not given); ``extended`` returns (HitRecord, {"done": bool [N],
+    "dist": int32 [N]}), the state of the next round. With any of them
+    set the call is march-only (a ``shade_spec`` raises ValueError) and
+    CUDA tensors launch ``march_resume_kernel``; see ``march_reference``
+    for the per-ray semantics."""
     device = o.device
     kind = _device_kind(device)
     n = o.shape[0]
@@ -483,6 +581,24 @@ def march(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
     if t_max is not None:
         _check("t_max", t_max, torch.float32, (n,), device)
     _check_tables(accel, dims, mats, shade_spec, device)
+    if iter_budget is not None or resume_state is not None or extended:
+        if shade_spec is not None:
+            raise ValueError("iter_budget, resume_state and extended march "
+                             "only; a shade_spec takes a single round")
+        if iter_budget is not None and (
+                not isinstance(iter_budget, int) or iter_budget < 0):
+            raise ValueError(f"iter_budget: expected an int >= 0, got "
+                             f"{iter_budget!r}")
+        if resume_state is not None:
+            resume_state = _check_resume_state(resume_state, n, device)
+        if kind == "cpu":
+            return march_reference(o, d, accel, dims, max_steps, t_max,
+                                   iter_budget=iter_budget,
+                                   resume_state=resume_state,
+                                   extended=extended)
+        rec, ext = _march_resume(o, d, accel, dims, max_steps, t_max,
+                                 iter_budget, resume_state)
+        return (rec, ext) if extended else rec
     if shade_spec is not None:
         _check_spec(shade_spec)
         if shade_spec.use_vis:
@@ -521,6 +637,122 @@ def march(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
         LAUNCHES["march_shade_kernel"] += 1
     rec = HitRecord(hit=hit, t=t, voxel=voxel, normal=normal, steps=steps)
     return rec if shade_spec is None else (rec, rgb)
+
+
+def _march_resume(o, d, accel, dims, max_steps, t_max, iter_budget,
+                  resume_state):
+    """Launch ``march_resume_kernel``: (HitRecord, {"done", "dist"})."""
+    from vxtpu_torch import _build
+
+    lib = _build.load()
+    device = o.device
+    n = o.shape[0]
+    X, Y, Z = dims
+    iter_cap = max_steps * 8 + 1024
+    if iter_budget is not None:
+        iter_cap = min(iter_budget, iter_cap)
+    rv, rd, rs = resume_state if resume_state is not None else (None,) * 3
+    i32 = dict(dtype=torch.int32, device=device)
+    hit = torch.empty(n, dtype=torch.bool, device=device)
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    voxel = torch.empty((n, 3), **i32)
+    normal = torch.empty((n, 3), dtype=torch.float32, device=device)
+    steps = torch.empty(n, **i32)
+    done = torch.empty(n, dtype=torch.bool, device=device)
+    dist = torch.empty(n, **i32)
+    if n:
+        rc = lib.vx_march_resume(
+            _ptr(o), _ptr(d), _ptr(t_max), n, _ptr(rv), _ptr(rd), _ptr(rs),
+            _ptr(accel.words), X, Y, Z, iter_cap, _ptr(hit), _ptr(t),
+            _ptr(voxel), _ptr(normal), _ptr(steps), _ptr(done), _ptr(dist),
+            torch.cuda.current_stream(device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"march_resume_kernel launch failed: "
+                               f"{_build.error_string(rc)}")
+        LAUNCHES["march_resume_kernel"] += 1
+    rec = HitRecord(hit=hit, t=t, voxel=voxel, normal=normal, steps=steps)
+    return rec, {"done": done, "dist": dist}
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def march_sorted(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
+                 dims: tuple[int, int, int], max_steps: int,
+                 t_max: torch.Tensor | None = None, round0_iters: int = 24,
+                 survivor_frac: int = 8,
+                 stats: dict | None = None) -> HitRecord:
+    """Multi-round march with a mid-flight resort of the rays (vxtpu's
+    ``march_pallas_v2_sorted`` without its TPU window, tile and image
+    arguments). Round 0 marches every ray for at most ``round0_iters``
+    iterations. Each resume round then keys the live rays by the Morton
+    code of their current coarse cell (dead rays last), takes the first B
+    = min(round_up(max(N // survivor_frac, 1024), 1024), N) of a stable
+    argsort, resumes them (the slots that are not alive as dead) and
+    scatters the alive ones back in place; rounds repeat while any ray is
+    live, with one host sync a round. The march is memoryless given (o,
+    d, voxel, dist), so the record equals the single-round march's, steps
+    included, except for a ray still live at the single-round iteration
+    cap (each round has that cap of its own).
+
+    Every resumed ray finishes within its round's cap, so the rounds
+    number ceil(survivors / B); one more raises RuntimeError. ``stats``,
+    when given, receives: survivors (live after round 0), buffer (B),
+    rounds (resume rounds), round0_steps and round0_done, and
+    resume_steps, the steps each buffer slot took in each resume round
+    (0 for dead slots), in the buffer's order."""
+    n = o.shape[0]
+    if t_max is None:
+        t_max = torch.full((n,), BIG_T, dtype=torch.float32, device=o.device)
+    rec, ext = march(o, d, accel, dims, max_steps, t_max=t_max,
+                     iter_budget=round0_iters, extended=True)
+    if not n:
+        return rec
+    B = min(_round_up(max(n // survivor_frac, 1024), 1024), n)
+    # the state, with one more row: dead slots of a round scatter there
+    state = [torch.cat([x, x[:1]]) for x in (
+        rec.hit, rec.t, rec.voxel, rec.normal, rec.steps, ext["done"],
+        ext["dist"])]
+    survivors = int((~ext["done"]).sum())
+    if stats is not None:
+        stats.update(survivors=survivors, buffer=B, rounds=0,
+                     round0_steps=rec.steps, round0_done=ext["done"],
+                     resume_steps=[])
+    max_rounds = -(-survivors // B)
+    live, rounds = survivors, 0
+    while live:
+        if rounds == max_rounds:
+            raise RuntimeError(
+                f"march_sorted: {live} rays still live after {rounds} resume "
+                f"rounds of {B}; a resumed ray did not finish within "
+                f"{max_steps * 8 + 1024} iterations")
+        _, _, voxel, _, steps, done, dist = state
+        alive = ~done[:n]
+        v = voxel[:n]
+        key = torch.where(alive, morton3(v[:, 0] >> 1, v[:, 1] >> 1,
+                                         v[:, 2] >> 1), 1 << 30)
+        ids = torch.argsort(key, stable=True)[:B]
+        sel = alive[ids]
+        dist_in = torch.where(sel, dist[ids], -1)
+        steps_in = torch.where(sel, steps[ids], 0)
+        rec1, ext1 = march(o[ids], d[ids], accel, dims, max_steps,
+                           t_max=t_max[ids],
+                           resume_state=(v[ids], dist_in, steps_in),
+                           extended=True)
+        tgt = torch.where(sel, ids, n)
+        for dst, src in zip(state, (rec1.hit, rec1.t, rec1.voxel,
+                                    rec1.normal, rec1.steps, ext1["done"],
+                                    ext1["dist"])):
+            dst.index_copy_(0, tgt, src)
+        rounds += 1
+        if stats is not None:
+            stats["rounds"] = rounds
+            stats["resume_steps"].append(
+                torch.where(sel, rec1.steps - steps_in, 0))
+        live = int((~state[5][:n]).sum())
+    hit, t, voxel, normal, steps = (x[:n] for x in state[:5])
+    return HitRecord(hit=hit, t=t, voxel=voxel, normal=normal, steps=steps)
 
 
 def shade(rec: HitRecord, o, d, vis, mats, lights_arr,
