@@ -24,13 +24,16 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              512^3 terrain (seed 7) -> SoftGrid.from_hard truth -> one
              256x256 target view at S = 256 (plain soft renderer, in ray
              chunks) -> five fit_soft steps from SoftGrid.zeros through the
-             field-sampling kernels K3/K4. Launch counts, the loss per step
-             (finite and falling), median step time, peak memory, one
-             step's loss and gradient through the plain versions against
-             the kernels', a lit forward and backward at 512^3, K3/K4 alone
-             against their plain versions and torch's grid_sample (the
-             library yardstick, used nowhere in the port), and a profiled
-             step's device time by kernel;
+             field-sampling kernels K3/K4 (K4's pure scatter: the rays
+             carry no gradient). Launch counts per K4 variant, the loss
+             per step (finite and falling), median step time, peak
+             memory; two steps refining the camera pose (K4 with
+             kRayGrads, counted); one step's loss and gradient through
+             the plain versions against the kernels', a lit forward and
+             backward at 512^3, K3 and both K4 variants alone against
+             their plain versions and torch's grid_sample (the library
+             yardstick, used nowhere in the port), and a profiled step's
+             device time by kernel;
   7. cross   the fit at 32^3 against the JAX package's loss trajectory and
              K3's outputs against its checksums (vxtpu_torch/data);
   8. pipeline the composable render pipeline (render / animate / bench
@@ -63,8 +66,10 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              (cost_probe), each one's plain time and bound.
 
 Phases 3 and 6 also hold K3/K4 against their plain versions: forward
-|d| <= 1e-6; backward within rtol 1e-5 / atol 1e-6 x max|g| (the float
-atomics of the scatter sum in a varying order).
+|d| <= 1e-6; both K4 variants' gradient tables within rtol 1e-5 / atol
+1e-6 x max|g| of the plain version and of a second run (the float
+atomics of the scatter sum in a varying order), the kRayGrads variant's
+ray cotangents equal bit for bit.
 
 Phase 8 holds K5 to its plain version exactly: hit, voxel, normal and
 steps equal on every ray, |t difference| <= 1e-6.
@@ -102,14 +107,19 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # float32 operations per active sample, counted from csrc/sample.cu. The
 # forward: position (8), corner set-up (9), four trilinear ladders
-# (4 x 24); lit adds the gradient ladder (39). The backward: position and
-# set-up (17), corner weights (19), 32 cotangent products, four value
-# f-gradients (4 x 37), the chain to the ray (41); lit adds the weight
-# derivatives (96) and the second-order terms (60).
+# (4 x 24); lit adds the gradient ladder (39). The backward's pure scatter
+# (kRayGrads = false): position and set-up (17), corner weights (19), 32
+# cotangent products; lit adds the weight derivatives (96). With the ray
+# cotangents also four value f-gradients (4 x 37) and the chain to the ray
+# (41); lit adds the second-order terms (60).
 FWD_OPS, FWD_OPS_LIT = 113, 39
+SCATTER_OPS, SCATTER_OPS_LIT = 68, 96
 BWD_OPS, BWD_OPS_LIT = 257, 156
 # float32 operations per ray (set-up, shading) and per DDA step of K1
 MARCH_OPS_RAY, MARCH_OPS_STEP = 60, 20
+# the two variants of K4 (csrc/sample.cu), as kernel_sample.LAUNCHES keys
+BWD = {False: "sample_bwd_kernel<kRayGrads=false>",
+       True: "sample_bwd_kernel<kRayGrads=true>"}
 # float32 operations of K5 (csrc/march_packed.cu) per ray (inverse
 # directions, slab clip, entry voxel) and per iteration (three axis exits,
 # their minimum, the next voxel's position, floor and clamps, the tests)
@@ -182,10 +192,10 @@ def phase_device():
 def _kernel_name(mangled: str) -> str:
     """A kernel's name, with its integer template arguments, from its
     mangled name."""
-    m = re.search(r"([A-Za-z_]+_kernel)(I((?:Li-?\d+E)+)E)?", mangled)
+    m = re.search(r"([A-Za-z_]+_kernel)(I((?:L[ib]-?\d+E)+)E)?", mangled)
     if not m:
         return mangled
-    args = re.findall(r"Li(-?\d+)E", m.group(3) or "")
+    args = re.findall(r"L[ib](-?\d+)E", m.group(3) or "")
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -233,21 +243,28 @@ def phase_kernels(device, D=64, h=256, w=256) -> dict:
                                      "full_shadows_fog_composed")
         k = "shade_kernel" if uses_shade_kernel else "march_shade_kernel"
         err[k] = max(err[k], m["max_abs"])
-    err.update(sample_fwd_kernel=0.0, sample_bwd_kernel=0.0)
+    err.update({"sample_fwd_kernel": 0.0, BWD[False]: 0.0, BWD[True]: 0.0,
+                "sample_ray_sum_kernel": 0.0})
     for name in kc.SAMPLE_CASES:
         m = kc.run_sample_case(name, device, D, n=min(h * w, 16384))
+        rays = (f", rays {m['rays_excess']:.3g}, {m['rays_unequal']} ray "
+                f"cotangents unequal" if m["ray_grads"] else
+                ", no ray outputs")
         print(f"phase 3 kernels: sample {name}: {m['active']} of {m['n']} "
               f"rays cross the grid, S {m['S']}; forward max |d| "
-              f"{m['fwd_max_abs']:.3g}; backward vs plain: max |d| "
+              f"{m['fwd_max_abs']:.3g}; backward (kRayGrads="
+              f"{str(m['ray_grads']).lower()}) vs plain: max |d| "
               f"{m['bwd_max_abs']:.3g}, allclose excess "
-              f"{m['bwd_excess']:.3g} (tables {m['tables_excess']:.3g}, "
-              f"rays {m['rays_excess']:.3g}); second run excess "
-              f"{m['rerun_excess']:.3g}")
+              f"{m['bwd_excess']:.3g} (tables {m['tables_excess']:.3g}"
+              f"{rays}); second run excess {m['rerun_excess']:.3g}")
         kc.check_sample_case(m, f"sample {name}")
         err["sample_fwd_kernel"] = max(err["sample_fwd_kernel"],
                                        m["fwd_max_abs"])
-        err["sample_bwd_kernel"] = max(err["sample_bwd_kernel"],
+        err[BWD[m["ray_grads"]]] = max(err[BWD[m["ray_grads"]]],
                                        m["bwd_max_abs"])
+        if m["ray_grads"]:
+            err["sample_ray_sum_kernel"] = max(err["sample_ray_sum_kernel"],
+                                               m["rays_max_abs"])
     return err
 
 
@@ -1188,18 +1205,21 @@ def _profile_step(step, device, big, steps=2):
 
 
 def _group_kernels(kernels: dict, dense: float) -> dict:
-    """Device ms per step by part: K3, K4, Adam (its multi-tensor
-    kernels), the dense-table glue, and the rest (the [S, N] math of
-    render_soft_rays_kernel and its autograd)."""
+    """Device ms per step by part: K3, K4 (its scatter, and its transpose
+    and ray sums where they run), Adam (its multi-tensor kernels), the
+    dense-table glue (K4's zero-fill among it), and the rest (the [S, N]
+    math of render_soft_rays_kernel and its autograd)."""
     groups = {"K3 sample_fwd_kernel": 0.0, "K4 sample_bwd_kernel": 0.0,
-              "Adam": 0.0, "dense-table glue": dense,
-              "[S,N] math": -dense}
+              "K4 grad_transpose_kernel": 0.0, "Adam": 0.0,
+              "dense-table glue": dense, "[S,N] math": -dense}
     for name, ms in kernels.items():
         low = name.lower()
         if "sample_fwd_kernel" in name:
             groups["K3 sample_fwd_kernel"] += ms
-        elif "sample_bwd_kernel" in name:
+        elif "sample_bwd_kernel" in name or "sample_ray_sum_kernel" in name:
             groups["K4 sample_bwd_kernel"] += ms
+        elif "grad_transpose_kernel" in name:
+            groups["K4 grad_transpose_kernel"] += ms
         elif "adam" in low or "multi_tensor" in low:
             groups["Adam"] += ms
         else:
@@ -1222,27 +1242,38 @@ def _touched_words(o, d, t0, dt, S, D) -> int:
     return int(seen.sum())
 
 
-def sample_bounds(n, S, D, active_samples, touched, lit=False) -> dict:
+def _bound(b, f) -> dict:
+    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
+    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
+                bound_by="bytes" if tb >= tf else "operations")
+
+
+def sample_bounds(n, S, D, active_samples, touched, lit=False,
+                  ray_grads=True) -> dict:
     """Least times (ms) of K3 and K4 for one call: the larger of the bytes
     each must move over the HBM rate and its float32 operations over the
     float32 peak. Each input is read once and each output written once:
     K3 reads the rays (32 B each) and the table words its samples touch (4
-    tables), and writes nout [S, N] planes; K4 reads the rays, nout
-    [S, N] cotangent planes and the touched words, and writes the four
-    dense [D^3] gradient tables and the ray cotangents (32 B each)."""
+    tables), and writes nout [S, N] planes; K4 reads the rays and nout
+    [S, N] cotangent planes and writes the dense [4, D^3] gradient, and
+    with ``ray_grads`` also reads the touched words and writes the ray
+    cotangents (32 B each)."""
     nout = 7 if lit else 4
     fwd_bytes = n * 32 + 4 * 4 * touched + nout * S * n * 4
-    bwd_bytes = n * 32 + nout * S * n * 4 + 4 * 4 * touched \
-        + 4 * 4 * D ** 3 + n * 32
+    bwd_bytes = n * 32 + nout * S * n * 4 + 4 * 4 * D ** 3
+    if ray_grads:
+        bwd_bytes += 4 * 4 * touched + n * 32
     fwd_ops = active_samples * (FWD_OPS + (FWD_OPS_LIT if lit else 0))
-    bwd_ops = active_samples * (BWD_OPS + (BWD_OPS_LIT if lit else 0))
+    bwd_ops = active_samples * (
+        (BWD_OPS + (BWD_OPS_LIT if lit else 0)) if ray_grads
+        else (SCATTER_OPS + (SCATTER_OPS_LIT if lit else 0)))
+    return dict(fwd=_bound(fwd_bytes, fwd_ops), bwd=_bound(bwd_bytes, bwd_ops))
 
-    def bound(b, f):
-        tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
-        return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
-                    bound_by="bytes" if tb >= tf else "operations")
 
-    return dict(fwd=bound(fwd_bytes, fwd_ops), bwd=bound(bwd_bytes, bwd_ops))
+def ray_sum_bound(n, chunks) -> dict:
+    """sample_ray_sum_kernel: reads the [chunks, 8, N] partial sums, writes
+    32 B per ray, one add per partial."""
+    return _bound(chunks * 8 * n * 4 + n * 32, chunks * 8 * n)
 
 
 def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
@@ -1276,7 +1307,8 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
           f"at S = {S} in {time.perf_counter() - t0:.2f} s; target mean "
           f"{float(target.mean()):.4f}")
 
-    # the main path, counted: five fit_soft steps
+    # the main path, counted: five fit_soft steps (the rays carry no
+    # gradient, so K4 runs its pure scatter)
     tc = loop.TrainConfig(field_kernel=True, num_samples=S, ray_batch=0,
                           steps=steps, seed=cfg4.seed)
     timer = StepTimer(device)
@@ -1298,13 +1330,37 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
           f"(the first includes the Morton conversion); median of steps "
           f"2..{steps} {statistics.median(step_ms[1:]):.3f} ms; peak memory "
           f"{peak:.2f} GiB")
-    if device.type == "cuda" and min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the train path never launched: "
-                             f"{launches}")
-    if not all(v == v and abs(v) != float("inf") for v in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses}")
+    if device.type == "cuda" and not (
+            launches["sample_fwd_kernel"] == steps
+            and launches[BWD[False]] == steps and launches[BWD[True]] == 0
+            and launches["sample_ray_sum_kernel"] == 0
+            and launches["grad_transpose_kernel"] == steps):
+        raise AssertionError(f"the train steps did not run K3 and K4's pure "
+                             f"scatter once each a step: {launches}")
+    _check_losses(losses)
+
+    # the kRayGrads variant's own path: fit_soft refining the camera pose,
+    # whose rays carry gradients (two steps, counted)
+    ks.reset_launch_counts()
+    _, cam_fit, cam_losses, _ = loop.fit_soft(
+        soft.SoftGrid.zeros(dims, device=device), cam,
+        target.reshape(h, w, 3), settings,
+        loop.TrainConfig(field_kernel=True, num_samples=S, ray_batch=0,
+                         steps=2, seed=cfg4.seed, optimize_camera=True))
+    _sync(device)
+    cam_launches = dict(ks.LAUNCHES)
+    moved = float((cam_fit.pos - cam.pos).abs().max())
+    print(f"phase 6 train: camera refinement, 2 steps: launches "
+          f"{cam_launches}; losses {cam_losses}; pose moved {moved:.3g}")
+    if device.type == "cuda" and not (
+            cam_launches[BWD[True]] == 2 and cam_launches[BWD[False]] == 0
+            and cam_launches["sample_ray_sum_kernel"] == 2
+            and cam_launches["grad_transpose_kernel"] == 2):
+        raise AssertionError(f"the camera refinement did not run K4 with "
+                             f"kRayGrads: {cam_launches}")
+    if not moved > 0.0:
+        raise AssertionError("the camera refinement did not move the pose")
+    _check_losses(cam_losses)
 
     # measurement and comparison with the plain versions (not counted)
     err = {}
@@ -1322,8 +1378,8 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
           f"{max(float((a - b).abs().max()) for a, b in zip(gk, gp)):.3g}")
     if rel > 1e-6 or ex > 1.0:
         raise AssertionError("train step: kernels and plain versions differ")
-    err["sample_bwd_kernel"] = max(float((a - b).abs().max())
-                                   for a, b in zip(gk, gp))
+    err[BWD[False]] = max(float((a - b).abs().max())
+                          for a, b in zip(gk, gp))
     del gk, gp
 
     light = Lights.single((0.2 * D, -0.3 * D, 1.4 * D), intensity=2.0,
@@ -1344,11 +1400,12 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
           f"gradient allclose excess {lit_ex:.3g}")
     if lit_d > 1e-5 or lit_ex > 1.0:
         raise AssertionError("lit path: kernels and plain versions differ")
-    err["sample_bwd_kernel"] = max(err["sample_bwd_kernel"], max(
+    err[BWD[False]] = max(err[BWD[False]], max(
         float((a - b).abs().max()) for a, b in zip(gk, gp)))
     del gk, gp
 
-    # K3 and K4 alone at the main path's shape, on the truth's tables
+    # K3 and both K4 variants alone at the main path's shape, on the
+    # truth's tables
     tabs = tuple(t.contiguous() for t in (truth_tabs[0], *truth_tabs[1]))
     st, sdt, _ = _enter_dt_soft(o, d, dims, S, None)
     st, sdt = st.contiguous(), sdt.contiguous()
@@ -1362,29 +1419,80 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     del got, want
     cots = tuple(torch.randn(S, h * w, generator=g).to(device)
                  for _ in range(4))
+    args = (tabs, o, d, st, sdt, cots, D)
     times = {}
+    for rg in (False, True):
+        kb = ks.sample_grads(*args, ray_grads=rg)
+        kb2 = ks.sample_grads(*args, ray_grads=rg)
+        pb = ks.sample_fields_bwd_reference(*args, ray_grads=rg)
+        tab_ex = kc.grads_excess(kb[0], pb[0])
+        rerun = kc.grads_excess(kb2[0], kb[0])
+        unequal = sum(int((a != b).sum()) for a, b in zip(kb[1:], pb[1:])
+                      if a is not None)
+        unequal2 = sum(int((a != b).sum()) for a, b in zip(kb2[1:], kb[1:])
+                       if a is not None)
+        err[BWD[rg]] = max(err.get(BWD[rg], 0.0),
+                           float((kb[0] - pb[0]).abs().max()))
+        if rg:
+            err["sample_ray_sum_kernel"] = max(
+                float((a - b).abs().max()) for a, b in zip(kb[1:], pb[1:]))
+        rays = (f"ray cotangents unequal {unequal} (second run "
+                f"{unequal2})" if rg else f"ray outputs {kb[1:]}")
+        print(f"phase 6 train: K4 kRayGrads={str(rg).lower()} at N = "
+              f"{h * w}, S = {S} vs plain: tables excess {tab_ex:.3g}, "
+              f"second run {rerun:.3g}; {rays}")
+        if tab_ex > 1.0 or rerun > 1.0 or unequal or unequal2 or (
+                not rg and any(x is not None for x in kb[1:])):
+            raise AssertionError(f"K4 kRayGrads={rg} at the main shape "
+                                 f"differs from its plain version")
+        del kb, kb2, pb
     times["sample_fwd_kernel"] = dict(
         ms=median_ms(lambda: ks.sample_fields_fwd(tabs, o, d, st, sdt, S, D),
                      device, runs),
         plain_ms=median_ms(lambda: ks.sample_fields_fwd_reference(
             tabs, o, d, st, sdt, S, D), device, 3))
-    times["sample_bwd_kernel"] = dict(
-        ms=median_ms(lambda: ks.sample_fields_bwd(tabs, o, d, st, sdt, cots,
-                                                  D), device, runs),
-        plain_ms=median_ms(lambda: ks.sample_fields_bwd_reference(
-            tabs, o, d, st, sdt, cots, D), device, 3))
+    for rg in (False, True):
+        times[BWD[rg]] = dict(
+            ms=median_ms(lambda: ks.sample_grads(*args, ray_grads=rg),
+                         device, runs),
+            plain_ms=median_ms(lambda: ks.sample_fields_bwd_reference(
+                *args, ray_grads=rg), device, 3))
     lib = library_yardstick(tabs, o, d, st, sdt, S, D, cots, device, runs)
     times["sample_fwd_kernel"]["library_ms"] = lib["fwd_ms"]
-    times["sample_bwd_kernel"]["library_ms"] = lib["bwd_ms"]
+    times[BWD[False]]["library_ms"] = lib["bwd_vol_ms"]
+    times[BWD[True]]["library_ms"] = lib["bwd_ms"]
     active = int((sdt > 0).sum()) * S
     touched = _touched_words(o, d, st, sdt, S, D)
     bounds = sample_bounds(h * w, S, D, active, touched)
+    bounds_scatter = sample_bounds(h * w, S, D, active, touched,
+                                   ray_grads=False)
+    chunks = -(-S // ks.RAY_CHUNK)
+    times["sample_ray_sum_kernel"] = ray_sum_times(h * w, chunks, device,
+                                                   runs)
+    times["grad_transpose_kernel"] = transpose_times(D ** 3, device, runs)
+    err["grad_transpose_kernel"] = times["grad_transpose_kernel"].pop("err")
+    if device.type == "cuda":
+        from vxtpu_torch.render.probe import device_ms
+
+        times["sample_fwd_kernel"]["device_ms"] = device_ms(
+            lambda: ks.sample_fields_fwd(tabs, o, d, st, sdt, S, D), runs,
+            "sample_fwd_kernel")
+        for rg in (False, True):
+            times[BWD[rg]]["device_ms"] = device_ms(
+                lambda: ks.sample_grads(*args, ray_grads=rg), runs,
+                f"sample_bwd_kernel<{str(rg).lower()}, false>")
     for k, b in (("sample_fwd_kernel", bounds["fwd"]),
-                 ("sample_bwd_kernel", bounds["bwd"])):
+                 (BWD[False], bounds_scatter["bwd"]),
+                 (BWD[True], bounds["bwd"]),
+                 ("sample_ray_sum_kernel", ray_sum_bound(h * w, chunks)),
+                 ("grad_transpose_kernel", _bound(2 * 16 * D ** 3, 0))):
         times[k].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        lib_ms = times[k]["library_ms"]
         print(f"phase 6 train: {k} alone at N = {h * w}, S = {S}: "
-              f"{times[k]['ms']:.3f} ms, plain {times[k]['plain_ms']:.3f} "
-              f"ms, grid_sample {times[k]['library_ms']:.3f} ms; bound "
+              f"{times[k]['ms']:.3f} ms (events, the wrapper), device "
+              f"{times[k].get('device_ms', float('nan')):.4f} ms; plain "
+              f"{times[k]['plain_ms']:.3f} ms, library "
+              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms; bound "
               f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']:.4g} "
               f"B, {b['ops']:.4g} flop; {touched} table words touched, "
               f"{active} active samples)")
@@ -1412,18 +1520,85 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
         for name, ms in sorted(dense.items(), key=lambda kv: -kv[1])[:6]:
             print(f"phase 6 train:   dense op {ms:8.3f} ms  {name[:90]}")
         times["profile"] = dict(groups=groups, wall_ms=wall, busy_ms=busy)
-    return {"launches": launches, "err": err, "times": times,
-            "losses": losses, "step_ms": step_ms}
+    return {"launches": launches, "cam_launches": cam_launches, "err": err,
+            "times": times, "losses": losses, "step_ms": step_ms}
+
+
+def _check_losses(losses) -> None:
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+
+def ray_sum_times(n, chunks, device, runs) -> dict:
+    """sample_ray_sum_kernel alone on random partial sums: its device time,
+    its plain version's and torch.sum over the chunks (the library
+    yardstick); the kernel must equal the plain version bit for bit."""
+    import torch
+
+    from vxtpu_torch.render import kernel_sample as ks
+
+    g = torch.Generator().manual_seed(4)
+    part = torch.randn(chunks, 8, n, generator=g).to(device)
+    got, want = ks.ray_sums(part), ks.ray_sums_reference(part)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("sample_ray_sum_kernel differs from the "
+                             "chunk-order sum")
+    out = dict(ms=median_ms(lambda: ks.ray_sums(part), device, runs),
+               plain_ms=median_ms(lambda: ks.ray_sums_reference(part),
+                                  device, runs),
+               library_ms=median_ms(lambda: torch.sum(part, dim=0), device,
+                                    runs))
+    if device.type == "cuda":
+        from vxtpu_torch.render.probe import device_ms
+
+        out["device_ms"] = device_ms(lambda: ks.ray_sums(part), runs,
+                                     "sample_ray_sum_kernel")
+    return out
+
+
+def transpose_times(words, device, runs) -> dict:
+    """grad_transpose_kernel alone on a random [words, 4] gradient: its
+    device time (and the wrapper's by events), its plain version's and
+    Tensor.t().contiguous()'s (the library yardstick); the kernel must
+    equal the plain version."""
+    import torch
+
+    from vxtpu_torch.render import kernel_sample as ks
+
+    g = torch.Generator().manual_seed(5)
+    src = torch.randn(words, 4, generator=g).to(device)
+    got, want = ks.grad_transpose(src), ks.grad_transpose_reference(src)
+    if not torch.equal(got, want):
+        raise AssertionError("grad_transpose_kernel differs from its plain "
+                             "version")
+    err = float((got - want).abs().max())
+    del got, want
+    out = dict(err=err,
+               ms=median_ms(lambda: ks.grad_transpose(src), device, runs),
+               plain_ms=median_ms(lambda: ks.grad_transpose_reference(src),
+                                  device, runs),
+               library_ms=median_ms(lambda: src.t().contiguous(), device,
+                                    runs))
+    if device.type == "cuda":
+        from vxtpu_torch.render.probe import device_ms
+
+        out["device_ms"] = device_ms(lambda: ks.grad_transpose(src), runs,
+                                     "grad_transpose_kernel")
+    return out
 
 
 def library_yardstick(tabs, o, d, t0, dt, S, D, cots, device, runs) -> dict:
     """torch.nn.functional.grid_sample on the same samples: 5-D, bilinear
     (trilinear), align_corners=False, border padding, on a row-major
-    [1, 4, D, D, D] volume; forward, and its autograd backward to the
-    volume and the sample positions. A timing yardstick only: it gives the
-    same values inside [0.5, D - 0.5]^3 but not in the half-voxel shell at
-    the low faces, where vxtpu's corner clamp differs; the grid's last axis
-    is (x, y, z) -> (W, H, D), so a world point p goes in as (pz, py, px)."""
+    [1, 4, D, D, D] volume; forward, its autograd backward to the volume
+    and the sample positions (K4 with kRayGrads), and to the volume alone
+    (the grid not requiring grad: the pure scatter). A timing yardstick
+    only: it gives the same values inside [0.5, D - 0.5]^3 but not in the
+    half-voxel shell at the low faces, where vxtpu's corner clamp differs;
+    the grid's last axis is (x, y, z) -> (W, H, D), so a world point p goes
+    in as (pz, py, px)."""
     import torch
     import torch.nn.functional as F
 
@@ -1443,21 +1618,24 @@ def library_yardstick(tabs, o, d, t0, dt, S, D, cots, device, runs) -> dict:
               & (pz > 0.5) & (pz < D - 0.5) & (dt > 0)[None, :])
     same = max(float((out[0, c, :, :, 0] - ks.sample_fields_fwd(
         tabs, o, d, t0, dt, S, D)[c])[inside].abs().max()) for c in range(4))
+    del out
     fwd_ms = median_ms(fwd, device, runs)
-    vg = vol.detach().requires_grad_(True)
-    gg = grid.detach().requires_grad_(True)
-    res = F.grid_sample(vg, gg, mode="bilinear", padding_mode="border",
-                        align_corners=False)
     cot = torch.stack(cots)[None, :, :, :, None]
-
-    def bwd():
-        return torch.autograd.grad(res, (vg, gg), cot, retain_graph=True)
-
-    bwd_ms = median_ms(bwd, device, runs)
+    vg = vol.detach().requires_grad_(True)
+    ms = {}
+    for key, gg in (("bwd_ms", grid.detach().requires_grad_(True)),
+                    ("bwd_vol_ms", grid)):
+        res = F.grid_sample(vg, gg, mode="bilinear", padding_mode="border",
+                            align_corners=False)
+        wrt = (vg, gg) if gg.requires_grad else (vg,)
+        ms[key] = median_ms(lambda: torch.autograd.grad(
+            res, wrt, cot, retain_graph=True), device, runs)
+        del res
     print(f"phase 6 train: grid_sample yardstick: agrees with K3 within "
           f"{same:.3g} inside [0.5, D - 0.5]^3; forward {fwd_ms:.3f} ms, "
-          f"backward {bwd_ms:.3f} ms")
-    return dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, inside_max_abs=same)
+          f"backward to the volume and the grid {ms['bwd_ms']:.3f} ms, to "
+          f"the volume alone {ms['bwd_vol_ms']:.3f} ms")
+    return dict(fwd_ms=fwd_ms, inside_max_abs=same, **ms)
 
 
 def cross_train(device) -> dict:
@@ -1499,7 +1677,9 @@ def cross_train(device) -> dict:
           f"{fit['target_sum']:.6f}; launches {dict(ks.LAUNCHES)}")
     if rel > 1e-4:
         raise AssertionError(f"the 32^3 fit differs from JAX's by rel {rel}")
-    if device.type == "cuda" and min(ks.LAUNCHES.values()) == 0:
+    if device.type == "cuda" and not (ks.LAUNCHES["sample_fwd_kernel"]
+                                             and ks.LAUNCHES[BWD[False]]
+                                      and ks.LAUNCHES["grad_transpose_kernel"]):
         raise AssertionError("the 32^3 fit did not run the kernels")
 
     sf = gold["sample_fwd"]
@@ -1589,14 +1769,24 @@ def main(argv=None) -> int:
          "plain_ms": times["shade_kernel"]["plain_ms"],
          **bounds["shade_kernel"], "library_ms": None},
     ]
-    for k, line in (("sample_fwd_kernel", 213), ("sample_bwd_kernel", 434)):
+    # K3 and K4's pure scatter: launches of the five c4 steps; K4 with
+    # kRayGrads and its ray sums: launches of the camera refinement
+    for k, line, run in (
+            ("sample_fwd_kernel", "213", train["launches"]),
+            (BWD[False], "434", train["launches"]),
+            (BWD[True], "434", train["cam_launches"]),
+            ("sample_ray_sum_kernel", "434 (its per-ray sums)",
+             train["cam_launches"]),
+            ("grad_transpose_kernel", "434 (its gradient tables' layout)",
+             train["launches"])):
         kernels.append({
             "name": k, "route": "cuda",
             "source": "vxtpu_torch/csrc/sample.cu",
             "replaces": f"vxtpu/render/kernel_sample.py:{line}",
-            "launches": train["launches"][k],
-            "max_abs_err": max(err3[k], train["err"][k]),
-            "ms": tt[k]["ms"], "plain_ms": tt[k]["plain_ms"],
+            "launches": run[k],
+            "max_abs_err": max(err3.get(k, 0.0), train["err"][k]),
+            "ms": tt[k]["ms"], "device_ms": tt[k]["device_ms"],
+            "plain_ms": tt[k]["plain_ms"],
             "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
             "library_ms": tt[k]["library_ms"]})
     pt = pipe["times"]

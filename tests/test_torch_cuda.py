@@ -72,12 +72,19 @@ def test_sample_kernels_match_plain(cuda, name):
     ks.reset_launch_counts()
     m = kc.run_sample_case(name, cuda)
     kc.check_sample_case(m, name)
-    assert ks.LAUNCHES == {"sample_fwd_kernel": 1, "sample_bwd_kernel": 2}
+    rg = m["ray_grads"]
+    assert ks.LAUNCHES == {"sample_fwd_kernel": 1,
+                           "sample_bwd_kernel<kRayGrads=false>": 0 if rg else 2,
+                           "sample_bwd_kernel<kRayGrads=true>": 2 if rg else 0,
+                           "sample_ray_sum_kernel": 2 if rg else 0,
+                           "grad_transpose_kernel": 2}
 
 
 def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
     """On CUDA tensors the sampling path launches the kernels, forward and
-    backward: no plain version is called, not even as a fallback."""
+    backward, with rays that need no gradient (the pure scatter) and with
+    rays that do (kRayGrads, its chunk sum): no plain version is called,
+    not even as a fallback."""
     from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                                 render_soft_rays_kernel)
     from vxtpu_torch.render.settings import RenderSettings
@@ -85,19 +92,77 @@ def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called for CUDA tensors")
 
-    for name in ("sample_fields_fwd_reference", "sample_fields_bwd_reference"):
+    for name in ("sample_fields_fwd_reference", "sample_fields_bwd_reference",
+                 "ray_sums_reference", "grad_transpose_reference"):
         monkeypatch.setattr(ks, name, boom)
     tabs = kc.sample_fields(16, cuda)
     m = MortonSoftGrid(tabs[0].clone().requires_grad_(True),
                        torch.stack(tabs[1:]).requires_grad_(True))
     o, d = kc.sample_rays("outside", 16, 256, cuda)
     ks.reset_launch_counts()
-    rgb = render_soft_rays_kernel(m, o, d, RenderSettings(), 16)
-    rgb.sum().backward()
+    for ray_grad in (False, True):
+        ot = o.clone().requires_grad_(ray_grad)
+        rgb = render_soft_rays_kernel(m, ot, d, RenderSettings(), 20)
+        rgb.sum().backward()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(rgb).all())
+        assert bool(torch.isfinite(m.sigma_tab.grad).all())
+        assert (ot.grad is not None) == ray_grad
+        if ray_grad:
+            assert bool(torch.isfinite(ot.grad).all())
+    assert ks.LAUNCHES == {"sample_fwd_kernel": 2,
+                           "sample_bwd_kernel<kRayGrads=false>": 1,
+                           "sample_bwd_kernel<kRayGrads=true>": 1,
+                           "sample_ray_sum_kernel": 1,
+                           "grad_transpose_kernel": 2}
+
+
+def test_sample_bwd_refuses_another_chunk_length(cuda, monkeypatch):
+    """The wrapper passes RAY_CHUNK to the kRayGrads kernel, which refuses
+    any length but its own (the scratch is sized from RAY_CHUNK)."""
+    tabs = kc.sample_fields(16, cuda)
+    o, d = kc.sample_rays("outside", 16, 256, cuda)
+    t0 = torch.zeros(256, device=cuda)
+    dt = torch.ones(256, device=cuda)
+    cots = tuple(torch.ones(20, 256, device=cuda) for _ in range(4))
+    monkeypatch.setattr(ks, "RAY_CHUNK", ks.RAY_CHUNK // 2)
+    ks.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="kRayGrads=true"):
+        ks.sample_grads(tabs, o, d, t0, dt, cots, 16, ray_grads=True)
+    ks.sample_grads(tabs, o, d, t0, dt, cots, 16, ray_grads=False)
     torch.cuda.synchronize()
-    assert bool(torch.isfinite(rgb).all())
-    assert bool(torch.isfinite(m.sigma_tab.grad).all())
-    assert ks.LAUNCHES == {"sample_fwd_kernel": 1, "sample_bwd_kernel": 1}
+    assert ks.LAUNCHES["sample_bwd_kernel<kRayGrads=true>"] == 0
+    assert ks.LAUNCHES["sample_bwd_kernel<kRayGrads=false>"] == 1
+
+
+def test_ray_gradients_run_the_ray_grads_variant(cuda):
+    """Rays that need a gradient (camera refinement) run K4 with kRayGrads
+    and its chunk sum; the gradients equal the plain path's (tables
+    allclose, rays through the same autograd graph)."""
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
+                                                render_soft_rays_kernel)
+
+    tabs = kc.sample_fields(16, cuda)
+    o, d = kc.sample_rays("outside", 16, 256, cuda)
+    grads = []
+    for plain in (False, True):
+        m = MortonSoftGrid(tabs[0].clone().requires_grad_(True),
+                           torch.stack(tabs[1:]).requires_grad_(True))
+        ot, dt = o.clone().requires_grad_(True), d.clone().requires_grad_(True)
+        ks.reset_launch_counts()
+        rgb = render_soft_rays_kernel(m, ot, dt, RenderSettings(shading="flat"),
+                                      20, plain=plain)
+        grads.append(torch.autograd.grad(rgb.sum(), [m.sigma_tab, m.rgb_tab,
+                                                     ot, dt]))
+        assert ks.LAUNCHES == {
+            "sample_fwd_kernel": 0 if plain else 1,
+            "sample_bwd_kernel<kRayGrads=false>": 0,
+            "sample_bwd_kernel<kRayGrads=true>": 0 if plain else 1,
+            "sample_ray_sum_kernel": 0 if plain else 1,
+            "grad_transpose_kernel": 0 if plain else 1}
+    torch.cuda.synchronize()
+    assert kc.grads_excess(grads[0], grads[1]) <= 1.0
 
 
 @pytest.mark.parametrize("name", kc.PACKED_CASES)

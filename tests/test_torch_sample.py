@@ -247,7 +247,7 @@ def test_render_soft_rays_kernel_matches_vxtpu(lit):
         lights=lights)
     gs, gc, go, gd = torch.autograd.grad(out, [m.sigma_tab, m.rgb_tab, ot,
                                                dt_], t(cot))
-    assert ks.LAUNCHES == {"sample_fwd_kernel": 0, "sample_bwd_kernel": 0}
+    assert not any(ks.LAUNCHES.values())
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
                                atol=1e-5)
     got = [ks.field_from_morton(gs, D).numpy(),
@@ -278,3 +278,239 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         ks.sample_fields_bwd(tabs, o, d, t0, dt, cots[:3] + (
             torch.zeros(3, 8),), D)
+
+
+# The backward's two variants: the pure scatter (ray_grads=False, the
+# trainer's main path) and the one with the ray cotangents, summed in
+# chunks of RAY_CHUNK samples; S = 20 is one full chunk and one partial.
+S_CHUNKED = 20
+
+
+@pytest.mark.parametrize("lit", [False, True])
+def test_scatter_only_backward_matches_jax_vjp(lit):
+    """ray_grads=False gives the same gradient tables as ray_grads=True and
+    no ray outputs; both match jax.vjp of vxtpu's XLA oracle, the chunked
+    ray sums too."""
+    assert ks.RAY_CHUNK < S_CHUNKED < 2 * ks.RAY_CHUNK
+    sig, rgb = fields(seed=13)
+    S = S_CHUNKED
+    o, d = rays(384, seed=14)
+    t0, dt = segments(o, d, S)
+    nout = 7 if lit else 4
+    cots = np.random.default_rng(15).normal(size=(nout, S, 384)).astype(
+        np.float32)
+    act = jnp.asarray(dt > 0)
+
+    def f(*args):
+        return _jax_samples(*args, S, act)[:nout]
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (sig, *rgb, o, d, t0, dt)))
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+    args = (morton_tabs(sig, rgb), t(o), t(d), t(t0), t(dt),
+            tuple(t(c) for c in cots), D, lit)
+    full = ks.sample_fields_bwd(*args, ray_grads=True)
+    scatter = ks.sample_fields_bwd(*args, ray_grads=False)
+    assert scatter[1:] == (None, None, None, None)
+    for a, b in zip(full[0], scatter[0]):
+        assert torch.equal(a, b)
+    want_tabs = [ks.build_field_morton(t(w)).numpy() for w in want[:4]]
+    _check_grads([g.numpy() for g in scatter[0]], want_tabs, "table")
+    _check_grads(full[1:], want[4:], "chunked ray")
+
+
+def test_sample_fields_bwd_tables_share_one_storage():
+    sig, rgb = fields()
+    o, d = rays(64, seed=16)
+    t0, dt = segments(o, d, 6)
+    cots = tuple(torch.ones(6, 64) for _ in range(4))
+    for ray_grads in (False, True):
+        gtabs = ks.sample_fields_bwd(morton_tabs(sig, rgb), t(o), t(d),
+                                     t(t0), t(dt), cots, D,
+                                     ray_grads=ray_grads)[0]
+        assert len(gtabs) == 4
+        assert all(g.shape == (D ** 3,) and g.is_contiguous() for g in gtabs)
+        assert len({g.untyped_storage().data_ptr() for g in gtabs}) == 1
+        assert [g.storage_offset() for g in gtabs] == [
+            c * D ** 3 for c in range(4)]
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_sample_fields_asks_for_ray_grads_exactly_when_rays_need_them(
+        plain, monkeypatch):
+    """SampleFields' backward (kernel path and plain path alike) asks the
+    plain backward for the ray cotangents iff o or d requires grad."""
+    seen = []
+    real = ks.sample_fields_bwd_reference
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("ray_grads", args[8] if len(args) > 8
+                               else True))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ks, "sample_fields_bwd_reference", spy)
+    sig, rgb = fields()
+    m = soft_kernel.MortonSoftGrid.from_soft(
+        soft.SoftGrid(sigma_raw=t(sig), rgb_raw=t(rgb)))
+    o, d = rays(64, seed=17)
+    for o_grad, d_grad in ((False, False), (True, False), (False, True),
+                           (True, True)):
+        params = [m.sigma_tab.clone().requires_grad_(True),
+                  m.rgb_tab.clone().requires_grad_(True)]
+        ot = t(o).requires_grad_(o_grad)
+        dt_ = t(d).requires_grad_(d_grad)
+        out = soft_kernel.render_soft_rays_kernel(
+            soft_kernel.MortonSoftGrid(*params), ot, dt_,
+            RenderSettings(shading="flat"), 8, plain=plain)
+        out.sum().backward()
+        assert seen[-1] == (o_grad or d_grad)
+        assert (ot.grad is not None) == o_grad
+        assert (dt_.grad is not None) == d_grad
+        assert all(p.grad is not None and bool(p.grad.abs().sum() > 0)
+                   for p in params)
+    assert len(seen) == 4
+
+
+def _select_into(var, root):
+    """Autograd nodes of the graph under ``root`` that are SelectBackward
+    and feed ``var``'s gradient accumulator directly."""
+    found, stack, done = [], [root], set()
+    while stack:
+        node = stack.pop()
+        if node is None or node in done:
+            continue
+        done.add(node)
+        for nxt, _ in node.next_functions:
+            if nxt is not None and getattr(nxt, "variable", None) is var \
+                    and type(node).__name__.startswith("SelectBackward"):
+                found.append(node)
+            stack.append(nxt)
+    return found
+
+
+def test_no_select_backward_of_rgb_tab_in_a_train_step():
+    """A trainer step's graph (render_soft_rays_kernel + the Morton TV
+    prior) hands rgb_tab's gradient over whole: no SelectBackward of
+    rgb_tab, whose backward would zero-fill a [3, D^3] tensor per row."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.train import loop
+
+    sig, rgb = fields()
+    m = soft_kernel.MortonSoftGrid.from_soft(
+        soft.SoftGrid(sigma_raw=t(sig), rgb_raw=t(rgb)))
+    model = soft_kernel.MortonSoftGrid(m.sigma_tab.requires_grad_(True),
+                                       m.rgb_tab.requires_grad_(True))
+    cam = Camera.make(pos=(-0.7 * D, 0.5 * D, 1.1 * D), device=CPU).look_at(
+        (0.5 * D, 0.5 * D, 0.27 * D))
+    o, d = rays(64, seed=18)
+    cfg = loop.TrainConfig(field_kernel=True, num_samples=8)
+    loss = loop._loss_fn(model, cam, t(o), t(d), torch.zeros(64, 3), (8, 8),
+                         RenderSettings(), cfg)
+    assert _select_into(model.rgb_tab, loss.grad_fn) == []
+    assert _select_into(model.sigma_tab, loss.grad_fn) == []
+    loss.backward()
+    assert model.rgb_tab.grad.shape == (3, D ** 3)
+
+
+@pytest.mark.parametrize("lit", [False, True])
+def test_render_soft_rays_kernel_table_grads_match_vxtpu(lit):
+    """With rays that need no gradient (the trainer's main path, the pure
+    scatter) the gradients to sigma_tab and rgb_tab match vxtpu's."""
+    sig, rgb = fields(seed=19)
+    S = S_CHUNKED
+    o, d = rays(256, seed=20)
+    cot = np.random.default_rng(21).normal(size=(256, 3)).astype(np.float32)
+    jlights = JLights.make(*LIGHT) if lit else None
+    settings = JSettings(shading="lambert" if lit else "flat")
+    jo, jd = jnp.asarray(o), jnp.asarray(d)
+
+    def f(s_, c_):
+        out, _ = jsoft.render_soft_rays(jsoft.SoftGrid(sigma_raw=s_,
+                                                       rgb_raw=c_),
+                                        jo, jd, settings, S, lights=jlights)
+        return out
+
+    _, vjp = jax.vjp(f, jnp.asarray(sig), jnp.asarray(rgb))
+    want = vjp(jnp.asarray(cot))
+    m = soft_kernel.MortonSoftGrid.from_soft(
+        soft.SoftGrid(sigma_raw=t(sig), rgb_raw=t(rgb)))
+    m = soft_kernel.MortonSoftGrid(m.sigma_tab.requires_grad_(True),
+                                   m.rgb_tab.requires_grad_(True))
+    lights = convert.lights_from_numpy(*LIGHT, device=CPU) if lit else None
+    out = soft_kernel.render_soft_rays_kernel(
+        m, t(o), t(d), RenderSettings(shading="lambert" if lit else "flat"),
+        S, lights=lights)
+    gs, gc = torch.autograd.grad(out, [m.sigma_tab, m.rgb_tab], t(cot))
+    got = [ks.field_from_morton(gs, D).numpy(),
+           np.stack([ks.field_from_morton(gc[k], D).numpy()
+                     for k in range(3)])]
+    _check_grads(got, [np.asarray(w) for w in want], "render")
+
+
+def test_grad_transpose_plain_version():
+    src = torch.arange(40, dtype=torch.float32).reshape(10, 4)
+    assert torch.equal(ks.grad_transpose(src), src.t())
+    assert ks.grad_transpose(src).is_contiguous()
+    for bad in (torch.zeros(8, 3), torch.zeros(8, 4, dtype=torch.float64),
+                torch.zeros(4, 8).t()):
+        with pytest.raises(ValueError):
+            ks.grad_transpose(bad)
+
+
+def test_ray_sums_plain_version_adds_the_chunks_in_order():
+    g = torch.Generator().manual_seed(6)
+    part = torch.randn(3, 8, 5, generator=g) * torch.tensor([1e8, 1.0, -1e8])[
+        :, None, None]
+    go, gd, gt0, gdt = ks.ray_sums(part)
+    want = (part[0] + part[1]) + part[2]
+    assert torch.equal(go, want[0:3].t()) and torch.equal(gd, want[3:6].t())
+    assert torch.equal(gt0, want[6]) and torch.equal(gdt, want[7])
+    with pytest.raises(ValueError):
+        ks.ray_sums(torch.zeros(3, 7, 5))
+
+
+@pytest.mark.parametrize("S", [1, 16, 17, 33])
+def test_chunked_ray_sums_match_jax_vjp(S):
+    """The plain backward's ray cotangents, summed in chunks of RAY_CHUNK
+    samples (S below, at and across chunk edges), match jax.vjp of
+    vxtpu's XLA oracle."""
+    sig, rgb = fields(seed=22)
+    o, d = rays(128, seed=23)
+    t0, dt = segments(o, d, S)
+    cots = np.random.default_rng(24).normal(size=(4, S, 128)).astype(
+        np.float32)
+    act = jnp.asarray(dt > 0)
+
+    def f(*args):
+        return _jax_samples(*args, S, act)[:4]
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (sig, *rgb, o, d, t0, dt)))
+    want = vjp(tuple(jnp.asarray(c) for c in cots))
+    got = ks.sample_fields_bwd(morton_tabs(sig, rgb), t(o), t(d), t(t0),
+                               t(dt), tuple(t(c) for c in cots), D)
+    _check_grads(got[1:], want[4:], f"ray (S = {S})")
+
+
+@pytest.mark.parametrize("lit", [False, True])
+@pytest.mark.parametrize("kind", ["outside", "inside", "dt0", "random"])
+def test_scatter_only_tables_equal_ray_grads_tables(kind, lit):
+    """On every ray set of kernel_check, the plain pure scatter
+    (ray_grads=False) gives the ray_grads variant's gradient tables bit for
+    bit, and no ray outputs."""
+    from vxtpu_torch import kernel_check as kc
+
+    S, n = S_CHUNKED, 256
+    tabs = kc.sample_fields(D, CPU)
+    o, d = kc.sample_rays(kind, D, n, CPU)
+    t0, dt, _ = soft_kernel._enter_dt_soft(o, d, DIMS, S, None)
+    if kind == "dt0":
+        dt = torch.where(torch.arange(n) % 4 == 1, 0.0, dt)
+    g = torch.Generator().manual_seed(25)
+    cots = tuple(torch.randn(S, n, generator=g) for _ in range(7 if lit
+                                                               else 4))
+    args = (tabs, o, d, t0.contiguous(), dt.contiguous(), cots, D, lit)
+    full = ks.sample_grads(*args, ray_grads=True)
+    scatter = ks.sample_grads(*args, ray_grads=False)
+    assert scatter[1:] == (None, None, None, None)
+    assert all(x is not None for x in full[1:])
+    assert torch.equal(scatter[0], full[0])
+    assert bool(scatter[0].abs().sum() > 0)

@@ -114,7 +114,7 @@ def test_fit_soft_kernel_matches_vxtpu():
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[-1] < got[0]
     assert fitted.sigma_raw.shape == DIMS and state[0].count == 3
-    assert ks.LAUNCHES == {"sample_fwd_kernel": 0, "sample_bwd_kernel": 0}
+    assert not any(ks.LAUNCHES.values())
 
 
 def test_adam_matches_optax():

@@ -9,36 +9,62 @@
 //                         gradient of sigma -> [S, N] planes;
 //   sample_bwd_kernel  <- _sample_bwd_kernel (via sample_fields_bwd): the
 //                         same samples again, the cotangents times the
-//                         corner weights scatter-added into four [D^3]
-//                         gradient tables, and the per-ray cotangents of
-//                         o, d, t0 and dt summed over the samples.
+//                         corner weights scatter-added into the gradient
+//                         of the four tables (sigma, r, g, b) and, with
+//                         kRayGrads, the per-ray cotangents of o, d, t0
+//                         and dt summed over the samples;
+//   sample_ray_sum_kernel  the second pass of those per-ray sums;
+//   grad_transpose_kernel  the gradient from the scatter's channel-
+//                         interleaved [D^3, 4] to the tables' [4, D^3].
 // None of the TPU machinery carries over: no Morton row windows, no bf16
 // one-hot fetch, no pending-corner loop, no VMEM gradient window.
 //
 // What bounds them on this card: bytes. The forward writes 4 (lit: 7)
-// f32 planes of S x N and reads 32 table words per sample, most of them
-// from L1/L2 because neighbouring rays and successive samples share
-// corners. The backward reads those planes as cotangents and must write
-// four dense [D^3] gradient tables (2.1 GB at 512^3, zero-filled by the
-// wrapper), so the dense tables, not the samples, set its bound; its
-// scatter is 32 atomicAdds per sample into L2.
-// What the simple design does about it: the forward runs one thread per
-// (s, n) with output index s*N + n, so a warp's stores are contiguous and
-// its table reads hit nearby Morton words; tables are read through the
-// read-only path (__ldg). The backward runs one thread per ray and loops
-// over s, so the per-ray sums stay in registers and need no second pass.
-// Neighbouring rays of an image tile often share a corner word at the
-// same sample, so before its atomicAdd each warp sums the contributions
-// of adjacent lanes that hit the same word (a segmented shuffle scan):
-// fewer atomics on the same address, and a smaller rounding error from
-// their order. Zero sums skip their atomic.
+// f32 planes of S x N and reads 32 table words per sample. The backward
+// reads those planes as cotangents and must write the dense [4, D^3]
+// gradient (2.1 GB at 512^3): at the c4 shape that is 0.72 ms of traffic,
+// against 268 MB of cotangents. What costs more than the traffic is the
+// scatter itself: each sample adds into the 8 words of its stencil, on
+// words a warp's lanes rarely share (neighbouring rays are ~3 voxels apart
+// at the c4 shape), each add a read-modify-write of a 32-byte sector in an
+// L2 that the 2.1 GB gradient mostly misses. Into four planar tables that
+// is 32 scalar atomics over ~13.5 sectors a sample: measured at the c4
+// shape, those atomics were ~85% of the first design's time and 11.6 ms
+// alone.
+// What the design does about it:
+//   * the forward runs one thread per (s, n) with output index s*N + n,
+//     so a warp's stores are contiguous; tables go through __ldg;
+//   * the backward is two compile-time variants of one kernel. The main
+//     path's rays carry no gradient (kRayGrads = false): a pure scatter,
+//     one thread per (s, n) as in the forward (16.7 M threads at the c4
+//     shape, not 65,536), that reads its cotangents coalesced, reads no
+//     table word and computes no ray cotangent. With kRayGrads (camera
+//     optimisation) a thread takes one ray and a chunk of kChunk samples,
+//     scatters them, sums its 8 ray terms over the chunk and writes them
+//     to a [chunks, 8, N] scratch; sample_ray_sum_kernel adds the chunks
+//     in chunk order, so the ray cotangents are deterministic and equal
+//     the plain version (which sums in the same order) bit for bit;
+//   * the scatter adds into a channel-interleaved [D^3, 4] scratch, one
+//     float4 atomicAdd (a vector RED, global memory, sm_90) per corner: 8
+//     a sample over ~6 sectors. grad_transpose_kernel then writes the
+//     gradient in the parameters' own layout, one [4, D^3] buffer
+//     (g_sigma = buf[0], g_rgb = buf[1:4]). Its 4.3 GB of traffic cost
+//     less than the scalar atomics it replaces: at the c4 shape the
+//     planar scatter (32 scalar atomics a sample into a zeroed [4, D^3])
+//     took 11.9 ms, this one 2.9 ms plus 1.4 ms for the transpose;
+//   * where lanes of a warp hit the same word (rays from one point, as an
+//     inside camera's first samples), they sum first and one atomic adds
+//     the run (scatter_corner): without it the float32 rounding of
+//     thousands of atomics on one word exceeds the gradient's tolerance.
+//     A warp whose words are all distinct, nearly every warp at the c4
+//     shape, skips that scan after one vote.
 //
 // Floating point: built with -fmad=false, and every expression follows
 // vxtpu's _corner_setup / _lerp_ladder / _grad_ladder / _value_f_grads /
 // _grad_f_grads operation by operation, so the plain PyTorch versions in
 // render/kernel_sample.py round the same way. The float atomicAdd order
-// of the scatter changes from run to run: the gradient tables agree with
-// the plain version (which sums them in float64) and with another run to
+// of the scatter changes from run to run: the gradient agrees with the
+// plain version (which sums it in float64) and with another run to
 // rounding, not bit for bit.
 
 #include <cstdint>
@@ -157,6 +183,62 @@ __device__ __forceinline__ void grad_f_grads(const float* v, float fx,
   *gfz = ggx * dgx_dfz + ggy * dgy_dfz;
 }
 
+// The cotangent of table c at corner k of one sample: gv[c] times the
+// corner weight, and for sigma (lit) the gradient channels' cotangents
+// gv[4..6] through d(w_k)/d(f).
+template <bool kLit>
+__device__ __forceinline__ void corner_cotangents(const Stencil& st,
+                                                  const float* gv,
+                                                  float g[4][8]) {
+  const float wx[2] = {1.0f - st.fx, st.fx};
+  const float wy[2] = {1.0f - st.fy, st.fy};
+  const float wz[2] = {1.0f - st.fz, st.fz};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int ex = (k >> 2) & 1, ey = (k >> 1) & 1, ez = k & 1;
+    const float w = wx[ex] * wy[ey] * wz[ez];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) g[c][k] = gv[c] * w;
+    if constexpr (kLit) {
+      const float dsx = (ex ? 1.0f : -1.0f) * wy[ey] * wz[ez];
+      const float dsy = wx[ex] * (ey ? 1.0f : -1.0f) * wz[ez];
+      const float dsz = wx[ex] * wy[ey] * (ez ? 1.0f : -1.0f);
+      g[0][k] = g[0][k] + gv[4] * dsx + gv[5] * dsy + gv[6] * dsz;
+    }
+  }
+}
+
+// Sum of v over this lane's run of equal keys, lanes [start, lane]
+// (a segmented Hillis-Steele scan: the run's last lane gets the run's
+// sum). Every lane of the warp must call it.
+__device__ __forceinline__ float run_sum(float v, int lane, int start) {
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane - off >= start) v = v + o;
+  }
+  return v;
+}
+
+// The warp's run structure for this lane's word `key` (-1: none): whether
+// any lane shares its word with the lane before it, this lane's run start
+// and whether it ends a run. Every lane of the warp must call it.
+struct Runs {
+  bool shared, tail;
+  int start;
+};
+
+__device__ __forceinline__ Runs warp_runs(int key, int lane) {
+  const int prev = __shfl_up_sync(0xffffffffu, key, 1);
+  const int next = __shfl_down_sync(0xffffffffu, key, 1);
+  Runs r;
+  r.shared = __any_sync(0xffffffffu, lane > 0 && key >= 0 && prev == key);
+  const unsigned heads = __ballot_sync(0xffffffffu, lane == 0 || prev != key);
+  r.start = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
+  r.tail = lane == 31 || next != key;
+  return r;
+}
+
 struct Fields {
   const float* __restrict__ tab[4];  // sigma, r, g, b: flat Morton [D^3]
 };
@@ -168,6 +250,11 @@ struct Planes {
 struct Cots {
   const float* __restrict__ p[7];  // [S, N] cotangents of the planes
 };
+
+// samples per thread in the kRayGrads variant. render/kernel_sample.py
+// owns the value (RAY_CHUNK: its plain version sums in the same chunks,
+// and it sizes the scratch); vx_sample_bwd refuses any other.
+constexpr int kChunk = 16;
 
 __global__ void __launch_bounds__(kThreads)
 sample_fwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
@@ -205,118 +292,136 @@ sample_fwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
 }
 
-// Sum of v over this lane's run of equal keys, lanes [start, lane]
-// (a segmented Hillis-Steele scan: the run's last lane gets the run's
-// sum). Every lane of the warp must call it.
-__device__ __forceinline__ float run_sum(float v, int lane, int start) {
+// Adds g[c] (c < 4) at word `key` of the channel-interleaved [D^3, 4]
+// gradient with one float4 atomicAdd (key -1: nothing). The lanes of a
+// run of equal words are summed first and the run's last lane adds the
+// sum: fewer atomics on one address, and a smaller rounding error where
+// many rays meet (rays from one point). A warp whose words are all
+// distinct skips the scan (the sum of a run of one is the value itself).
+// Zero sums skip their atomic. Every lane of the warp must call it.
+__device__ __forceinline__ void scatter_corner(float4* grad, int key,
+                                               const float* g, int lane) {
+  const Runs r = warp_runs(key, lane);
+  float sum[4];
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane - off >= start) v = v + o;
-  }
-  return v;
+  for (int c = 0; c < 4; ++c)
+    sum[c] = r.shared ? run_sum(g[c], lane, r.start) : g[c];
+  if (r.tail && key >= 0 &&
+      (sum[0] != 0.0f || sum[1] != 0.0f || sum[2] != 0.0f || sum[3] != 0.0f))
+    atomicAdd(grad + key, make_float4(sum[0], sum[1], sum[2], sum[3]));
 }
 
+// Thread (j, i), index j*N + i: ray i's samples s in [j, j + 1) (the pure
+// scatter) or [j*kChunk, (j + 1)*kChunk) clipped to S (kRayGrads, whose
+// 8 partial ray sums go to part[j, k, i]). The lanes of a warp stay
+// together through the samples (scatter_corner sums across lanes): every
+// lane runs `per` iterations, those past S or of a ray with dt == 0 with
+// no word.
+template <bool kRayGrads, bool kLit>
 __global__ void __launch_bounds__(kThreads)
 sample_bwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ t0, const float* __restrict__ dt,
-                  int n, int S, Fields F, int D, int lit, Cots cot,
-                  float* __restrict__ gsig, float* __restrict__ gr,
-                  float* __restrict__ gg, float* __restrict__ gb,
-                  float* __restrict__ go, float* __restrict__ gd,
-                  float* __restrict__ gt0, float* __restrict__ gdt) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                  int n, int S, Fields F, int D, Cots cot,
+                  float4* __restrict__ grad, float* __restrict__ part) {
+  constexpr int nc = kLit ? 7 : 4;
+  constexpr int per = kRayGrads ? kChunk : 1;
+  const int64_t rows = ((int64_t)S + per - 1) / per;
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = idx < rows * n;
+  const int j = in ? (int)(idx / n) : 0;
+  const int i = in ? (int)(idx - (int64_t)j * n) : 0;
   const int lane = threadIdx.x & 31;
-  const bool in = i < n;
   const float dti = in ? dt[i] : 0.0f;
   const bool act = dti > 0.0f;
-  float* const gtab[4] = {gsig, gr, gg, gb};
   float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  // the warp's lanes stay together through the sample loop (the scatter
-  // sums across lanes); a warp with no active ray skips it
+  // a warp with no active ray skips the samples
   if (__any_sync(0xffffffffu, act)) {
-    const float t0i = in ? t0[i] : 0.0f;
-    const float ox = in ? o[3 * i] : 0.0f, oy = in ? o[3 * i + 1] : 0.0f;
-    const float oz = in ? o[3 * i + 2] : 0.0f;
-    const float dx = in ? d[3 * i] : 0.0f, dy = in ? d[3 * i + 1] : 0.0f;
-    const float dz = in ? d[3 * i + 2] : 0.0f;
-    for (int s = 0; s < S; ++s) {
+    const float t0i = act ? t0[i] : 0.0f;
+    const float ox = act ? o[3 * i] : 0.0f, oy = act ? o[3 * i + 1] : 0.0f;
+    const float oz = act ? o[3 * i + 2] : 0.0f;
+    const float dx = act ? d[3 * i] : 0.0f, dy = act ? d[3 * i + 1] : 0.0f;
+    const float dz = act ? d[3 * i + 2] : 0.0f;
+    for (int q = 0; q < per; ++q) {
+      const int s = j * per + q;
+      const bool live = act && s < S;
       const float sf = (float)s + 0.5f;
       const float t = t0i + dti * sf;
-      const float px = ox + t * dx;
-      const float py = oy + t * dy;
-      const float pz = oz + t * dz;
-      const Stencil st = corner_setup(px, py, pz, D);
-      const float fx = st.fx, fy = st.fy, fz = st.fz;
-      const float wx[2] = {1.0f - fx, fx};
-      const float wy[2] = {1.0f - fy, fy};
-      const float wz[2] = {1.0f - fz, fz};
-      const size_t at = (size_t)s * n + i;
-      float gv[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (act)
-        for (int c = 0; c < (lit ? 7 : 4); ++c) gv[c] = cot.p[c][at];
-      float gfx = 0.0f, gfy = 0.0f, gfz = 0.0f;
-      float g2x = 0.0f, g2y = 0.0f, g2z = 0.0f;
-      float v[4][8];
+      const Stencil st = corner_setup(ox + t * dx, oy + t * dy, oz + t * dz,
+                                      D);
+      const int64_t at = (int64_t)s * n + i;
+      float gv[nc];
+#pragma unroll
+      for (int c = 0; c < nc; ++c) gv[c] = live ? cot.p[c][at] : 0.0f;
+      float g[4][8];
+      corner_cotangents<kLit>(st, gv, g);
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        const int ex = (k >> 2) & 1, ey = (k >> 1) & 1, ez = k & 1;
-        // lanes whose corner is the same word as their neighbour's sum
-        // their contributions first; the last lane of each run of equal
-        // words adds the run's sum with one atomic
-        const int key = act ? st.code[k] : -1;
-        const int prev = __shfl_up_sync(0xffffffffu, key, 1);
-        const int next = __shfl_down_sync(0xffffffffu, key, 1);
-        const unsigned heads =
-            __ballot_sync(0xffffffffu, lane == 0 || prev != key);
-        const int start = 31 - __clz(heads & (0xffffffffu >> (31 - lane)));
-        const bool tail = lane == 31 || next != key;
-        const float w = wx[ex] * wy[ey] * wz[ez];
+        const float gk[4] = {g[0][k], g[1][k], g[2][k], g[3][k]};
+        scatter_corner(grad, live ? st.code[k] : -1, gk, lane);
+      }
+      if constexpr (kRayGrads) {
+        if (!live) continue;
+        float v[4][8];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
-          float g = gv[c] * w;
-          if (c == 0 && lit) {
-            // the gradient channels' cotangents through d(w_k)/d(f)
-            const float dsx = (ex ? 1.0f : -1.0f) * wy[ey] * wz[ez];
-            const float dsy = wx[ex] * (ey ? 1.0f : -1.0f) * wz[ez];
-            const float dsz = wx[ex] * wy[ey] * (ez ? 1.0f : -1.0f);
-            g = g + gv[4] * dsx + gv[5] * dsy + gv[6] * dsz;
-          }
-          const float sum = run_sum(g, lane, start);
-          if (tail && key >= 0 && sum != 0.0f)
-            atomicAdd(gtab[c] + key, sum);
-          v[c][k] = act ? __ldg(F.tab[c] + st.code[k]) : 0.0f;
-        }
-      }
-      if (!act) continue;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float dfx, dfy, dfz;
-        value_f_grads(v[c], fx, fy, fz, &dfx, &dfy, &dfz);
-        gfx = gfx + gv[c] * dfx;
-        gfy = gfy + gv[c] * dfy;
-        gfz = gfz + gv[c] * dfz;
+          for (int k = 0; k < 8; ++k) v[c][k] = __ldg(F.tab[c] + st.code[k]);
+        }
+        float gfx = 0.0f, gfy = 0.0f, gfz = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float dfx, dfy, dfz;
+          value_f_grads(v[c], st.fx, st.fy, st.fz, &dfx, &dfy, &dfz);
+          gfx = gfx + gv[c] * dfx;
+          gfy = gfy + gv[c] * dfy;
+          gfz = gfz + gv[c] * dfz;
+        }
+        if constexpr (kLit) {
+          // the second-order terms go in after the four value channels
+          float g2x, g2y, g2z;
+          grad_f_grads(v[0], st.fx, st.fy, st.fz, gv[4], gv[5], gv[6], &g2x,
+                       &g2y, &g2z);
+          gfx = gfx + g2x;
+          gfy = gfy + g2y;
+          gfz = gfz + g2z;
+        }
+        const float gdot = gfx * dx + gfy * dy + gfz * dz;
+        acc[0] = acc[0] + gfx;
+        acc[1] = acc[1] + gfy;
+        acc[2] = acc[2] + gfz;
+        acc[3] = acc[3] + gfx * t;
+        acc[4] = acc[4] + gfy * t;
+        acc[5] = acc[5] + gfz * t;
+        acc[6] = acc[6] + gdot;
+        acc[7] = acc[7] + gdot * sf;
       }
-      if (lit) {
-        // the second-order terms go in after the four value channels
-        grad_f_grads(v[0], fx, fy, fz, gv[4], gv[5], gv[6], &g2x, &g2y,
-                     &g2z);
-        gfx = gfx + g2x;
-        gfy = gfy + g2y;
-        gfz = gfz + g2z;
-      }
-      const float gdot = gfx * dx + gfy * dy + gfz * dz;
-      acc[0] = acc[0] + gfx;
-      acc[1] = acc[1] + gfy;
-      acc[2] = acc[2] + gfz;
-      acc[3] = acc[3] + gfx * t;
-      acc[4] = acc[4] + gfy * t;
-      acc[5] = acc[5] + gfz * t;
-      acc[6] = acc[6] + gdot;
-      acc[7] = acc[7] + gdot * sf;
     }
   }
-  if (!in) return;
+  if constexpr (kRayGrads) {
+    if (!in) return;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      part[((int64_t)j * 8 + k) * n + i] = acc[k];
+    }
+  }
+}
+
+// Ray i's cotangents: the chunks' partial sums added in chunk order.
+__global__ void __launch_bounds__(kThreads)
+sample_ray_sum_kernel(const float* __restrict__ part, int n, int chunks,
+                      float* __restrict__ go, float* __restrict__ gd,
+                      float* __restrict__ gt0, float* __restrict__ gdt) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float a = 0.0f;
+    for (int j = 0; j < chunks; ++j) {
+      a = a + part[((int64_t)j * 8 + k) * n + i];
+    }
+    acc[k] = a;
+  }
   go[3 * i] = acc[0];
   go[3 * i + 1] = acc[1];
   go[3 * i + 2] = acc[2];
@@ -325,6 +430,33 @@ sample_bwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
   gd[3 * i + 2] = acc[5];
   gt0[i] = acc[6];
   gdt[i] = acc[7];
+}
+
+// [words, 4] -> [4, words]: the gradient in the parameters' layout.
+__global__ void __launch_bounds__(kThreads)
+grad_transpose_kernel(const float4* __restrict__ src, int64_t words,
+                      float* __restrict__ dst) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= words) return;
+  const float4 v = src[i];
+  dst[i] = v.x;
+  dst[words + i] = v.y;
+  dst[2 * words + i] = v.z;
+  dst[3 * words + i] = v.w;
+}
+
+template <bool kRayGrads, bool kLit>
+int launch_bwd(const float* o, const float* d, const float* t0,
+               const float* dt, int n, int S, const Fields& F, int D,
+               const Cots& C, float4* grad, float* part,
+               cudaStream_t stream) {
+  const int64_t rows = kRayGrads ? ((int64_t)S + kChunk - 1) / kChunk : S;
+  const int64_t blocks = (rows * n + kThreads - 1) / kThreads;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+  sample_bwd_kernel<kRayGrads, kLit><<<(unsigned)blocks, kThreads, 0,
+                                       stream>>>(o, d, t0, dt, n, S, F, D, C,
+                                                 grad, part);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -349,19 +481,48 @@ extern "C" int vx_sample_fwd(const float* o, const float* d, const float* t0,
   return (int)cudaGetLastError();
 }
 
+// grad: the zeroed channel-interleaved [D^3, 4] gradient; part: the
+// [ceil(S / chunk), 8, n] scratch of the ray sums when ray_grads, else
+// unused (null). chunk: the caller's chunk length, which must be kChunk
+// (else cudaErrorInvalidValue, nothing launched).
 extern "C" int vx_sample_bwd(const float* o, const float* d, const float* t0,
                              const float* dt, int n, int S,
                              const float* const* tabs, int D, int lit,
-                             const float* const* cots, float* const* gtabs,
-                             float* go, float* gd, float* gt0, float* gdt,
-                             cudaStream_t stream) {
+                             int ray_grads, int chunk,
+                             const float* const* cots, float* grad4,
+                             float* part, cudaStream_t stream) {
+  if (ray_grads && chunk != kChunk) return (int)cudaErrorInvalidValue;
+  float4* const grad = reinterpret_cast<float4*>(grad4);
   Fields F;
   Cots C;
   for (int c = 0; c < 4; ++c) F.tab[c] = tabs[c];
   for (int c = 0; c < 7; ++c) C.p[c] = (c < 4 || lit) ? cots[c] : nullptr;
+  if (ray_grads)
+    return lit ? launch_bwd<true, true>(o, d, t0, dt, n, S, F, D, C, grad,
+                                        part, stream)
+               : launch_bwd<true, false>(o, d, t0, dt, n, S, F, D, C, grad,
+                                         part, stream);
+  return lit ? launch_bwd<false, true>(o, d, t0, dt, n, S, F, D, C, grad,
+                                       part, stream)
+             : launch_bwd<false, false>(o, d, t0, dt, n, S, F, D, C, grad,
+                                        part, stream);
+}
+
+extern "C" int vx_sample_ray_sum(const float* part, int n, int chunks,
+                                 float* go, float* gd, float* gt0, float* gdt,
+                                 cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
-  sample_bwd_kernel<<<blocks, kThreads, 0, stream>>>(
-      o, d, t0, dt, n, S, F, D, lit, C, gtabs[0], gtabs[1], gtabs[2],
-      gtabs[3], go, gd, gt0, gdt);
+  sample_ray_sum_kernel<<<blocks, kThreads, 0, stream>>>(part, n, chunks, go,
+                                                         gd, gt0, gdt);
+  return (int)cudaGetLastError();
+}
+
+// src [words, 4] -> dst [4, words]
+extern "C" int vx_grad_transpose(const float* src, int64_t words, float* dst,
+                                 cudaStream_t stream) {
+  const int64_t blocks = (words + kThreads - 1) / kThreads;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+  grad_transpose_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(src), words, dst);
   return (int)cudaGetLastError();
 }

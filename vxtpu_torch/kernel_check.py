@@ -21,11 +21,12 @@ ray, and on an identity table equal to the count computed from the index
 formula alone.
 
 Field sampling (K3, K4): forward samples within |d| <= 1e-6 (the same
-operations in the same order); backward gradient tables and per-ray
-cotangents within rtol 1e-5 and atol 1e-6 x max|g|, because the kernel's
-float atomicAdd scatter sums in an order that changes from run to run
-(the plain version sums in float64; two runs of the kernel are held to
-the same limits).
+operations in the same order); backward gradient tables within rtol 1e-5
+and atol 1e-6 x max|g|, because the kernel's float atomicAdd scatter sums
+in an order that changes from run to run (the plain version sums in
+float64; two runs of the kernel are held to the same limits); per-ray
+cotangents (the kRayGrads variant) equal bit for bit (summed in chunks
+in a fixed order, the plain version in the same order).
 """
 
 from __future__ import annotations
@@ -504,7 +505,10 @@ FWD_ATOL = 1e-6
 BWD_RTOL = 1e-5
 BWD_ATOL_REL = 1e-6
 
-SAMPLE_CASES = [f"{r}-{m}" for r in ("outside", "inside", "dt0", "random")
+# "<rays>-<lit>": the backward with the ray cotangents (kRayGrads);
+# "<rays>-<lit>-scatter": the pure scatter (the trainer's main path)
+SAMPLE_CASES = [f"{r}-{m}{v}" for v in ("", "-scatter")
+                for r in ("outside", "inside", "dt0", "random")
                 for m in ("unlit", "lit")]
 
 
@@ -556,9 +560,12 @@ def sample_rays(kind, D, n, device, seed=1):
 def run_sample_case(name: str, device, D: int = 64, n: int = 16384,
                     S: int = 64) -> dict:
     """sample_fields_fwd / _bwd (the kernels) vs their plain versions on
-    one ray set; the backward also against a second kernel run."""
-    kind, mode = name.split("-")
+    one ray set; the backward also against a second kernel run. S = 64 is
+    four chunks of the kRayGrads variant; its ray cotangents are held to
+    the plain version bit for bit (``rays_unequal``)."""
+    kind, mode, *variant = name.split("-")
     lit = mode == "lit"
+    ray_grads = not variant
     tabs = sample_fields(D, device)
     o, d = sample_rays(kind, D, n, device)
     t0, dt, _ = _enter_dt_soft(o, d, (D,) * 3, S, None)
@@ -571,18 +578,27 @@ def run_sample_case(name: str, device, D: int = 64, n: int = 16384,
     g = torch.Generator().manual_seed(2)
     cots = tuple(torch.randn(S, n, generator=g).to(device)
                  for _ in range(7 if lit else 4))
-    kb = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit)
-    kb2 = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit)
-    pb = ks.sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, D, lit)
-    flat = [*kb[0], *kb[1:]]
-    flat2 = [*kb2[0], *kb2[1:]]
-    flatp = [*pb[0], *pb[1:]]
+    kb = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit, ray_grads)
+    kb2 = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit, ray_grads)
+    pb = ks.sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, D, lit,
+                                        ray_grads)
+    flat = [*kb[0], *kb[1:]] if ray_grads else [*kb[0]]
+    flat2 = [*kb2[0], *kb2[1:]] if ray_grads else [*kb2[0]]
+    flatp = [*pb[0], *pb[1:]] if ray_grads else [*pb[0]]
+    if not ray_grads and any(x is not None for x in (*kb[1:], *pb[1:])):
+        raise AssertionError(f"{name}: ray outputs without ray_grads")
     return dict(
-        n=n, S=S, active=int((dt > 0).sum()),
+        n=n, S=S, active=int((dt > 0).sum()), ray_grads=ray_grads,
+        shared_storage=len({x.untyped_storage().data_ptr()
+                            for x in kb[0]}) == 1,
         fwd_max_abs=fwd_err,
         bwd_excess=grads_excess(flat, flatp),
         tables_excess=grads_excess(flat[:4], flatp[:4]),
         rays_excess=grads_excess(flat[4:], flatp[4:]),
+        rays_unequal=sum(int((a != b).sum())
+                         for a, b in zip(flat[4:], flatp[4:])),
+        rays_max_abs=max((float((a - b).abs().max())
+                          for a, b in zip(flat[4:], flatp[4:])), default=0.0),
         bwd_max_abs=max(float((a - b).abs().max())
                         for a, b in zip(flat, flatp)),
         rerun_excess=grads_excess(flat2, flat),
@@ -602,6 +618,12 @@ def check_sample_case(m: dict, what: str) -> None:
             raise AssertionError(f"{what}: {k} {m[k]:.3g} (> 1 means beyond "
                                  f"rtol {BWD_RTOL} / atol {BWD_ATOL_REL} "
                                  f"x max|g|)")
+    if m["rays_unequal"]:
+        raise AssertionError(f"{what}: {m['rays_unequal']} ray cotangents "
+                             f"differ from the plain version's")
+    if not m["shared_storage"]:
+        raise AssertionError(f"{what}: the gradient tables are not rows of "
+                             f"one buffer")
     if not m["zero_rays_clean"]:
         raise AssertionError(f"{what}: a ray with dt == 0 sampled non-zero")
     if m["active"] == 0:

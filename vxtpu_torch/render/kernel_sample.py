@@ -9,9 +9,12 @@ built for sm_90a at first use.
 For ray n and sample s < S the forward takes p = o + (t0 + dt (s + 1/2)) d
 and samples four fields (sigma, r, g, b) trilinearly there, returning four
 [S, N] planes, and with ``lit`` three more: the spatial gradient of sigma.
-The backward walks the same samples again, scatter-adds the cotangents
-times the corner weights into four gradient tables, and sums each ray's
-cotangents of o, d, t0 and dt. Rays with dt == 0 give 0 in every channel
+The backward walks the same samples again and scatter-adds the cotangents
+times the corner weights into one [4, D^3] gradient (rows sigma, r, g, b:
+the layout of ``MortonSoftGrid``'s sigma_tab and rgb_tab); with
+``ray_grads`` it also sums each ray's cotangents of o, d, t0 and dt, and
+without it (rays that need no gradient, the trainer's main path) it reads
+no table and computes none. Rays with dt == 0 give 0 in every channel
 and get no gradient. Gradients flow through the interpolation weights
 only: corner indices are constants, as in vxtpu.
 
@@ -26,7 +29,8 @@ they run the plain versions, ``sample_fields_fwd_reference`` and
 operation by operation. The kernels' scatter adds with float atomics in
 an order that changes between runs, so their gradient tables match the
 plain version (which sums in float64) and each other within rounding,
-not bit for bit; vxtpu's TPU scatter is bitwise deterministic.
+not bit for bit (vxtpu's TPU scatter is bitwise deterministic); the ray
+cotangents are summed in a fixed order and match bit for bit.
 """
 
 from __future__ import annotations
@@ -43,7 +47,15 @@ NCH = 4  # sigma, r, g, b
 
 # Kernel launches since the last reset_launch_counts(), by kernel name.
 # Each wrapper adds one where it launches its kernel, and nowhere else.
-LAUNCHES = {"sample_fwd_kernel": 0, "sample_bwd_kernel": 0}
+LAUNCHES = {"sample_fwd_kernel": 0, "sample_bwd_kernel<kRayGrads=false>": 0,
+            "sample_bwd_kernel<kRayGrads=true>": 0,
+            "sample_ray_sum_kernel": 0, "grad_transpose_kernel": 0}
+
+# samples per thread of sample_bwd_kernel<kRayGrads=true>: its per-ray
+# sums run over s within each chunk, then over the chunks, and the plain
+# version sums in the same order. The wrapper passes it to the kernel,
+# which refuses a value other than its compile-time kChunk.
+RAY_CHUNK = 16
 
 
 def reset_launch_counts() -> None:
@@ -171,21 +183,22 @@ def sample_fields_fwd_reference(tabs, o, d, t0, dt, S: int, dim: int,
 
 
 def sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim: int,
-                                lit: bool = False):
-    """Plain version of ``sample_fields_bwd``: the scatter with index_add_,
-    summed in float64 (the exact sums that the kernel's float atomics
-    approximate, in whatever order they land), and the per-ray sums over
-    s in the kernel's order."""
+                                lit: bool = False, ray_grads: bool = True):
+    """Plain version of ``sample_fields_bwd``, returning the gradient as one
+    [4, dim^3] tensor (rows sigma, r, g, b) where the wrapper returns its
+    four rows: the scatter with index_add_, summed in float64 (the exact
+    sums that the kernel's float atomics approximate, in whatever order
+    they land); with ``ray_grads`` the per-ray sums in the kernel's order
+    (over s within chunks of RAY_CHUNK samples, then over the chunks),
+    else None for the four ray outputs, which are not computed."""
     S, n = cots[0].shape
     act = (dt > 0)[None, :]
     t, px, py, pz = _positions(o, d, t0, dt, S)
     codes, fx, fy, fz = _corner_setup(px, py, pz, dim)
     w = ((1.0 - fx, fx), (1.0 - fy, fy), (1.0 - fz, fz))
     sel = act.expand(S, n)
-    gtabs = []
-    gfx = gfy = gfz = 0.0
-    for c, tab in enumerate(tabs):
-        g = torch.zeros_like(tab, dtype=torch.float64)
+    grad = torch.zeros((NCH, dim ** 3), dtype=torch.float64, device=o.device)
+    for c in range(NCH):
         for k in range(8):
             ex, ey, ez = (k >> 2) & 1, (k >> 1) & 1, k & 1
             gc = cots[c] * (w[0][ex] * w[1][ey] * w[2][ez])
@@ -194,8 +207,12 @@ def sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim: int,
                 dsy = w[0][ex] * (1.0 if ey else -1.0) * w[2][ez]
                 dsz = w[0][ex] * w[1][ey] * (1.0 if ez else -1.0)
                 gc = gc + cots[4] * dsx + cots[5] * dsy + cots[6] * dsz
-            g.index_add_(0, codes[k][sel], gc[sel].double())
-        gtabs.append(g.float())
+            grad[c].index_add_(0, codes[k][sel], gc[sel].double())
+    grad = grad.float()
+    if not ray_grads:
+        return grad, None, None, None, None
+    gfx = gfy = gfz = 0.0
+    for c, tab in enumerate(tabs):
         v = _fetch(tab, codes, act)
         dfx, dfy, dfz = _value_f_grads(v, fx, fy, fz)
         gfx = gfx + cots[c] * dfx
@@ -206,18 +223,23 @@ def sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim: int,
     if lit:
         gfx, gfy, gfz = gfx + g2[0], gfy + g2[1], gfz + g2[2]
     gdot = gfx * d[None, :, 0] + gfy * d[None, :, 1] + gfz * d[None, :, 2]
-    terms = (gfx, gfy, gfz, gfx * t, gfy * t, gfz * t, gdot,
-             gdot * (torch.arange(S, dtype=torch.float32,
-                                  device=o.device) + 0.5)[:, None])
-    # the kernel's per-ray sums run s = 0..S-1 in order
-    acc = [torch.zeros(n, dtype=torch.float32, device=o.device)
-           for _ in terms]
+    terms = torch.stack((gfx, gfy, gfz, gfx * t, gfy * t, gfz * t, gdot,
+                         gdot * (torch.arange(S, dtype=torch.float32,
+                                              device=o.device) + 0.5)[:, None]))
+    terms = torch.where(act, terms, 0.0)                     # [8, S, N]
+    # the kernel's order: s in order within each chunk, then the chunks
+    part = terms.new_zeros((max(-(-S // RAY_CHUNK), 1), 8, n))
     for s in range(S):
-        acc = [a + x[s] for a, x in zip(acc, terms)]
-    acc = [torch.where(act[0], a, 0.0) for a in acc]
-    go = torch.stack(acc[0:3], dim=-1)
-    gd = torch.stack(acc[3:6], dim=-1)
-    return tuple(gtabs), go, gd, acc[6], acc[7]
+        part[s // RAY_CHUNK] = part[s // RAY_CHUNK] + terms[:, s]
+    return (grad, *ray_sums_reference(part))
+
+
+def ray_sums_reference(part: torch.Tensor):
+    """Plain version of ``ray_sums``: the chunks added in chunk order."""
+    acc = torch.zeros_like(part[0])
+    for p in part:
+        acc = acc + p
+    return acc[0:3].t(), acc[3:6].t(), acc[6], acc[7]
 
 
 # --------------------------------------------------------------------------
@@ -272,11 +294,16 @@ def sample_fields_fwd(tabs, o, d, t0, dt, S: int, dim: int,
     return tuple(outs)
 
 
-def sample_fields_bwd(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False):
-    """Backward of ``sample_fields_fwd``: cotangents ``cots`` of its
-    outputs (4, or 7 when lit, each [S, N]) -> (gradient tables (4 x
-    [dim^3]), go [N, 3], gd [N, 3], gt0 [N], gdt [N]). CUDA tensors
-    launch ``sample_bwd_kernel``; CPU tensors run the plain version."""
+def sample_grads(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False,
+                 ray_grads: bool = True):
+    """Backward of ``sample_fields_fwd`` with the gradient in the
+    parameters' own layout: (grad [4, dim^3] (rows sigma, r, g, b), go
+    [N, 3], gd [N, 3], gt0 [N], gdt [N]), the ray outputs None unless
+    ``ray_grads``. CUDA tensors launch ``sample_bwd_kernel`` (the pure
+    scatter, or with ``ray_grads`` the chunked variant and
+    ``sample_ray_sum_kernel``), which scatters into a channel-interleaved
+    [dim^3, 4] scratch, and ``grad_transpose_kernel``; CPU tensors run the
+    plain version."""
     device, n = _check_rays(tabs, o, d, t0, dt, dim)
     if len(cots) != (7 if lit else 4):
         raise ValueError(f"expected {7 if lit else 4} cotangents, "
@@ -285,25 +312,103 @@ def sample_fields_bwd(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False):
     for c, x in enumerate(cots):
         _check(f"cots[{c}]", x, torch.float32, (S, n), device)
     if device.type == "cpu":
-        return sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim, lit)
+        return sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim, lit,
+                                           ray_grads)
 
     from vxtpu_torch import _build
 
     lib = _build.load()
     f32 = dict(dtype=torch.float32, device=device)
-    gtabs = [torch.zeros(dim ** 3, **f32) for _ in range(NCH)]
-    go = torch.empty((n, 3), **f32)
-    gd = torch.empty((n, 3), **f32)
-    gt0 = torch.empty(n, **f32)
-    gdt = torch.empty(n, **f32)
-    if n:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    grad4 = torch.zeros((dim ** 3, NCH), **f32)     # channel-interleaved
+    # the kernel writes every slot of part; with S == 0 the sums are 0
+    part = ((torch.empty((-(-S // RAY_CHUNK), 8, n), **f32) if S
+             else torch.zeros((1, 8, n), **f32)) if ray_grads else None)
+    name = f"sample_bwd_kernel<kRayGrads={str(ray_grads).lower()}>"
+    if n and S:
         rc = lib.vx_sample_bwd(
             o.data_ptr(), d.data_ptr(), t0.data_ptr(), dt.data_ptr(), n, S,
-            _ptrs(tabs), dim, int(lit), _ptrs(cots), _ptrs(gtabs),
-            go.data_ptr(), gd.data_ptr(), gt0.data_ptr(), gdt.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream)
+            _ptrs(tabs), dim, int(lit), int(ray_grads), RAY_CHUNK,
+            _ptrs(cots), grad4.data_ptr(),
+            part.data_ptr() if ray_grads else None, stream)
         if rc:
-            raise RuntimeError(f"sample_bwd_kernel launch failed: "
+            raise RuntimeError(f"{name} launch failed: "
                                f"{_build.error_string(rc)}")
-        LAUNCHES["sample_bwd_kernel"] += 1
-    return tuple(gtabs), go, gd, gt0, gdt
+        LAUNCHES[name] += 1
+    grad = grad_transpose(grad4)
+    del grad4
+    if not ray_grads:
+        return grad, None, None, None, None
+    return (grad, *ray_sums(part))
+
+
+def ray_sums(part: torch.Tensor):
+    """Per-ray cotangents from the partial sums [chunks, 8, N] of
+    ``sample_bwd_kernel<kRayGrads=true>``: (go [N, 3], gd [N, 3], gt0 [N],
+    gdt [N]), the chunks added in chunk order. CUDA tensors launch
+    ``sample_ray_sum_kernel``; CPU tensors run the plain version."""
+    if (part.dim() != 3 or part.shape[1] != 8
+            or part.dtype != torch.float32 or not part.is_contiguous()):
+        raise ValueError(f"expected a contiguous float32 [chunks, 8, N] "
+                         f"tensor, got {part.dtype} {tuple(part.shape)}")
+    if part.device.type == "cpu":
+        return ray_sums_reference(part)
+
+    from vxtpu_torch import _build
+
+    chunks, _, n = part.shape
+    f32 = dict(dtype=torch.float32, device=part.device)
+    go, gd = torch.empty((n, 3), **f32), torch.empty((n, 3), **f32)
+    gt0, gdt = torch.empty(n, **f32), torch.empty(n, **f32)
+    if n:
+        rc = _build.load().vx_sample_ray_sum(
+            part.data_ptr(), n, chunks, go.data_ptr(), gd.data_ptr(),
+            gt0.data_ptr(), gdt.data_ptr(),
+            torch.cuda.current_stream(part.device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"sample_ray_sum_kernel launch failed: "
+                               f"{_build.error_string(rc)}")
+        LAUNCHES["sample_ray_sum_kernel"] += 1
+    return go, gd, gt0, gdt
+
+
+def grad_transpose_reference(src: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``grad_transpose``: the four channels stacked."""
+    return torch.stack(src.unbind(1))
+
+
+def grad_transpose(src: torch.Tensor) -> torch.Tensor:
+    """The scatter's channel-interleaved gradient [W, 4] -> the tables'
+    layout [4, W]. CUDA tensors launch ``grad_transpose_kernel``; CPU
+    tensors run the plain version."""
+    if (src.dim() != 2 or src.shape[1] != NCH or src.dtype != torch.float32
+            or not src.is_contiguous()):
+        raise ValueError(f"expected a contiguous float32 [W, {NCH}] tensor, "
+                         f"got {src.dtype} {tuple(src.shape)}")
+    if src.device.type == "cpu":
+        return grad_transpose_reference(src)
+
+    from vxtpu_torch import _build
+
+    dst = torch.empty((NCH, src.shape[0]), dtype=torch.float32,
+                      device=src.device)
+    rc = _build.load().vx_grad_transpose(
+        src.data_ptr(), src.shape[0], dst.data_ptr(),
+        torch.cuda.current_stream(src.device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"grad_transpose_kernel launch failed: "
+                           f"{_build.error_string(rc)}")
+    LAUNCHES["grad_transpose_kernel"] += 1
+    return dst
+
+
+def sample_fields_bwd(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False,
+                      ray_grads: bool = True):
+    """Backward of ``sample_fields_fwd``: cotangents ``cots`` of its
+    outputs (4, or 7 when lit, each [S, N]) -> (gradient tables (4 x
+    [dim^3], rows of one [4, dim^3] tensor), go [N, 3], gd [N, 3], gt0
+    [N], gdt [N]); the four ray outputs are None when ``ray_grads`` is
+    False. CUDA tensors launch the kernels; CPU tensors run the plain
+    version (see ``sample_grads``)."""
+    grad, *rays = sample_grads(tabs, o, d, t0, dt, cots, dim, lit, ray_grads)
+    return (tuple(grad), *rays)

@@ -6,9 +6,10 @@ of ``vxtpu/render/soft_pallas.py``): the trainer's fast path.
     out; conversion happens only at the ends (``from_soft`` / ``to_soft``).
   * ``SampleFields`` is the only hand-differentiated boundary (vxtpu's
     ``jax.custom_vjp`` around ``sample_fields``): forward the sampling
-    kernel, backward the scatter kernel. Everything else (softplus, mask,
-    lit shading, the transmittance cumprod, sky) is [S, N] tensor code
-    that autograd differentiates.
+    kernel, backward the scatter kernel, which returns the tables'
+    gradient in their own layout and skips the rays' unless they need
+    it. Everything else (softplus, mask, lit shading, the transmittance
+    cumprod, sky) is [S, N] tensor code that autograd differentiates.
 
 Semantics are ``render/soft.render_soft_rays``'s: the same sample
 positions, clip conventions and cumprod order. vxtpu's TPU-only arguments
@@ -50,10 +51,6 @@ class MortonSoftGrid:
     def dims(self) -> tuple[int, int, int]:
         return (self.dim,) * 3
 
-    def tables(self):
-        return (self.sigma_tab, self.rgb_tab[0], self.rgb_tab[1],
-                self.rgb_tab[2])
-
     @staticmethod
     def from_soft(soft: SoftGrid) -> "MortonSoftGrid":
         return MortonSoftGrid(
@@ -71,28 +68,33 @@ class MortonSoftGrid:
 
 class SampleFields(torch.autograd.Function):
     """Raw trilinear samples along rays, differentiable with respect to the
-    four tables and the ray parameters (o, d, t0, dt): forward
-    ``sample_fields_fwd``, backward ``sample_fields_bwd``. ``plain`` runs
-    their plain versions on any device (the oracle of the kernel path)."""
+    scene's tables (sigma_tab [D^3], rgb_tab [3, D^3]) and the ray
+    parameters (o, d, t0, dt): forward ``sample_fields_fwd``, backward
+    ``sample_grads``, whose one [4, D^3] gradient comes back as the views
+    g_sigma = grad[0] and g_rgb = grad[1:4] (no per-row select, so autograd
+    builds no [3, D^3] zero-filled copies). The backward asks for the ray
+    cotangents only where o, d, t0 or dt needs a gradient. ``plain`` runs
+    the plain versions on any device (the oracle of the kernel path)."""
 
     @staticmethod
-    def forward(ctx, S, dim, lit, plain, sig, r, g, b, o, d, t0, dt):
-        args = ((sig, r, g, b), o, d, t0, dt)
-        ctx.save_for_backward(sig, r, g, b, o, d, t0, dt)
+    def forward(ctx, S, dim, lit, plain, sigma_tab, rgb_tab, o, d, t0, dt):
+        ctx.save_for_backward(sigma_tab, rgb_tab, o, d, t0, dt)
         ctx.S, ctx.dim, ctx.lit, ctx.plain = S, dim, lit, plain
         fwd = (ks.sample_fields_fwd_reference if plain
                else ks.sample_fields_fwd)
-        return fwd(*args, S, dim, lit)
+        return fwd((sigma_tab, *rgb_tab.unbind(0)), o, d, t0, dt, S, dim,
+                   lit)
 
     @staticmethod
     def backward(ctx, *cots):
-        sig, r, g, b, o, d, t0, dt = ctx.saved_tensors
+        sigma_tab, rgb_tab, o, d, t0, dt = ctx.saved_tensors
+        ray_grads = any(ctx.needs_input_grad[6:10])
         bwd = (ks.sample_fields_bwd_reference if ctx.plain
-               else ks.sample_fields_bwd)
-        gtabs, go, gd, gt0, gdt = bwd(
-            (sig, r, g, b), o, d, t0, dt,
-            tuple(c.contiguous() for c in cots), ctx.dim, ctx.lit)
-        return (None, None, None, None, *gtabs, go, gd, gt0, gdt)
+               else ks.sample_grads)
+        grad, go, gd, gt0, gdt = bwd(
+            (sigma_tab, *rgb_tab.unbind(0)), o, d, t0, dt,
+            tuple(c.contiguous() for c in cots), ctx.dim, ctx.lit, ray_grads)
+        return (None, None, None, None, grad[0], grad[1:], go, gd, gt0, gdt)
 
 
 def _mask_at_cm(mask, scale, px, py, pz):
@@ -174,7 +176,7 @@ def render_soft_rays_kernel(msoft: MortonSoftGrid, o: torch.Tensor,
            and settings.shading != "flat")
     t0, dt, valid = _enter_dt_soft(o, d, dims, num_samples, seg_bounds)
     vals = SampleFields.apply(num_samples, msoft.dim, lit, plain,
-                              *msoft.tables(), o.contiguous(),
+                              msoft.sigma_tab, msoft.rgb_tab, o.contiguous(),
                               d.contiguous(), t0.contiguous(),
                               dt.contiguous())
     sv, rr, gg, bb = vals[:4]                                 # [S, N]
