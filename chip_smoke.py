@@ -33,7 +33,10 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              backward at 512^3, K3 and both K4 variants alone against
              their plain versions and torch's grid_sample (the library
              yardstick, used nowhere in the port), and a profiled step's
-             device time by kernel;
+             device time by group (K3, K4, Adam, the TV prior, the other
+             dense-table glue, the [S, N] math). The scene is one
+             channel-interleaved [D^3, 4] Morton table that K3 reads and
+             K4 scatters into;
   7. cross   the fit at 32^3 against the JAX package's loss trajectory and
              K3's outputs against its checksums (vxtpu_torch/data);
   8. pipeline the composable render pipeline (render / animate / bench
@@ -80,13 +83,17 @@ steps, done, dist on every ray), march_sorted to single-round K1 exactly
 bit.
 
 The line before the last is one JSON object with the kernels' counts,
-errors, times and bounds; the last line is {"ok": true, "device": {...}}.
+errors, times and bounds (K1's and K5's bounds count the distinct table
+words their marches read, counted on the plain march; the bounds without
+them are kept as bound_rays_only_ms); the last line is {"ok": true,
+"device": {...}}.
 --save DIR writes the main-path frames there as PNGs.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -305,6 +312,41 @@ def _in_solid(grid, cam) -> bool:
         bool(grid.occupancy[v[0], v[1], v[2]] > 0)
 
 
+class _WordLog:
+    """Stands for a march table in a plain march: indexing it reads the
+    table and marks the words read, so that a march's bound can count the
+    distinct table words its rays touch."""
+
+    def __init__(self, words):
+        import torch
+
+        self.words = words
+        self.seen = torch.zeros(words.numel(), dtype=torch.bool,
+                                device=words.device)
+
+    def __getitem__(self, idx):
+        self.seen[idx] = True
+        return self.words[idx]
+
+    def count(self) -> int:
+        return int(self.seen.sum())
+
+
+@contextlib.contextmanager
+def _logged_fetch(module, words):
+    """Within the block the plain march of ``module`` (kernel_march or
+    kernel_packed, whose ``_fetch`` reads every table word of a march)
+    reads ``words`` through a _WordLog, which it yields. The plain march
+    visits the same cells as the kernel: they agree on every step."""
+    log = _WordLog(words)
+    real = module._fetch
+    module._fetch = lambda _words, *args: real(log, *args)
+    try:
+        yield log
+    finally:
+        module._fetch = real
+
+
 def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
     import torch
 
@@ -389,7 +431,9 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
             return km.march_shade_reference(o, d, accel, dims, ms, None, spec,
                                             mats, lights_arr)
 
-        rec_p, rgb_p = plain()
+        # the distinct table words the marches read, for K1's bound
+        with _logged_fetch(km, accel.words) as log:
+            rec_p, rgb_p = plain()
         rm = kc.record_mismatch(rec, rec_p)
         im = kc.image_mismatch(rgb, rgb_p)
         kc.check_records(rm, f"main {name}")
@@ -404,12 +448,14 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
                 f"plain: rgb beyond {kc.RGB_ATOL} on {im['rgb']} px (max "
                 f"{im['max_abs']:.3g}), hit/voxel/normal/steps mismatches "
                 f"{rm['hit']}/{rm['voxel']}/{rm['normal']}/{rm['steps']}; "
-                f"rec.steps total kernel {steps} plain {steps_p}")
+                f"rec.steps total kernel {steps} plain {steps_p}; "
+                f"{log.count()} distinct occupancy words read")
         t_k = median_ms(lambda c=cam, s=settings, i=inkernel:
                         render_frame_fused(accel, mats, dims, c, light, s, h,
                                            w, inkernel_shadows=i), device,
                         runs)
-        times[name] = {"ms": t_k, "hits": int(rec.hit.sum())}
+        times[name] = {"ms": t_k, "hits": int(rec.hit.sum()),
+                       "table_words": log.count()}
         line += f"; frame {t_k:.3f} ms ({h * w / t_k / 1e3:.1f} Mrays/s)"
         if inkernel:
             kspec = km.ShadeSpec.from_settings(settings, light,
@@ -445,8 +491,16 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
             t_sp = median_ms(lambda: km.shade_reference(
                 rec, o, d, vis, mats, lights_arr, vspec), device, runs)
             times["shade_kernel"] = {"ms": t_s, "plain_ms": t_sp}
+            if device.type == "cuda":
+                from vxtpu_torch.render.probe import device_ms
+
+                times["shade_kernel"]["device_ms"] = device_ms(
+                    lambda: km.shade(rec, o, d, vis, mats, lights_arr, vspec),
+                    runs, "shade_kernel")
             print(f"phase 4 main: shade kernel alone at {h}x{w}: {t_s:.3f} "
-                  f"ms, plain {t_sp:.3f} ms; rgb beyond {kc.RGB_ATOL} on "
+                  f"ms (events), device "
+                  f"{times['shade_kernel'].get('device_ms', float('nan')):.4f}"
+                  f" ms; plain {t_sp:.3f} ms; rgb beyond {kc.RGB_ATOL} on "
                   f"{sm['rgb']} px (max {sm['max_abs']:.3g})")
     return {"launches": launches, "err": err, "times": times, "grid": grid,
             "accel": accel}
@@ -520,19 +574,16 @@ def cross_entry_frame(device) -> None:
                              f"within 2/255 of JAX's")
 
 
-def k5_bound(n, steps, with_tmax) -> dict:
+def k5_bound(n, steps, with_tmax, table_words=0) -> dict:
     """Least time (ms) of one K5 launch over n rays that take ``steps``
     iterations in all: each ray's inputs (o, d: 24 B; t_max: 4 B) read
     once and its outputs (hit 1, t 4, voxel 12, normal 12, steps 4 B)
-    written once, over the HBM rate; the table words the marches read are
-    not counted (as for K1), so this is a lower bound. Operations:
-    K5_OPS_RAY per ray and K5_OPS_STEP per iteration over the float32
-    peak."""
-    b = n * (24 + (4 if with_tmax else 0) + 33)
-    f = n * K5_OPS_RAY + steps * K5_OPS_STEP
-    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
-    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
-                bound_by="bytes" if tb >= tf else "operations")
+    written once, and the ``table_words`` distinct int32 row-major words
+    its marches read (counted on the plain march), over the HBM rate.
+    Operations: K5_OPS_RAY per ray and K5_OPS_STEP per iteration over the
+    float32 peak."""
+    return _bound(n * (24 + (4 if with_tmax else 0) + 33) + 4 * table_words,
+                  n * K5_OPS_RAY + steps * K5_OPS_STEP)
 
 
 def _run_cli(argv) -> list:
@@ -593,7 +644,9 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     ms = settings.resolve_max_steps(dims)
     o, d = generate_rays(cam, h, w)
     rec = kp.march_packed(o, d, accel, dims, ms)
-    ref = kp.march_packed_reference(o, d, accel, dims, ms)
+    with _logged_fetch(kp, accel.words) as log:
+        ref = kp.march_packed_reference(o, d, accel, dims, ms)
+    table_words = log.count()
     m = kc.packed_mismatch(rec, ref)
     kc.check_packed(m, "K5 c3 primary rays")
     err = max(err, m["t_abs"])
@@ -647,15 +700,19 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
                                                      t_max=stm), device, runs)
     plain_ms = median_ms(lambda: kp.march_packed_reference(
         o, d, accel, dims, ms), device, 3)
-    bound = k5_bound(h * w, steps, False)
+    bound = k5_bound(h * w, steps, False, table_words)
     times = dict(ms=k5_ms, plain_ms=plain_ms, shadow_ms=k5_shadow_ms,
                  frame_ms=frame_ms, steps=steps, shadow_steps=ssteps,
-                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                 bound_rays_only_ms=k5_bound(h * w, steps, False)["bound_ms"],
+                 table_words=table_words)
     sb = k5_bound(h * w, ssteps, True)
     print(f"phase 8 pipeline: c3 frame {frame_ms:.3f} ms "
           f"({h * w / frame_ms / 1e3:.1f} Mrays/s); K5 alone on the primary "
           f"rays {k5_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms by "
-          f"{bound['bound_by']}), on the shadow rays {k5_shadow_ms:.3f} ms "
+          f"{bound['bound_by']} with the {table_words} table words its "
+          f"marches read, {times['bound_rays_only_ms']:.4f} ms without), "
+          f"on the shadow rays {k5_shadow_ms:.3f} ms "
           f"(bound {sb['bound_ms']:.4f} ms by {sb['bound_by']}); plain "
           f"{plain_ms:.1f} ms; rec.steps total primary {steps} shadow "
           f"{ssteps}")
@@ -1136,24 +1193,27 @@ def _render_target(truth, o, d, settings, S):
             for i in range(0, o.shape[0], CHUNK)])
 
 
-def _grads(model_tabs, plain, o, d, settings, S, lights=None, target=None,
+def _grads(tab, plain, o, d, settings, S, lights=None, target=None,
            cot=None, tc=None):
-    """Loss (or colour) and gradients to the Morton tables through the
-    kernel path, or through the kernels' plain versions."""
+    """Loss (or colour) and the gradient to the Morton table's four
+    channels (sigma, r, g, b) through the kernel path, or through the
+    kernels' plain versions."""
     import torch
 
+    from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                                 render_soft_rays_kernel)
-    from vxtpu_torch.train.loss import mse, tv_loss_morton
+    from vxtpu_torch.train.loss import mse, tv_prior_morton
 
-    ps = [t.detach().clone().requires_grad_(True) for t in model_tabs]
-    out = render_soft_rays_kernel(MortonSoftGrid(*ps), o, d, settings, S,
+    p = tab.detach().clone().requires_grad_(True)
+    out = render_soft_rays_kernel(MortonSoftGrid(p), o, d, settings, S,
                                   lights=lights, plain=plain)
     if target is not None:
-        loss = (mse(out, target) + tc.tv_sigma * tv_loss_morton(ps[0])
-                + tc.tv_rgb * tv_loss_morton(ps[1]))
-        return loss.detach(), torch.autograd.grad(loss, ps)
-    return out.detach(), torch.autograd.grad(out, ps, cot)
+        loss = mse(out, target) + tv_prior_morton(p, tc.tv_sigma, tc.tv_rgb)
+        g, = torch.autograd.grad(loss, [p])
+        return loss.detach(), kc.channels(g)
+    g, = torch.autograd.grad(out, [p], cot)
+    return out.detach(), kc.channels(g)
 
 
 def _device_us(e) -> float:
@@ -1163,10 +1223,11 @@ def _device_us(e) -> float:
 
 def _profile_step(step, device, big, steps=2):
     """One profiled window of ``steps`` steps (torch.profiler): device time
-    per step (ms) by kernel name, the device time of the aten ops whose
+    per step (ms) by kernel name; the device time of the aten ops whose
     inputs have >= ``big`` elements (work on the dense [D^3] tables other
-    than Adam's: zero-fills, gradient accumulation, copies), and the wall
-    time per step."""
+    than Adam's: zero-fills, gradient accumulation, copies, the TV
+    prior), as op -> (ms, the most dimensions of its inputs); and the
+    wall time per step."""
     import math
 
     import torch
@@ -1200,26 +1261,30 @@ def _profile_step(step, device, big, steps=2):
         if _device_us(e) and any(sh and math.prod(sh) >= big
                                  for sh in shapes):
             key = f"{e.key} {shapes}"
-            dense[key] = dense.get(key, 0.0) + _device_us(e) / 1e3 / steps
+            ms = dense.get(key, (0.0, 0))[0] + _device_us(e) / 1e3 / steps
+            dense[key] = (ms, max(len(sh) for sh in shapes))
     return kernels, dense, wall
 
 
-def _group_kernels(kernels: dict, dense: float) -> dict:
-    """Device ms per step by part: K3, K4 (its scatter, and its transpose
-    and ray sums where they run), Adam (its multi-tensor kernels), the
-    dense-table glue (K4's zero-fill among it), and the rest (the [S, N]
-    math of render_soft_rays_kernel and its autograd)."""
+def _group_kernels(kernels: dict, dense: dict) -> dict:
+    """Device ms per step by part: K3, K4 (its scatter, and its ray sums
+    where they run), Adam (its multi-tensor kernels), the TV prior (the
+    dense ops on its [D^3/8, 2, 2, 2, 4] view of the table, forward and
+    backward: the only inputs of 4 or more dimensions in a step), the
+    other dense-table glue (K4's zero-fill, gradient accumulation), and
+    the rest (the [S, N] math of render_soft_rays_kernel and its
+    autograd)."""
+    tv = sum(ms for ms, ndim in dense.values() if ndim >= 4)
+    glue = sum(ms for ms, ndim in dense.values() if ndim < 4)
     groups = {"K3 sample_fwd_kernel": 0.0, "K4 sample_bwd_kernel": 0.0,
-              "K4 grad_transpose_kernel": 0.0, "Adam": 0.0,
-              "dense-table glue": dense, "[S,N] math": -dense}
+              "Adam": 0.0, "TV prior": tv, "dense-table glue": glue,
+              "[S,N] math": -(tv + glue)}
     for name, ms in kernels.items():
         low = name.lower()
         if "sample_fwd_kernel" in name:
             groups["K3 sample_fwd_kernel"] += ms
         elif "sample_bwd_kernel" in name or "sample_ray_sum_kernel" in name:
             groups["K4 sample_bwd_kernel"] += ms
-        elif "grad_transpose_kernel" in name:
-            groups["K4 grad_transpose_kernel"] += ms
         elif "adam" in low or "multi_tensor" in low:
             groups["Adam"] += ms
         else:
@@ -1253,11 +1318,11 @@ def sample_bounds(n, S, D, active_samples, touched, lit=False,
     """Least times (ms) of K3 and K4 for one call: the larger of the bytes
     each must move over the HBM rate and its float32 operations over the
     float32 peak. Each input is read once and each output written once:
-    K3 reads the rays (32 B each) and the table words its samples touch (4
-    tables), and writes nout [S, N] planes; K4 reads the rays and nout
-    [S, N] cotangent planes and writes the dense [4, D^3] gradient, and
-    with ``ray_grads`` also reads the touched words and writes the ray
-    cotangents (32 B each)."""
+    K3 reads the rays (32 B each) and the table rows its samples touch
+    (16 B each: four channels, whatever their layout), and writes nout
+    [S, N] planes; K4 reads the rays and nout [S, N] cotangent planes and
+    writes the dense [D^3, 4] gradient, and with ``ray_grads`` also reads
+    the touched rows and writes the ray cotangents (32 B each)."""
     nout = 7 if lit else 4
     fwd_bytes = n * 32 + 4 * 4 * touched + nout * S * n * 4
     bwd_bytes = n * 32 + nout * S * n * 4 + 4 * 4 * D ** 3
@@ -1330,13 +1395,12 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
           f"(the first includes the Morton conversion); median of steps "
           f"2..{steps} {statistics.median(step_ms[1:]):.3f} ms; peak memory "
           f"{peak:.2f} GiB")
-    if device.type == "cuda" and not (
-            launches["sample_fwd_kernel"] == steps
-            and launches[BWD[False]] == steps and launches[BWD[True]] == 0
-            and launches["sample_ray_sum_kernel"] == 0
-            and launches["grad_transpose_kernel"] == steps):
+    if device.type == "cuda" and launches != {
+            "sample_fwd_kernel": steps, BWD[False]: steps, BWD[True]: 0,
+            "sample_ray_sum_kernel": 0}:
         raise AssertionError(f"the train steps did not run K3 and K4's pure "
-                             f"scatter once each a step: {launches}")
+                             f"scatter once each a step, and nothing else "
+                             f"of K4's: {launches}")
     _check_losses(losses)
 
     # the kRayGrads variant's own path: fit_soft refining the camera pose,
@@ -1354,8 +1418,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
           f"{cam_launches}; losses {cam_losses}; pose moved {moved:.3g}")
     if device.type == "cuda" and not (
             cam_launches[BWD[True]] == 2 and cam_launches[BWD[False]] == 0
-            and cam_launches["sample_ray_sum_kernel"] == 2
-            and cam_launches["grad_transpose_kernel"] == 2):
+            and cam_launches["sample_ray_sum_kernel"] == 2):
         raise AssertionError(f"the camera refinement did not run K4 with "
                              f"kRayGrads: {cam_launches}")
     if not moved > 0.0:
@@ -1364,12 +1427,11 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
 
     # measurement and comparison with the plain versions (not counted)
     err = {}
-    m = MortonSoftGrid.from_soft(fitted)
-    tabs_fit = (m.sigma_tab, m.rgb_tab)
-    del fitted, m
+    tab_fit = MortonSoftGrid.from_soft(fitted).tab
+    del fitted
     tflat = target.reshape(-1, 3)
-    lk, gk = _grads(tabs_fit, False, o, d, settings, S, target=tflat, tc=tc)
-    lp, gp = _grads(tabs_fit, True, o, d, settings, S, target=tflat, tc=tc)
+    lk, gk = _grads(tab_fit, False, o, d, settings, S, target=tflat, tc=tc)
+    lp, gp = _grads(tab_fit, True, o, d, settings, S, target=tflat, tc=tc)
     ex = kc.grads_excess(gk, gp)
     rel = abs(float(lk) - float(lp)) / abs(float(lp))
     print(f"phase 6 train: one step at the fitted state, kernels vs plain "
@@ -1384,15 +1446,12 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
 
     light = Lights.single((0.2 * D, -0.3 * D, 1.4 * D), intensity=2.0,
                           device=device)
-    m = MortonSoftGrid.from_soft(truth)
-    truth_tabs = (m.sigma_tab, m.rgb_tab)
-    del truth, m
+    tab = MortonSoftGrid.from_soft(truth).tab
+    del truth
     g = torch.Generator().manual_seed(0)
     cot = torch.randn(h * w, 3, generator=g).to(device)
-    rk, gk = _grads(truth_tabs, False, o, d, settings, S, lights=light,
-                    cot=cot)
-    rp, gp = _grads(truth_tabs, True, o, d, settings, S, lights=light,
-                    cot=cot)
+    rk, gk = _grads(tab, False, o, d, settings, S, lights=light, cot=cot)
+    rp, gp = _grads(tab, True, o, d, settings, S, lights=light, cot=cot)
     lit_ex = kc.grads_excess(gk, gp)
     lit_d = float((rk - rp).abs().max())
     print(f"phase 6 train: lit render_soft_rays_kernel at {D}^3, {h}x{w}, "
@@ -1405,12 +1464,11 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     del gk, gp
 
     # K3 and both K4 variants alone at the main path's shape, on the
-    # truth's tables
-    tabs = tuple(t.contiguous() for t in (truth_tabs[0], *truth_tabs[1]))
+    # truth's table
     st, sdt, _ = _enter_dt_soft(o, d, dims, S, None)
     st, sdt = st.contiguous(), sdt.contiguous()
-    got = ks.sample_fields_fwd(tabs, o, d, st, sdt, S, D)
-    want = ks.sample_fields_fwd_reference(tabs, o, d, st, sdt, S, D)
+    got = ks.sample_fields_fwd(tab, o, d, st, sdt, S, D)
+    want = ks.sample_fields_fwd_reference(tab, o, d, st, sdt, S, D)
     err["sample_fwd_kernel"] = max(float((a - b).abs().max())
                                    for a, b in zip(got, want))
     if err["sample_fwd_kernel"] > kc.FWD_ATOL:
@@ -1419,14 +1477,14 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     del got, want
     cots = tuple(torch.randn(S, h * w, generator=g).to(device)
                  for _ in range(4))
-    args = (tabs, o, d, st, sdt, cots, D)
+    args = (tab, o, d, st, sdt, cots, D)
     times = {}
     for rg in (False, True):
         kb = ks.sample_grads(*args, ray_grads=rg)
         kb2 = ks.sample_grads(*args, ray_grads=rg)
         pb = ks.sample_fields_bwd_reference(*args, ray_grads=rg)
-        tab_ex = kc.grads_excess(kb[0], pb[0])
-        rerun = kc.grads_excess(kb2[0], kb[0])
+        tab_ex = kc.grads_excess(kc.channels(kb[0]), kc.channels(pb[0]))
+        rerun = kc.grads_excess(kc.channels(kb2[0]), kc.channels(kb[0]))
         unequal = sum(int((a != b).sum()) for a, b in zip(kb[1:], pb[1:])
                       if a is not None)
         unequal2 = sum(int((a != b).sum()) for a, b in zip(kb2[1:], kb[1:])
@@ -1447,17 +1505,17 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
                                  f"differs from its plain version")
         del kb, kb2, pb
     times["sample_fwd_kernel"] = dict(
-        ms=median_ms(lambda: ks.sample_fields_fwd(tabs, o, d, st, sdt, S, D),
+        ms=median_ms(lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S, D),
                      device, runs),
         plain_ms=median_ms(lambda: ks.sample_fields_fwd_reference(
-            tabs, o, d, st, sdt, S, D), device, 3))
+            tab, o, d, st, sdt, S, D), device, 3))
     for rg in (False, True):
         times[BWD[rg]] = dict(
             ms=median_ms(lambda: ks.sample_grads(*args, ray_grads=rg),
                          device, runs),
             plain_ms=median_ms(lambda: ks.sample_fields_bwd_reference(
                 *args, ray_grads=rg), device, 3))
-    lib = library_yardstick(tabs, o, d, st, sdt, S, D, cots, device, runs)
+    lib = library_yardstick(tab, o, d, st, sdt, S, D, cots, device, runs)
     times["sample_fwd_kernel"]["library_ms"] = lib["fwd_ms"]
     times[BWD[False]]["library_ms"] = lib["bwd_vol_ms"]
     times[BWD[True]]["library_ms"] = lib["bwd_ms"]
@@ -1469,13 +1527,11 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     chunks = -(-S // ks.RAY_CHUNK)
     times["sample_ray_sum_kernel"] = ray_sum_times(h * w, chunks, device,
                                                    runs)
-    times["grad_transpose_kernel"] = transpose_times(D ** 3, device, runs)
-    err["grad_transpose_kernel"] = times["grad_transpose_kernel"].pop("err")
     if device.type == "cuda":
         from vxtpu_torch.render.probe import device_ms
 
         times["sample_fwd_kernel"]["device_ms"] = device_ms(
-            lambda: ks.sample_fields_fwd(tabs, o, d, st, sdt, S, D), runs,
+            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S, D), runs,
             "sample_fwd_kernel")
         for rg in (False, True):
             times[BWD[rg]]["device_ms"] = device_ms(
@@ -1484,8 +1540,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     for k, b in (("sample_fwd_kernel", bounds["fwd"]),
                  (BWD[False], bounds_scatter["bwd"]),
                  (BWD[True], bounds["bwd"]),
-                 ("sample_ray_sum_kernel", ray_sum_bound(h * w, chunks)),
-                 ("grad_transpose_kernel", _bound(2 * 16 * D ** 3, 0))):
+                 ("sample_ray_sum_kernel", ray_sum_bound(h * w, chunks))):
         times[k].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         lib_ms = times[k]["library_ms"]
         print(f"phase 6 train: {k} alone at N = {h * w}, S = {S}: "
@@ -1498,9 +1553,8 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
               f"{active} active samples)")
 
     # where a step's time goes (profiler device times)
-    model = MortonSoftGrid(*[t.detach().clone().requires_grad_(True)
-                             for t in tabs_fit])
-    opt = loop.make_optimizer(tc, [model.sigma_tab, model.rgb_tab])
+    model = MortonSoftGrid(tab_fit.detach().clone().requires_grad_(True))
+    opt = loop.make_optimizer(tc, [model.tab])
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -1510,14 +1564,15 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
 
     if device.type == "cuda":
         kernels, dense, wall = _profile_step(step, device, big=D ** 3)
-        groups = _group_kernels(kernels, sum(dense.values()))
+        groups = _group_kernels(kernels, dense)
         busy = sum(kernels.values())
         print(f"phase 6 train: profiled step: wall {wall:.3f} ms, device "
               f"busy {busy:.3f} ms ({busy / wall * 100:.1f}%); by group "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
         for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
             print(f"phase 6 train:   kernel {ms:8.3f} ms  {name[:90]}")
-        for name, ms in sorted(dense.items(), key=lambda kv: -kv[1])[:6]:
+        for name, (ms, _) in sorted(dense.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
             print(f"phase 6 train:   dense op {ms:8.3f} ms  {name[:90]}")
         times["profile"] = dict(groups=groups, wall_ms=wall, busy_ms=busy)
     return {"launches": launches, "cam_launches": cam_launches, "err": err,
@@ -1558,38 +1613,7 @@ def ray_sum_times(n, chunks, device, runs) -> dict:
     return out
 
 
-def transpose_times(words, device, runs) -> dict:
-    """grad_transpose_kernel alone on a random [words, 4] gradient: its
-    device time (and the wrapper's by events), its plain version's and
-    Tensor.t().contiguous()'s (the library yardstick); the kernel must
-    equal the plain version."""
-    import torch
-
-    from vxtpu_torch.render import kernel_sample as ks
-
-    g = torch.Generator().manual_seed(5)
-    src = torch.randn(words, 4, generator=g).to(device)
-    got, want = ks.grad_transpose(src), ks.grad_transpose_reference(src)
-    if not torch.equal(got, want):
-        raise AssertionError("grad_transpose_kernel differs from its plain "
-                             "version")
-    err = float((got - want).abs().max())
-    del got, want
-    out = dict(err=err,
-               ms=median_ms(lambda: ks.grad_transpose(src), device, runs),
-               plain_ms=median_ms(lambda: ks.grad_transpose_reference(src),
-                                  device, runs),
-               library_ms=median_ms(lambda: src.t().contiguous(), device,
-                                    runs))
-    if device.type == "cuda":
-        from vxtpu_torch.render.probe import device_ms
-
-        out["device_ms"] = device_ms(lambda: ks.grad_transpose(src), runs,
-                                     "grad_transpose_kernel")
-    return out
-
-
-def library_yardstick(tabs, o, d, t0, dt, S, D, cots, device, runs) -> dict:
+def library_yardstick(tab, o, d, t0, dt, S, D, cots, device, runs) -> dict:
     """torch.nn.functional.grid_sample on the same samples: 5-D, bilinear
     (trilinear), align_corners=False, border padding, on a row-major
     [1, 4, D, D, D] volume; forward, its autograd backward to the volume
@@ -1604,7 +1628,9 @@ def library_yardstick(tabs, o, d, t0, dt, S, D, cots, device, runs) -> dict:
 
     from vxtpu_torch.render import kernel_sample as ks
 
-    vol = torch.stack([ks.field_from_morton(t, D) for t in tabs])[None]
+    sigma, rgb = ks.fields_from_interleaved(tab, D)
+    vol = torch.cat([sigma[None], rgb])[None]
+    del sigma, rgb
     _, px, py, pz = ks._positions(o, d, t0, dt, S)
     grid = (torch.stack([pz, py, px], dim=-1) * (2.0 / D) - 1.0)
     grid = grid[None, :, :, None, :].contiguous()          # [1,S,N,1,3]
@@ -1617,7 +1643,7 @@ def library_yardstick(tabs, o, d, t0, dt, S, D, cots, device, runs) -> dict:
     inside = ((px > 0.5) & (px < D - 0.5) & (py > 0.5) & (py < D - 0.5)
               & (pz > 0.5) & (pz < D - 0.5) & (dt > 0)[None, :])
     same = max(float((out[0, c, :, :, 0] - ks.sample_fields_fwd(
-        tabs, o, d, t0, dt, S, D)[c])[inside].abs().max()) for c in range(4))
+        tab, o, d, t0, dt, S, D)[c])[inside].abs().max()) for c in range(4))
     del out
     fwd_ms = median_ms(fwd, device, runs)
     cot = torch.stack(cots)[None, :, :, :, None]
@@ -1642,6 +1668,7 @@ def cross_train(device) -> dict:
     """The fit at 32^3 against the JAX package's loss trajectory (rtol
     1e-4), and K3 on fixed inputs against vxtpu's sample_fields_fwd
     checksums (each channel's sum within 1e-5 of its sum of |x|)."""
+    import numpy as np
     import torch
 
     from vxtpu_torch import kernel_check as kc
@@ -1678,15 +1705,15 @@ def cross_train(device) -> dict:
     if rel > 1e-4:
         raise AssertionError(f"the 32^3 fit differs from JAX's by rel {rel}")
     if device.type == "cuda" and not (ks.LAUNCHES["sample_fwd_kernel"]
-                                             and ks.LAUNCHES[BWD[False]]
-                                      and ks.LAUNCHES["grad_transpose_kernel"]):
+                                      and ks.LAUNCHES[BWD[False]]):
         raise AssertionError("the 32^3 fit did not run the kernels")
 
     sf = gold["sample_fwd"]
     fields, o, d, t0, dt, S = kc.golden_sample_inputs()
-    tabs = tuple(ks.build_field_morton(torch.from_numpy(f).to(device))
-                 for f in fields)
-    outs = ks.sample_fields_fwd(tabs, *(torch.from_numpy(x).to(device)
+    tab = ks.build_interleaved_morton(
+        torch.from_numpy(fields[0]).to(device),
+        torch.from_numpy(np.stack(fields[1:])).to(device))
+    outs = ks.sample_fields_fwd(tab, *(torch.from_numpy(x).to(device)
                                         for x in (o, d, t0, dt)), S,
                                 sf["D"], lit=sf["lit"])
     worst = 0.0
@@ -1705,9 +1732,9 @@ def k1_k2_bounds(times, h, w, n_lights=1) -> dict:
     alone). Bytes: each ray's inputs (o, d: 24 B) and outputs (K1: hit,
     t, voxel, normal, steps, rgb = 45 B; K2 reads hit, t, voxel, normal
     and the visibility and writes rgb), plus one material word per hit
-    ray. The occupancy words each march reads are not counted (so this is
-    a lower bound). Operations: MARCH_OPS_RAY per ray and MARCH_OPS_STEP
-    per DDA step."""
+    ray, and for K1 the distinct int16 occupancy words its marches read
+    (counted on the plain march; without them, ``bound_rays_only_ms``). Operations: MARCH_OPS_RAY per ray and
+    MARCH_OPS_STEP per DDA step."""
     n = h * w
     lam = times["lambert"]
     k1_bytes = n * (24 + 45) + lam["hits"] * 4
@@ -1715,13 +1742,13 @@ def k1_k2_bounds(times, h, w, n_lights=1) -> dict:
     comp = times["full_shadows_fog_composed"]
     k2_bytes = n * (24 + 29 + 4 * n_lights + 12) + comp["hits"] * 4
     k2_ops = n * MARCH_OPS_RAY * (1 + n_lights)
-    out = {}
-    for k, b, f in (("march_shade_kernel", k1_bytes, k1_ops),
-                    ("shade_kernel", k2_bytes, k2_ops)):
-        tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
-        out[k] = dict(bound_ms=max(tb, tf),
-                      bound_by="bytes" if tb >= tf else "operations")
-    return out
+    k1 = _bound(k1_bytes + 2 * lam["table_words"], k1_ops)
+    return {"march_shade_kernel": dict(
+                bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+                bound_rays_only_ms=_bound(k1_bytes, k1_ops)["bound_ms"],
+                table_words=lam["table_words"]),
+            "shade_kernel": {k: v for k, v in _bound(k2_bytes, k2_ops).items()
+                             if k.startswith("bound")}}
 
 
 def main(argv=None) -> int:
@@ -1766,6 +1793,7 @@ def main(argv=None) -> int:
          "max_abs_err": max(err3["shade_kernel"],
                             main_run["err"]["shade_kernel"]),
          "ms": times["shade_kernel"]["ms"],
+         "device_ms": times["shade_kernel"].get("device_ms"),
          "plain_ms": times["shade_kernel"]["plain_ms"],
          **bounds["shade_kernel"], "library_ms": None},
     ]
@@ -1776,9 +1804,7 @@ def main(argv=None) -> int:
             (BWD[False], "434", train["launches"]),
             (BWD[True], "434", train["cam_launches"]),
             ("sample_ray_sum_kernel", "434 (its per-ray sums)",
-             train["cam_launches"]),
-            ("grad_transpose_kernel", "434 (its gradient tables' layout)",
-             train["launches"])):
+             train["cam_launches"])):
         kernels.append({
             "name": k, "route": "cuda",
             "source": "vxtpu_torch/csrc/sample.cu",
@@ -1797,7 +1823,9 @@ def main(argv=None) -> int:
         "launches": pipe["launches"]["march_packed_kernel"],
         "max_abs_err": pipe["err"], "ms": pt["ms"],
         "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
-        "bound_by": pt["bound_by"], "library_ms": None})
+        "bound_by": pt["bound_by"],
+        "bound_rays_only_ms": pt["bound_rays_only_ms"],
+        "table_words": pt["table_words"], "library_ms": None})
     rt = resume["times"]
     kernels.append({
         "name": "march_resume_kernel", "route": "cuda",

@@ -76,8 +76,7 @@ def test_sample_kernels_match_plain(cuda, name):
     assert ks.LAUNCHES == {"sample_fwd_kernel": 1,
                            "sample_bwd_kernel<kRayGrads=false>": 0 if rg else 2,
                            "sample_bwd_kernel<kRayGrads=true>": 2 if rg else 0,
-                           "sample_ray_sum_kernel": 2 if rg else 0,
-                           "grad_transpose_kernel": 2}
+                           "sample_ray_sum_kernel": 2 if rg else 0}
 
 
 def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
@@ -93,11 +92,9 @@ def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
         raise AssertionError("plain version called for CUDA tensors")
 
     for name in ("sample_fields_fwd_reference", "sample_fields_bwd_reference",
-                 "ray_sums_reference", "grad_transpose_reference"):
+                 "ray_sums_reference"):
         monkeypatch.setattr(ks, name, boom)
-    tabs = kc.sample_fields(16, cuda)
-    m = MortonSoftGrid(tabs[0].clone().requires_grad_(True),
-                       torch.stack(tabs[1:]).requires_grad_(True))
+    m = MortonSoftGrid(kc.sample_fields(16, cuda).requires_grad_(True))
     o, d = kc.sample_rays("outside", 16, 256, cuda)
     ks.reset_launch_counts()
     for ray_grad in (False, True):
@@ -106,21 +103,20 @@ def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
         rgb.sum().backward()
         torch.cuda.synchronize()
         assert bool(torch.isfinite(rgb).all())
-        assert bool(torch.isfinite(m.sigma_tab.grad).all())
+        assert bool(torch.isfinite(m.tab.grad).all())
         assert (ot.grad is not None) == ray_grad
         if ray_grad:
             assert bool(torch.isfinite(ot.grad).all())
     assert ks.LAUNCHES == {"sample_fwd_kernel": 2,
                            "sample_bwd_kernel<kRayGrads=false>": 1,
                            "sample_bwd_kernel<kRayGrads=true>": 1,
-                           "sample_ray_sum_kernel": 1,
-                           "grad_transpose_kernel": 2}
+                           "sample_ray_sum_kernel": 1}
 
 
 def test_sample_bwd_refuses_another_chunk_length(cuda, monkeypatch):
     """The wrapper passes RAY_CHUNK to the kRayGrads kernel, which refuses
     any length but its own (the scratch is sized from RAY_CHUNK)."""
-    tabs = kc.sample_fields(16, cuda)
+    tab = kc.sample_fields(16, cuda)
     o, d = kc.sample_rays("outside", 16, 256, cuda)
     t0 = torch.zeros(256, device=cuda)
     dt = torch.ones(256, device=cuda)
@@ -128,8 +124,8 @@ def test_sample_bwd_refuses_another_chunk_length(cuda, monkeypatch):
     monkeypatch.setattr(ks, "RAY_CHUNK", ks.RAY_CHUNK // 2)
     ks.reset_launch_counts()
     with pytest.raises(RuntimeError, match="kRayGrads=true"):
-        ks.sample_grads(tabs, o, d, t0, dt, cots, 16, ray_grads=True)
-    ks.sample_grads(tabs, o, d, t0, dt, cots, 16, ray_grads=False)
+        ks.sample_grads(tab, o, d, t0, dt, cots, 16, ray_grads=True)
+    ks.sample_grads(tab, o, d, t0, dt, cots, 16, ray_grads=False)
     torch.cuda.synchronize()
     assert ks.LAUNCHES["sample_bwd_kernel<kRayGrads=true>"] == 0
     assert ks.LAUNCHES["sample_bwd_kernel<kRayGrads=false>"] == 1
@@ -143,26 +139,58 @@ def test_ray_gradients_run_the_ray_grads_variant(cuda):
     from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                                 render_soft_rays_kernel)
 
-    tabs = kc.sample_fields(16, cuda)
+    tab = kc.sample_fields(16, cuda)
     o, d = kc.sample_rays("outside", 16, 256, cuda)
     grads = []
     for plain in (False, True):
-        m = MortonSoftGrid(tabs[0].clone().requires_grad_(True),
-                           torch.stack(tabs[1:]).requires_grad_(True))
+        m = MortonSoftGrid(tab.clone().requires_grad_(True))
         ot, dt = o.clone().requires_grad_(True), d.clone().requires_grad_(True)
         ks.reset_launch_counts()
         rgb = render_soft_rays_kernel(m, ot, dt, RenderSettings(shading="flat"),
                                       20, plain=plain)
-        grads.append(torch.autograd.grad(rgb.sum(), [m.sigma_tab, m.rgb_tab,
-                                                     ot, dt]))
+        gtab, go, gd = torch.autograd.grad(rgb.sum(), [m.tab, ot, dt])
+        grads.append([*kc.channels(gtab), go, gd])
         assert ks.LAUNCHES == {
             "sample_fwd_kernel": 0 if plain else 1,
             "sample_bwd_kernel<kRayGrads=false>": 0,
             "sample_bwd_kernel<kRayGrads=true>": 0 if plain else 1,
-            "sample_ray_sum_kernel": 0 if plain else 1,
-            "grad_transpose_kernel": 0 if plain else 1}
+            "sample_ray_sum_kernel": 0 if plain else 1}
     torch.cuda.synchronize()
     assert kc.grads_excess(grads[0], grads[1]) <= 1.0
+
+
+def test_sample_wrappers_refuse_a_misaligned_table(cuda):
+    """The kernels read the table's rows as float4: a table that does not
+    start on a 16-byte boundary raises before any launch."""
+    D = 16
+    tab = torch.zeros(D ** 3 * 4 + 1, device=cuda)[1:].view(D ** 3, 4)
+    o, d = kc.sample_rays("outside", D, 256, cuda)
+    t0, dt = torch.zeros(256, device=cuda), torch.ones(256, device=cuda)
+    ks.reset_launch_counts()
+    with pytest.raises(ValueError, match="aligned"):
+        ks.sample_fields_fwd(tab, o, d, t0, dt, 4, D)
+    with pytest.raises(ValueError, match="aligned"):
+        ks.sample_grads(tab, o, d, t0, dt, tuple(
+            torch.ones(4, 256, device=cuda) for _ in range(4)), D)
+    assert not any(ks.LAUNCHES.values())
+
+
+def test_save_checkpoint_extra_cuda_tensor(cuda, tmp_path):
+    """An extra that is a CUDA tensor requiring grad (vxtpu's config 5
+    saves its device-side camera offset so) is saved as its values."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.render.soft import SoftGrid
+    from vxtpu_torch.train import checkpoint
+
+    cam_off = torch.tensor([0.5, -1.25, 2.0], device=cuda,
+                           requires_grad=True) * 1.0
+    path = str(tmp_path / "extra.npz")
+    checkpoint.save_checkpoint(path, SoftGrid.zeros((8, 8, 8), device=cuda),
+                               Camera.make(pos=(1.0, 2.0, 3.0), device=cuda),
+                               2, extra={"cam_off": cam_off})
+    _, _, step, extra = checkpoint.load_checkpoint(path, device=cuda)
+    assert step == 2
+    assert extra["cam_off"].tolist() == [0.5, -1.25, 2.0]
 
 
 @pytest.mark.parametrize("name", kc.PACKED_CASES)

@@ -67,8 +67,9 @@ def fields(seed=1):
     return sig, rgb
 
 
-def morton_tabs(sig, rgb):
-    return tuple(ks.build_field_morton(t(x)) for x in (sig, *rgb))
+def morton_tab(sig, rgb):
+    """The channel-interleaved Morton table [D^3, 4] of the fields."""
+    return ks.build_interleaved_morton(t(sig), t(rgb))
 
 
 def test_morton_tables_match_vxtpu():
@@ -110,7 +111,7 @@ def test_fwd_reference_matches_trilinear():
     t0, dt = segments(o, d, S)
     want = _jax_samples(*map(jnp.asarray, (sig, *rgb, o, d, t0, dt)), S,
                         jnp.asarray(dt > 0))
-    got = ks.sample_fields_fwd(morton_tabs(sig, rgb), t(o), t(d), t(t0),
+    got = ks.sample_fields_fwd(morton_tab(sig, rgb), t(o), t(d), t(t0),
                                t(dt), S, D, lit=True)
     assert len(got) == 7 and all(x.shape == (S, 1024) for x in got)
     assert (dt == 0).sum() >= 8
@@ -146,7 +147,7 @@ def test_bwd_reference_matches_jax_vjp(lit):
     _, vjp = jax.vjp(f, *map(jnp.asarray, (sig, *rgb, o, d, t0, dt)))
     want = vjp(tuple(jnp.asarray(c) for c in cots))
     gtabs, go, gd, gt0, gdt = ks.sample_fields_bwd(
-        morton_tabs(sig, rgb), t(o), t(d), t(t0), t(dt),
+        morton_tab(sig, rgb), t(o), t(d), t(t0), t(dt),
         tuple(t(c) for c in cots), D, lit=lit)
     # vxtpu's grid gradients, in Morton order
     want_tabs = [ks.build_field_morton(t(w)).numpy() for w in want[:4]]
@@ -162,14 +163,14 @@ def test_bwd_reference_matches_autograd_of_fwd_reference():
     cots = [t(c) for c in np.random.default_rng(5).normal(
         size=(7, S, 256)).astype(np.float32)]
     args = [x.requires_grad_(True) for x in
-            (*morton_tabs(sig, rgb), t(o), t(d), t(t0), t(dt))]
-    outs = ks.sample_fields_fwd_reference(tuple(args[:4]), *args[4:], S, D,
-                                          lit=True)
+            (morton_tab(sig, rgb), t(o), t(d), t(t0), t(dt))]
+    outs = ks.sample_fields_fwd_reference(*args, S, D, lit=True)
     want = torch.autograd.grad(outs, args, cots)
-    gtabs, go, gd, gt0, gdt = ks.sample_fields_bwd_reference(
-        tuple(x.detach() for x in args[:4]),
-        *[x.detach() for x in args[4:]], cots, D, lit=True)
-    _check_grads([*gtabs, go, gd, gt0, gdt], [w.numpy() for w in want],
+    gtab, go, gd, gt0, gdt = ks.sample_fields_bwd_reference(
+        *[x.detach() for x in args], cots, D, lit=True)
+    assert gtab.shape == (D ** 3, 4)
+    _check_grads([*gtab.t(), go, gd, gt0, gdt],
+                 [*want[0].t().numpy(), *[w.numpy() for w in want[1:]]],
                  "autograd")
 
 
@@ -196,7 +197,7 @@ def pallas_lit():
 
 def test_fwd_reference_matches_pallas_kernel(pallas_lit):
     c = pallas_lit
-    got = ks.sample_fields_fwd(morton_tabs(c["sig"], c["rgb"]), t(c["o"]),
+    got = ks.sample_fields_fwd(morton_tab(c["sig"], c["rgb"]), t(c["o"]),
                                t(c["d"]), t(c["t0"]), t(c["dt"]), c["S"], D,
                                lit=True)
     # vxtpu's kernel fetches through a 3-way bf16 split of the tables; in
@@ -207,7 +208,7 @@ def test_fwd_reference_matches_pallas_kernel(pallas_lit):
 def test_bwd_reference_matches_pallas_kernel(pallas_lit):
     c = pallas_lit
     gtabs, go, gd, gt0, gdt = ks.sample_fields_bwd(
-        morton_tabs(c["sig"], c["rgb"]), t(c["o"]), t(c["d"]), t(c["t0"]),
+        morton_tab(c["sig"], c["rgb"]), t(c["o"]), t(c["d"]), t(c["t0"]),
         t(c["dt"]), tuple(t(x) for x in c["cots"]), D, lit=True)
     want = c["bwd"]
     _check_grads([g.numpy() for g in gtabs], [w.reshape(-1)
@@ -237,46 +238,45 @@ def test_render_soft_rays_kernel_matches_vxtpu(lit):
 
     m = soft_kernel.MortonSoftGrid.from_soft(
         soft.SoftGrid(sigma_raw=t(sig), rgb_raw=t(rgb)))
-    m = soft_kernel.MortonSoftGrid(m.sigma_tab.requires_grad_(True),
-                                   m.rgb_tab.requires_grad_(True))
+    m = soft_kernel.MortonSoftGrid(m.tab.requires_grad_(True))
     ot, dt_ = t(o).requires_grad_(True), t(d).requires_grad_(True)
     lights = convert.lights_from_numpy(*LIGHT, device=CPU) if lit else None
     ks.reset_launch_counts()
     out = soft_kernel.render_soft_rays_kernel(
         m, ot, dt_, RenderSettings(shading="lambert" if lit else "flat"), S,
         lights=lights)
-    gs, gc, go, gd = torch.autograd.grad(out, [m.sigma_tab, m.rgb_tab, ot,
-                                               dt_], t(cot))
+    gtab, go, gd = torch.autograd.grad(out, [m.tab, ot, dt_], t(cot))
     assert not any(ks.LAUNCHES.values())
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out),
                                atol=1e-5)
-    got = [ks.field_from_morton(gs, D).numpy(),
-           np.stack([ks.field_from_morton(gc[k], D).numpy()
-                     for k in range(3)]), go.numpy(), gd.numpy()]
+    gs, gc = ks.fields_from_interleaved(gtab, D)
+    got = [gs.numpy(), gc.numpy(), go.numpy(), gd.numpy()]
     _check_grads(got, [np.asarray(w) for w in want], "render")
 
 
 def test_wrappers_reject_bad_inputs():
     sig, rgb = fields()
-    tabs = morton_tabs(sig, rgb)
+    tab = morton_tab(sig, rgb)
     o, d = (t(x) for x in rays(8))
     t0 = torch.zeros(8)
     dt = torch.full((8,), 0.5)
     with pytest.raises(TypeError):
-        ks.sample_fields_fwd(tabs, o.double(), d, t0, dt, 4, D)
+        ks.sample_fields_fwd(tab, o.double(), d, t0, dt, 4, D)
     with pytest.raises(ValueError):
-        ks.sample_fields_fwd(tabs, o, d, t0[:4], dt, 4, D)
+        ks.sample_fields_fwd(tab, o, d, t0[:4], dt, 4, D)
     with pytest.raises(ValueError):
-        ks.sample_fields_fwd(tabs[:3], o, d, t0, dt, 4, D)
+        ks.sample_fields_fwd(tab[:, :3], o, d, t0, dt, 4, D)
     with pytest.raises(ValueError):
-        ks.sample_fields_fwd(tabs, o, d, t0, dt, 4, 12)
+        ks.sample_fields_fwd(tab.t().contiguous().t(), o, d, t0, dt, 4, D)
     with pytest.raises(ValueError):
-        ks.sample_fields_fwd(tabs, d.t().contiguous().t(), d, t0, dt, 4, D)
+        ks.sample_fields_fwd(tab, o, d, t0, dt, 4, 12)
+    with pytest.raises(ValueError):
+        ks.sample_fields_fwd(tab, d.t().contiguous().t(), d, t0, dt, 4, D)
     cots = tuple(torch.zeros(4, 8) for _ in range(4))
     with pytest.raises(ValueError):
-        ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit=True)
+        ks.sample_fields_bwd(tab, o, d, t0, dt, cots, D, lit=True)
     with pytest.raises(ValueError):
-        ks.sample_fields_bwd(tabs, o, d, t0, dt, cots[:3] + (
+        ks.sample_fields_bwd(tab, o, d, t0, dt, cots[:3] + (
             torch.zeros(3, 8),), D)
 
 
@@ -306,7 +306,7 @@ def test_scatter_only_backward_matches_jax_vjp(lit):
 
     _, vjp = jax.vjp(f, *map(jnp.asarray, (sig, *rgb, o, d, t0, dt)))
     want = vjp(tuple(jnp.asarray(c) for c in cots))
-    args = (morton_tabs(sig, rgb), t(o), t(d), t(t0), t(dt),
+    args = (morton_tab(sig, rgb), t(o), t(d), t(t0), t(dt),
             tuple(t(c) for c in cots), D, lit)
     full = ks.sample_fields_bwd(*args, ray_grads=True)
     scatter = ks.sample_fields_bwd(*args, ray_grads=False)
@@ -324,7 +324,7 @@ def test_sample_fields_bwd_tables_share_one_storage():
     t0, dt = segments(o, d, 6)
     cots = tuple(torch.ones(6, 64) for _ in range(4))
     for ray_grads in (False, True):
-        gtabs = ks.sample_fields_bwd(morton_tabs(sig, rgb), t(o), t(d),
+        gtabs = ks.sample_fields_bwd(morton_tab(sig, rgb), t(o), t(d),
                                      t(t0), t(dt), cots, D,
                                      ray_grads=ray_grads)[0]
         assert len(gtabs) == 4
@@ -354,8 +354,7 @@ def test_sample_fields_asks_for_ray_grads_exactly_when_rays_need_them(
     o, d = rays(64, seed=17)
     for o_grad, d_grad in ((False, False), (True, False), (False, True),
                            (True, True)):
-        params = [m.sigma_tab.clone().requires_grad_(True),
-                  m.rgb_tab.clone().requires_grad_(True)]
+        params = [m.tab.clone().requires_grad_(True)]
         ot = t(o).requires_grad_(o_grad)
         dt_ = t(d).requires_grad_(d_grad)
         out = soft_kernel.render_soft_rays_kernel(
@@ -389,32 +388,44 @@ def _select_into(var, root):
 
 def test_no_select_backward_of_rgb_tab_in_a_train_step():
     """A trainer step's graph (render_soft_rays_kernel + the Morton TV
-    prior) hands rgb_tab's gradient over whole: no SelectBackward of
-    rgb_tab, whose backward would zero-fill a [3, D^3] tensor per row."""
+    prior) hands the table's gradient over whole: the one parameter tab
+    (whose views rgb_tab and sigma_tab are) gets no SelectBackward, whose
+    backward would zero-fill a table-sized tensor, and the sampling
+    kernel's backward feeds its accumulator directly."""
     from vxtpu_torch.camera.camera import Camera
     from vxtpu_torch.train import loop
 
     sig, rgb = fields()
     m = soft_kernel.MortonSoftGrid.from_soft(
         soft.SoftGrid(sigma_raw=t(sig), rgb_raw=t(rgb)))
-    model = soft_kernel.MortonSoftGrid(m.sigma_tab.requires_grad_(True),
-                                       m.rgb_tab.requires_grad_(True))
+    model = soft_kernel.MortonSoftGrid(m.tab.requires_grad_(True))
     cam = Camera.make(pos=(-0.7 * D, 0.5 * D, 1.1 * D), device=CPU).look_at(
         (0.5 * D, 0.5 * D, 0.27 * D))
     o, d = rays(64, seed=18)
     cfg = loop.TrainConfig(field_kernel=True, num_samples=8)
     loss = loop._loss_fn(model, cam, t(o), t(d), torch.zeros(64, 3), (8, 8),
                          RenderSettings(), cfg)
-    assert _select_into(model.rgb_tab, loss.grad_fn) == []
-    assert _select_into(model.sigma_tab, loss.grad_fn) == []
+    assert _select_into(model.tab, loss.grad_fn) == []
+    feeders, stack, done = [], [loss.grad_fn], set()
+    while stack:
+        node = stack.pop()
+        if node is None or node in done:
+            continue
+        done.add(node)
+        for nxt, _ in node.next_functions:
+            if getattr(nxt, "variable", None) is model.tab:
+                feeders.append(type(node).__name__)
+            stack.append(nxt)
+    assert "SampleFieldsBackward" in feeders
     loss.backward()
-    assert model.rgb_tab.grad.shape == (3, D ** 3)
+    assert model.tab.grad.shape == (D ** 3, 4)
 
 
 @pytest.mark.parametrize("lit", [False, True])
 def test_render_soft_rays_kernel_table_grads_match_vxtpu(lit):
     """With rays that need no gradient (the trainer's main path, the pure
-    scatter) the gradients to sigma_tab and rgb_tab match vxtpu's."""
+    scatter) the gradient to the table matches vxtpu's, channel by
+    channel."""
     sig, rgb = fields(seed=19)
     S = S_CHUNKED
     o, d = rays(256, seed=20)
@@ -433,27 +444,14 @@ def test_render_soft_rays_kernel_table_grads_match_vxtpu(lit):
     want = vjp(jnp.asarray(cot))
     m = soft_kernel.MortonSoftGrid.from_soft(
         soft.SoftGrid(sigma_raw=t(sig), rgb_raw=t(rgb)))
-    m = soft_kernel.MortonSoftGrid(m.sigma_tab.requires_grad_(True),
-                                   m.rgb_tab.requires_grad_(True))
+    m = soft_kernel.MortonSoftGrid(m.tab.requires_grad_(True))
     lights = convert.lights_from_numpy(*LIGHT, device=CPU) if lit else None
     out = soft_kernel.render_soft_rays_kernel(
         m, t(o), t(d), RenderSettings(shading="lambert" if lit else "flat"),
         S, lights=lights)
-    gs, gc = torch.autograd.grad(out, [m.sigma_tab, m.rgb_tab], t(cot))
-    got = [ks.field_from_morton(gs, D).numpy(),
-           np.stack([ks.field_from_morton(gc[k], D).numpy()
-                     for k in range(3)])]
+    gtab, = torch.autograd.grad(out, [m.tab], t(cot))
+    got = [x.numpy() for x in ks.fields_from_interleaved(gtab, D)]
     _check_grads(got, [np.asarray(w) for w in want], "render")
-
-
-def test_grad_transpose_plain_version():
-    src = torch.arange(40, dtype=torch.float32).reshape(10, 4)
-    assert torch.equal(ks.grad_transpose(src), src.t())
-    assert ks.grad_transpose(src).is_contiguous()
-    for bad in (torch.zeros(8, 3), torch.zeros(8, 4, dtype=torch.float64),
-                torch.zeros(4, 8).t()):
-        with pytest.raises(ValueError):
-            ks.grad_transpose(bad)
 
 
 def test_ray_sums_plain_version_adds_the_chunks_in_order():
@@ -485,7 +483,7 @@ def test_chunked_ray_sums_match_jax_vjp(S):
 
     _, vjp = jax.vjp(f, *map(jnp.asarray, (sig, *rgb, o, d, t0, dt)))
     want = vjp(tuple(jnp.asarray(c) for c in cots))
-    got = ks.sample_fields_bwd(morton_tabs(sig, rgb), t(o), t(d), t(t0),
+    got = ks.sample_fields_bwd(morton_tab(sig, rgb), t(o), t(d), t(t0),
                                t(dt), tuple(t(c) for c in cots), D)
     _check_grads(got[1:], want[4:], f"ray (S = {S})")
 
@@ -499,7 +497,7 @@ def test_scatter_only_tables_equal_ray_grads_tables(kind, lit):
     from vxtpu_torch import kernel_check as kc
 
     S, n = S_CHUNKED, 256
-    tabs = kc.sample_fields(D, CPU)
+    tab = kc.sample_fields(D, CPU)
     o, d = kc.sample_rays(kind, D, n, CPU)
     t0, dt, _ = soft_kernel._enter_dt_soft(o, d, DIMS, S, None)
     if kind == "dt0":
@@ -507,7 +505,7 @@ def test_scatter_only_tables_equal_ray_grads_tables(kind, lit):
     g = torch.Generator().manual_seed(25)
     cots = tuple(torch.randn(S, n, generator=g) for _ in range(7 if lit
                                                                else 4))
-    args = (tabs, o, d, t0.contiguous(), dt.contiguous(), cots, D, lit)
+    args = (tab, o, d, t0.contiguous(), dt.contiguous(), cots, D, lit)
     full = ks.sample_grads(*args, ray_grads=True)
     scatter = ks.sample_grads(*args, ray_grads=False)
     assert scatter[1:] == (None, None, None, None)

@@ -125,8 +125,6 @@ def load() -> ctypes.CDLL:
     lib.vx_sample_bwd.restype = _I
     lib.vx_sample_ray_sum.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P]
     lib.vx_sample_ray_sum.restype = _I
-    lib.vx_grad_transpose.argtypes = [_P, ctypes.c_int64, _P, _P]
-    lib.vx_grad_transpose.restype = _I
     lib.vx_error_string.argtypes = [_I]
     lib.vx_error_string.restype = ctypes.c_char_p
     return lib

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import json
 import os
 import time
@@ -303,7 +302,8 @@ def cmd_train(args) -> int:
                                               load_opt_state,
                                               save_checkpoint)
     from vxtpu_torch.train.loop import (TrainConfig, fit_soft,
-                                        fit_soft_views, init_opt_state)
+                                        fit_soft_views, init_opt_state,
+                                        state_params)
 
     device = resolve(args.device)
     cfg = CONFIGS[args.config]
@@ -334,11 +334,10 @@ def cmd_train(args) -> int:
         soft, _, start_step, _ = load_checkpoint(args.resume, device)
         tc = train_config(max(args.steps - start_step, 0),
                           cfg.seed + start_step)
-        # the field-kernel fit optimises Morton tables: its moments have
-        # their shapes
+        # the field-kernel fit optimises the Morton table: its moments
+        # are stored as vxtpu's planar tables
         model = MortonSoftGrid.from_soft(soft) if args.field_kernel else soft
-        tmpl = init_opt_state([[getattr(model, f.name)
-                                for f in dataclasses.fields(model)]])
+        tmpl = init_opt_state([state_params(model)])
         opt_state = load_opt_state(args.resume, tmpl, device)
 
     def log(i, loss):

@@ -122,20 +122,22 @@ def soft_grid_from_numpy(sigma_raw, rgb_raw, device=DEFAULT):
 
 def morton_soft_grid_from_numpy(sigma_tab_rows128, rgb_tab, device=DEFAULT):
     """vxtpu ``MortonSoftGrid`` tables ([rows, 128] and [3, rows, 128])
-    -> flat Morton tables [D^3] and [3, D^3]."""
+    -> the channel-interleaved Morton table [D^3, 4]."""
+    from vxtpu_torch.render.kernel_sample import interleave_tables
     from vxtpu_torch.render.soft_kernel import MortonSoftGrid
 
     device = resolve(device)
-    sig = np.asarray(sigma_tab_rows128, np.float32).reshape(-1)
-    rgb = np.asarray(rgb_tab, np.float32).reshape(3, -1)
-    return MortonSoftGrid(sigma_tab=torch.tensor(sig, device=device),
-                          rgb_tab=torch.tensor(rgb, device=device))
+    return MortonSoftGrid(tab=interleave_tables(
+        torch.tensor(np.asarray(sigma_tab_rows128, np.float32),
+                     device=device),
+        torch.tensor(np.asarray(rgb_tab, np.float32), device=device)))
 
 
 def adam_state_from_optax_leaves(leaves, template, device=DEFAULT):
     """optax adam state leaves (``jax.tree_util.tree_leaves`` of vxtpu's
     opt_state, as numpy arrays) -> the port's optimizer state, shaped like
-    ``template`` (``train.loop.init_opt_state`` of the fit's parameters)."""
+    ``template`` (``train.loop.init_opt_state`` of
+    ``train.loop.state_params`` of the fit's model)."""
     from vxtpu_torch.train.checkpoint import opt_state_from_leaves
 
     return opt_state_from_leaves([np.asarray(x) for x in leaves], template,

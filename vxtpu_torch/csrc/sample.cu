@@ -10,48 +10,49 @@
 //   sample_bwd_kernel  <- _sample_bwd_kernel (via sample_fields_bwd): the
 //                         same samples again, the cotangents times the
 //                         corner weights scatter-added into the gradient
-//                         of the four tables (sigma, r, g, b) and, with
-//                         kRayGrads, the per-ray cotangents of o, d, t0
-//                         and dt summed over the samples;
-//   sample_ray_sum_kernel  the second pass of those per-ray sums;
-//   grad_transpose_kernel  the gradient from the scatter's channel-
-//                         interleaved [D^3, 4] to the tables' [4, D^3].
+//                         of the table and, with kRayGrads, the per-ray
+//                         cotangents of o, d, t0 and dt summed over the
+//                         samples;
+//   sample_ray_sum_kernel  the second pass of those per-ray sums.
 // None of the TPU machinery carries over: no Morton row windows, no bf16
 // one-hot fetch, no pending-corner loop, no VMEM gradient window.
 //
-// What bounds them on this card: bytes. The forward writes 4 (lit: 7)
-// f32 planes of S x N and reads 32 table words per sample. The backward
-// reads those planes as cotangents and must write the dense [4, D^3]
-// gradient (2.1 GB at 512^3): at the c4 shape that is 0.72 ms of traffic,
-// against 268 MB of cotangents. What costs more than the traffic is the
-// scatter itself: each sample adds into the 8 words of its stencil, on
-// words a warp's lanes rarely share (neighbouring rays are ~3 voxels apart
-// at the c4 shape), each add a read-modify-write of a 32-byte sector in an
-// L2 that the 2.1 GB gradient mostly misses. Into four planar tables that
-// is 32 scalar atomics over ~13.5 sectors a sample: measured at the c4
-// shape, those atomics were ~85% of the first design's time and 11.6 ms
-// alone.
+// The table: one channel-interleaved [D^3, 4] float32 array in fine-voxel
+// Morton order, row m = (sigma, r, g, b) of the voxel whose Morton code is
+// m. It is the trainer's parameter itself, and its gradient has the same
+// shape, so neither kernel re-lays anything out.
+//
+// What bounds them on this card: bytes, and how many 32-byte sectors a
+// sample's 2x2x2 stencil spans. A stencil in Morton order touches ~3.4
+// aligned 8-word blocks on average; at the c4 shape neighbouring rays are
+// ~3 voxels apart and successive samples 2-3.5, so warps share almost no
+// sector, and the dense tables (2.1 GB at 512^3) mostly miss the 50 MB
+// L2. In four planar tables a sample read (or added) 32 scalar words over
+// ~13.5 sectors; in the interleaved table it is 8 float4 words over ~6
+// sectors, two voxels' four channels to a sector. The backward must also
+// write the dense gradient: 0.72 ms of traffic at the c4 shape, against
+// 268 MB of cotangents.
 // What the design does about it:
 //   * the forward runs one thread per (s, n) with output index s*N + n,
-//     so a warp's stores are contiguous; tables go through __ldg;
+//     so a warp's stores are contiguous; it reads its 8 corner rows as
+//     float4 through the read-only path (__ldg) and runs the four lerp
+//     ladders (and, lit, sigma's gradient ladder) from registers;
 //   * the backward is two compile-time variants of one kernel. The main
 //     path's rays carry no gradient (kRayGrads = false): a pure scatter,
 //     one thread per (s, n) as in the forward (16.7 M threads at the c4
 //     shape, not 65,536), that reads its cotangents coalesced, reads no
 //     table word and computes no ray cotangent. With kRayGrads (camera
 //     optimisation) a thread takes one ray and a chunk of kChunk samples,
-//     scatters them, sums its 8 ray terms over the chunk and writes them
-//     to a [chunks, 8, N] scratch; sample_ray_sum_kernel adds the chunks
-//     in chunk order, so the ray cotangents are deterministic and equal
-//     the plain version (which sums in the same order) bit for bit;
-//   * the scatter adds into a channel-interleaved [D^3, 4] scratch, one
-//     float4 atomicAdd (a vector RED, global memory, sm_90) per corner: 8
-//     a sample over ~6 sectors. grad_transpose_kernel then writes the
-//     gradient in the parameters' own layout, one [4, D^3] buffer
-//     (g_sigma = buf[0], g_rgb = buf[1:4]). Its 4.3 GB of traffic cost
-//     less than the scalar atomics it replaces: at the c4 shape the
-//     planar scatter (32 scalar atomics a sample into a zeroed [4, D^3])
-//     took 11.9 ms, this one 2.9 ms plus 1.4 ms for the transpose;
+//     scatters them, reads their corner rows as float4, sums its 8 ray
+//     terms over the chunk and writes them to a [chunks, 8, N] scratch;
+//     sample_ray_sum_kernel adds the chunks in chunk order, so the ray
+//     cotangents are deterministic and equal the plain version (which
+//     sums in the same order) bit for bit;
+//   * the scatter adds one float4 atomicAdd (a vector RED, global memory,
+//     sm_90) per corner straight into the zeroed [D^3, 4] gradient that
+//     becomes the parameter's: 8 a sample over ~6 sectors. At the c4
+//     shape the planar scatter (32 scalar atomics a sample) took 11.9 ms,
+//     this one 2.9 ms;
 //   * where lanes of a warp hit the same word (rays from one point, as an
 //     inside camera's first samples), they sum first and one atomic adds
 //     the run (scatter_corner): without it the float32 rounding of
@@ -239,9 +240,17 @@ __device__ __forceinline__ Runs warp_runs(int key, int lane) {
   return r;
 }
 
-struct Fields {
-  const float* __restrict__ tab[4];  // sigma, r, g, b: flat Morton [D^3]
-};
+// channel c (0..3: sigma, r, g, b) of a table row
+__device__ __forceinline__ float channel(const float4& w, int c) {
+  return c == 0 ? w.x : c == 1 ? w.y : c == 2 ? w.z : w.w;
+}
+
+// the 8 corner rows of a stencil, through the read-only path
+__device__ __forceinline__ void fetch_rows(const float4* __restrict__ tab,
+                                          const Stencil& st, float4* w) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) w[k] = __ldg(tab + st.code[k]);
+}
 
 struct Planes {
   float* __restrict__ p[7];  // [S, N] each; 4..6 (lit) the sigma gradient
@@ -259,7 +268,8 @@ constexpr int kChunk = 16;
 __global__ void __launch_bounds__(kThreads)
 sample_fwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ t0, const float* __restrict__ dt,
-                  int n, int S, Fields F, int D, int lit, Planes out) {
+                  int n, int S, const float4* __restrict__ tab, int D,
+                  int lit, Planes out) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)S * n) return;
   const int s = (int)(idx / n);
@@ -276,11 +286,13 @@ sample_fwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
   const float py = o[3 * i + 1] + t * d[3 * i + 1];
   const float pz = o[3 * i + 2] + t * d[3 * i + 2];
   const Stencil st = corner_setup(px, py, pz, D);
+  float4 w[8];
+  fetch_rows(tab, st, w);
   float v[8];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) v[k] = __ldg(F.tab[c] + st.code[k]);
+    for (int k = 0; k < 8; ++k) v[k] = channel(w[k], c);
     out.p[c][idx] = lerp_ladder(v, st.fx, st.fy, st.fz);
     if (c == 0 && lit) {
       float gx, gy, gz;
@@ -321,7 +333,8 @@ template <bool kRayGrads, bool kLit>
 __global__ void __launch_bounds__(kThreads)
 sample_bwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ t0, const float* __restrict__ dt,
-                  int n, int S, Fields F, int D, Cots cot,
+                  int n, int S, const float4* __restrict__ tab, int D,
+                  Cots cot,
                   float4* __restrict__ grad, float* __restrict__ part) {
   constexpr int nc = kLit ? 7 : 4;
   constexpr int per = kRayGrads ? kChunk : 1;
@@ -361,11 +374,13 @@ sample_bwd_kernel(const float* __restrict__ o, const float* __restrict__ d,
       }
       if constexpr (kRayGrads) {
         if (!live) continue;
+        float4 w[8];
+        fetch_rows(tab, st, w);
         float v[4][8];
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
 #pragma unroll
-          for (int k = 0; k < 8; ++k) v[c][k] = __ldg(F.tab[c] + st.code[k]);
+          for (int k = 0; k < 8; ++k) v[c][k] = channel(w[k], c);
         }
         float gfx = 0.0f, gfy = 0.0f, gfz = 0.0f;
 #pragma unroll
@@ -432,29 +447,16 @@ sample_ray_sum_kernel(const float* __restrict__ part, int n, int chunks,
   gdt[i] = acc[7];
 }
 
-// [words, 4] -> [4, words]: the gradient in the parameters' layout.
-__global__ void __launch_bounds__(kThreads)
-grad_transpose_kernel(const float4* __restrict__ src, int64_t words,
-                      float* __restrict__ dst) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= words) return;
-  const float4 v = src[i];
-  dst[i] = v.x;
-  dst[words + i] = v.y;
-  dst[2 * words + i] = v.z;
-  dst[3 * words + i] = v.w;
-}
-
 template <bool kRayGrads, bool kLit>
 int launch_bwd(const float* o, const float* d, const float* t0,
-               const float* dt, int n, int S, const Fields& F, int D,
+               const float* dt, int n, int S, const float4* tab, int D,
                const Cots& C, float4* grad, float* part,
                cudaStream_t stream) {
   const int64_t rows = kRayGrads ? ((int64_t)S + kChunk - 1) / kChunk : S;
   const int64_t blocks = (rows * n + kThreads - 1) / kThreads;
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
   sample_bwd_kernel<kRayGrads, kLit><<<(unsigned)blocks, kThreads, 0,
-                                       stream>>>(o, d, t0, dt, n, S, F, D, C,
+                                       stream>>>(o, d, t0, dt, n, S, tab, D, C,
                                                  grad, part);
   return (int)cudaGetLastError();
 }
@@ -463,48 +465,45 @@ int launch_bwd(const float* o, const float* d, const float* t0,
 
 // Plain C entry points (loaded with ctypes). Each launches its kernel on
 // `stream` and returns cudaGetLastError(); nothing here synchronises.
-// tabs: 4 device pointers; outs / cots: 4 (7 when lit) device pointers.
+// tab: the 16-byte aligned [D^3, 4] table; outs / cots: 4 (7 when lit)
+// device pointers.
 
 extern "C" int vx_sample_fwd(const float* o, const float* d, const float* t0,
-                             const float* dt, int n, int S,
-                             const float* const* tabs, int D, int lit,
-                             float* const* outs, cudaStream_t stream) {
-  Fields F;
+                             const float* dt, int n, int S, const float* tab,
+                             int D, int lit, float* const* outs,
+                             cudaStream_t stream) {
   Planes P;
-  for (int c = 0; c < 4; ++c) F.tab[c] = tabs[c];
   for (int c = 0; c < 7; ++c) P.p[c] = (c < 4 || lit) ? outs[c] : nullptr;
   const int64_t total = (int64_t)S * n;
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
   sample_fwd_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      o, d, t0, dt, n, S, F, D, lit, P);
+      o, d, t0, dt, n, S, reinterpret_cast<const float4*>(tab), D, lit, P);
   return (int)cudaGetLastError();
 }
 
-// grad: the zeroed channel-interleaved [D^3, 4] gradient; part: the
+// grad: the zeroed [D^3, 4] gradient of the table; part: the
 // [ceil(S / chunk), 8, n] scratch of the ray sums when ray_grads, else
 // unused (null). chunk: the caller's chunk length, which must be kChunk
 // (else cudaErrorInvalidValue, nothing launched).
 extern "C" int vx_sample_bwd(const float* o, const float* d, const float* t0,
                              const float* dt, int n, int S,
-                             const float* const* tabs, int D, int lit,
-                             int ray_grads, int chunk,
-                             const float* const* cots, float* grad4,
-                             float* part, cudaStream_t stream) {
+                             const float* tab4, int D, int lit, int ray_grads,
+                             int chunk, const float* const* cots,
+                             float* grad4, float* part, cudaStream_t stream) {
   if (ray_grads && chunk != kChunk) return (int)cudaErrorInvalidValue;
+  const float4* const tab = reinterpret_cast<const float4*>(tab4);
   float4* const grad = reinterpret_cast<float4*>(grad4);
-  Fields F;
   Cots C;
-  for (int c = 0; c < 4; ++c) F.tab[c] = tabs[c];
   for (int c = 0; c < 7; ++c) C.p[c] = (c < 4 || lit) ? cots[c] : nullptr;
   if (ray_grads)
-    return lit ? launch_bwd<true, true>(o, d, t0, dt, n, S, F, D, C, grad,
+    return lit ? launch_bwd<true, true>(o, d, t0, dt, n, S, tab, D, C, grad,
                                         part, stream)
-               : launch_bwd<true, false>(o, d, t0, dt, n, S, F, D, C, grad,
+               : launch_bwd<true, false>(o, d, t0, dt, n, S, tab, D, C, grad,
                                          part, stream);
-  return lit ? launch_bwd<false, true>(o, d, t0, dt, n, S, F, D, C, grad,
+  return lit ? launch_bwd<false, true>(o, d, t0, dt, n, S, tab, D, C, grad,
                                        part, stream)
-             : launch_bwd<false, false>(o, d, t0, dt, n, S, F, D, C, grad,
+             : launch_bwd<false, false>(o, d, t0, dt, n, S, tab, D, C, grad,
                                         part, stream);
 }
 
@@ -514,15 +513,5 @@ extern "C" int vx_sample_ray_sum(const float* part, int n, int chunks,
   const int blocks = (n + kThreads - 1) / kThreads;
   sample_ray_sum_kernel<<<blocks, kThreads, 0, stream>>>(part, n, chunks, go,
                                                          gd, gt0, gdt);
-  return (int)cudaGetLastError();
-}
-
-// src [words, 4] -> dst [4, words]
-extern "C" int vx_grad_transpose(const float* src, int64_t words, float* dst,
-                                 cudaStream_t stream) {
-  const int64_t blocks = (words + kThreads - 1) / kThreads;
-  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
-  grad_transpose_kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      reinterpret_cast<const float4*>(src), words, dst);
   return (int)cudaGetLastError();
 }

@@ -528,11 +528,18 @@ def grads_excess(got, want) -> float:
     return worst
 
 
+def channels(grad: torch.Tensor) -> tuple:
+    """A [D^3, 4] table (or its gradient) as its four channels sigma, r,
+    g, b: what grads_excess holds each to its own max |g|."""
+    return tuple(grad.t())
+
+
 def sample_fields(D, device, seed=0):
-    """Four random flat Morton tables [D^3] (sigma, r, g, b)."""
+    """A random channel-interleaved Morton table [D^3, 4] (sigma, r, g, b
+    drawn one after the other)."""
     g = torch.Generator().manual_seed(seed)
-    return tuple((torch.randn(D ** 3, generator=g) * s).to(device)
-                 for s in (2.0, 1.0, 1.0, 1.0))
+    return torch.stack([torch.randn(D ** 3, generator=g) * s
+                        for s in (2.0, 1.0, 1.0, 1.0)], dim=1).to(device)
 
 
 def sample_rays(kind, D, n, device, seed=1):
@@ -560,28 +567,30 @@ def sample_rays(kind, D, n, device, seed=1):
 def run_sample_case(name: str, device, D: int = 64, n: int = 16384,
                     S: int = 64) -> dict:
     """sample_fields_fwd / _bwd (the kernels) vs their plain versions on
-    one ray set; the backward also against a second kernel run. S = 64 is
+    one ray set, on the interleaved table of ``sample_fields``; the
+    backward also against a second kernel run. S = 64 is
     four chunks of the kRayGrads variant; its ray cotangents are held to
     the plain version bit for bit (``rays_unequal``)."""
     kind, mode, *variant = name.split("-")
     lit = mode == "lit"
     ray_grads = not variant
-    tabs = sample_fields(D, device)
+    tab = sample_fields(D, device)
     o, d = sample_rays(kind, D, n, device)
     t0, dt, _ = _enter_dt_soft(o, d, (D,) * 3, S, None)
     if kind == "dt0":
         dt = torch.where(torch.arange(n, device=device) % 4 == 1, 0.0, dt)
     t0, dt = t0.contiguous(), dt.contiguous()
-    got = ks.sample_fields_fwd(tabs, o, d, t0, dt, S, D, lit)
-    want = ks.sample_fields_fwd_reference(tabs, o, d, t0, dt, S, D, lit)
+    got = ks.sample_fields_fwd(tab, o, d, t0, dt, S, D, lit)
+    want = ks.sample_fields_fwd_reference(tab, o, d, t0, dt, S, D, lit)
     fwd_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     g = torch.Generator().manual_seed(2)
     cots = tuple(torch.randn(S, n, generator=g).to(device)
                  for _ in range(7 if lit else 4))
-    kb = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit, ray_grads)
-    kb2 = ks.sample_fields_bwd(tabs, o, d, t0, dt, cots, D, lit, ray_grads)
-    pb = ks.sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, D, lit,
+    kb = ks.sample_fields_bwd(tab, o, d, t0, dt, cots, D, lit, ray_grads)
+    kb2 = ks.sample_fields_bwd(tab, o, d, t0, dt, cots, D, lit, ray_grads)
+    pb = ks.sample_fields_bwd_reference(tab, o, d, t0, dt, cots, D, lit,
                                         ray_grads)
+    pb = (channels(pb[0]), *pb[1:])
     flat = [*kb[0], *kb[1:]] if ray_grads else [*kb[0]]
     flat2 = [*kb2[0], *kb2[1:]] if ray_grads else [*kb2[0]]
     flatp = [*pb[0], *pb[1:]] if ray_grads else [*pb[0]]

@@ -6,22 +6,25 @@ replaces the Pallas kernel ``_sample_fwd_kernel`` and
 kernels are hand-written CUDA C++ in ``vxtpu_torch/csrc/sample.cu``,
 built for sm_90a at first use.
 
-For ray n and sample s < S the forward takes p = o + (t0 + dt (s + 1/2)) d
-and samples four fields (sigma, r, g, b) trilinearly there, returning four
-[S, N] planes, and with ``lit`` three more: the spatial gradient of sigma.
-The backward walks the same samples again and scatter-adds the cotangents
-times the corner weights into one [4, D^3] gradient (rows sigma, r, g, b:
-the layout of ``MortonSoftGrid``'s sigma_tab and rgb_tab); with
-``ray_grads`` it also sums each ray's cotangents of o, d, t0 and dt, and
-without it (rays that need no gradient, the trainer's main path) it reads
-no table and computes none. Rays with dt == 0 give 0 in every channel
-and get no gradient. Gradients flow through the interpolation weights
-only: corner indices are constants, as in vxtpu.
+The four fields (sigma, r, g, b) live in one channel-interleaved table
+``tab``, float32 [D^3, 4]: row m holds the four values of the fine voxel
+(i, j, k) with ``morton3(i, j, k) == m`` (D a power of two). vxtpu keeps
+four planar tables in the same order as [D^3/128, 128] rows;
+``build_interleaved_morton`` / ``fields_from_interleaved`` and
+``interleave_tables`` / ``split_table`` convert.
 
-Tables are flat float32 [D^3] in fine-voxel Morton order (voxel (i,j,k) at
-``morton3(i, j, k)``), D a power of two; vxtpu keeps the same order as
-[D^3/128, 128] rows. Semantics are ``render/soft.trilinear`` /
-``trilinear_grad``, including their corner clamp (see ``soft._corners``).
+For ray n and sample s < S the forward takes p = o + (t0 + dt (s + 1/2)) d
+and samples the four fields trilinearly there, returning four [S, N]
+planes, and with ``lit`` three more: the spatial gradient of sigma. The
+backward walks the same samples again and scatter-adds the cotangents
+times the corner weights into a gradient of the table's own shape
+[D^3, 4]; with ``ray_grads`` it also sums each ray's cotangents of o, d,
+t0 and dt, and without it (rays that need no gradient, the trainer's
+main path) it reads no table and computes none. Rays with dt == 0 give 0
+in every channel and get no gradient. Gradients flow through the
+interpolation weights only: corner indices are constants, as in vxtpu.
+Semantics are ``render/soft.trilinear`` / ``trilinear_grad``, including
+their corner clamp (see ``soft._corners``).
 
 On a CUDA tensor the wrappers launch the kernels or raise; on a CPU tensor
 they run the plain versions, ``sample_fields_fwd_reference`` and
@@ -49,7 +52,7 @@ NCH = 4  # sigma, r, g, b
 # Each wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES = {"sample_fwd_kernel": 0, "sample_bwd_kernel<kRayGrads=false>": 0,
             "sample_bwd_kernel<kRayGrads=true>": 0,
-            "sample_ray_sum_kernel": 0, "grad_transpose_kernel": 0}
+            "sample_ray_sum_kernel": 0}
 
 # samples per thread of sample_bwd_kernel<kRayGrads=true>: its per-ray
 # sums run over s within each chunk, then over the chunks, and the plain
@@ -70,11 +73,58 @@ def build_field_morton(field: torch.Tensor) -> torch.Tensor:
     return _morton_order(field.to(torch.float32))
 
 
+def _morton_index(dim: int, device) -> torch.Tensor:
+    """int64 [dim^3]: the Morton code of each voxel in row-major order."""
+    r = torch.arange(dim, dtype=torch.int64, device=device)
+    return morton3(r[:, None, None], r[None, :, None],
+                   r[None, None, :]).reshape(-1)
+
+
 def field_from_morton(table: torch.Tensor, dim: int) -> torch.Tensor:
     """Inverse of build_field_morton: flat [dim^3] -> [dim, dim, dim]."""
-    r = torch.arange(dim, dtype=torch.int64, device=table.device)
-    mi = morton3(r[:, None, None], r[None, :, None], r[None, None, :])
-    return table.reshape(-1)[mi.reshape(-1)].reshape(dim, dim, dim)
+    return table.reshape(-1)[_morton_index(dim, table.device)].reshape(
+        dim, dim, dim)
+
+
+def build_interleaved_morton(sigma: torch.Tensor,
+                             rgb: torch.Tensor) -> torch.Tensor:
+    """sigma [D, D, D] and rgb [3, D, D, D] (D a power of two) -> the
+    channel-interleaved table float32 [D^3, 4], row morton3(i, j, k) =
+    (sigma, r, g, b) of voxel (i, j, k), on sigma's device."""
+    dim = sigma.shape[0]
+    _require_cubic_pow2(tuple(sigma.shape))
+    if tuple(rgb.shape) != (3, dim, dim, dim):
+        raise ValueError(f"rgb must be [3, {dim}, {dim}, {dim}], got "
+                         f"{tuple(rgb.shape)}")
+    mi = _morton_index(dim, sigma.device)
+    tab = torch.empty((dim ** 3, NCH), dtype=torch.float32,
+                      device=sigma.device)
+    tab[mi, 0] = sigma.reshape(-1).to(torch.float32)
+    tab[mi, 1:] = rgb.reshape(3, -1).t().to(torch.float32)
+    return tab
+
+
+def fields_from_interleaved(tab: torch.Tensor, dim: int):
+    """Inverse of build_interleaved_morton: [dim^3, 4] -> (sigma [dim, dim,
+    dim], rgb [3, dim, dim, dim])."""
+    rows = tab[_morton_index(dim, tab.device)]
+    return (rows[:, 0].reshape(dim, dim, dim),
+            rows[:, 1:].t().reshape(3, dim, dim, dim))
+
+
+def interleave_tables(sigma_tab: torch.Tensor,
+                      rgb_tab: torch.Tensor) -> torch.Tensor:
+    """vxtpu's planar Morton tables, sigma [D^3] and rgb [3, D^3] (or any
+    shapes holding those words in that order, such as [rows, 128] and
+    [3, rows, 128]) -> one [D^3, 4] table."""
+    return torch.cat([sigma_tab.reshape(-1, 1),
+                      rgb_tab.reshape(3, -1).t()], dim=1).to(torch.float32)
+
+
+def split_table(tab: torch.Tensor):
+    """Inverse of interleave_tables: [D^3, 4] -> (sigma [D^3], rgb
+    [3, D^3]), both contiguous copies."""
+    return tab[:, 0].contiguous(), tab[:, 1:].t().contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -161,71 +211,75 @@ def _grad_f_grads(v, fx, fy, fz, ggx, ggy, ggz):
 
 
 def _fetch(tab, codes, act):
-    """The 8 corner values of one table; 0 for inactive rays, which fetch
-    nothing."""
-    return [torch.where(act, tab[torch.where(act, c, 0)], 0.0) for c in codes]
+    """The 8 corner rows [S, N, 4] of the table; 0 for inactive rays,
+    which fetch nothing."""
+    return [torch.where(act[..., None], tab[torch.where(act, c, 0)], 0.0)
+            for c in codes]
 
 
-def sample_fields_fwd_reference(tabs, o, d, t0, dt, S: int, dim: int,
+def _channel(rows, c):
+    return [r[..., c] for r in rows]
+
+
+def sample_fields_fwd_reference(tab, o, d, t0, dt, S: int, dim: int,
                                 lit: bool = False):
     """Plain version of ``sample_fields_fwd``."""
     act = (dt > 0)[None, :]
     _, px, py, pz = _positions(o, d, t0, dt, S)
     codes, fx, fy, fz = _corner_setup(px, py, pz, dim)
-    outs = []
-    for c, tab in enumerate(tabs):
-        v = _fetch(tab, codes, act)
-        outs.append(torch.where(act, _lerp_ladder(v, fx, fy, fz), 0.0))
-        if c == 0 and lit:
-            grads = [torch.where(act, g, 0.0)
-                     for g in _grad_ladder(v, fx, fy, fz)]
-    return tuple(outs + (grads if lit else []))
+    rows = _fetch(tab, codes, act)
+    outs = [torch.where(act, _lerp_ladder(_channel(rows, c), fx, fy, fz),
+                        0.0) for c in range(NCH)]
+    if lit:
+        outs += [torch.where(act, g, 0.0)
+                 for g in _grad_ladder(_channel(rows, 0), fx, fy, fz)]
+    return tuple(outs)
 
 
-def sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim: int,
+def sample_fields_bwd_reference(tab, o, d, t0, dt, cots, dim: int,
                                 lit: bool = False, ray_grads: bool = True):
-    """Plain version of ``sample_fields_bwd``, returning the gradient as one
-    [4, dim^3] tensor (rows sigma, r, g, b) where the wrapper returns its
-    four rows: the scatter with index_add_, summed in float64 (the exact
-    sums that the kernel's float atomics approximate, in whatever order
-    they land); with ``ray_grads`` the per-ray sums in the kernel's order
-    (over s within chunks of RAY_CHUNK samples, then over the chunks),
-    else None for the four ray outputs, which are not computed."""
+    """Plain version of ``sample_grads``: the gradient [dim^3, 4] by
+    index_add_, summed in float64 (the exact sums that the kernel's float
+    atomics approximate, in whatever order they land); with ``ray_grads``
+    the per-ray sums in the kernel's order (over s within chunks of
+    RAY_CHUNK samples, then over the chunks), else None for the four ray
+    outputs, which are not computed."""
     S, n = cots[0].shape
     act = (dt > 0)[None, :]
     t, px, py, pz = _positions(o, d, t0, dt, S)
     codes, fx, fy, fz = _corner_setup(px, py, pz, dim)
     w = ((1.0 - fx, fx), (1.0 - fy, fy), (1.0 - fz, fz))
     sel = act.expand(S, n)
-    grad = torch.zeros((NCH, dim ** 3), dtype=torch.float64, device=o.device)
-    for c in range(NCH):
-        for k in range(8):
-            ex, ey, ez = (k >> 2) & 1, (k >> 1) & 1, k & 1
-            gc = cots[c] * (w[0][ex] * w[1][ey] * w[2][ez])
-            if c == 0 and lit:
-                dsx = (1.0 if ex else -1.0) * w[1][ey] * w[2][ez]
-                dsy = w[0][ex] * (1.0 if ey else -1.0) * w[2][ez]
-                dsz = w[0][ex] * w[1][ey] * (1.0 if ez else -1.0)
-                gc = gc + cots[4] * dsx + cots[5] * dsy + cots[6] * dsz
-            grad[c].index_add_(0, codes[k][sel], gc[sel].double())
+    grad = torch.zeros((dim ** 3, NCH), dtype=torch.float64, device=o.device)
+    for k in range(8):
+        ex, ey, ez = (k >> 2) & 1, (k >> 1) & 1, k & 1
+        wk = w[0][ex] * w[1][ey] * w[2][ez]
+        gc = [cots[c] * wk for c in range(NCH)]
+        if lit:
+            dsx = (1.0 if ex else -1.0) * w[1][ey] * w[2][ez]
+            dsy = w[0][ex] * (1.0 if ey else -1.0) * w[2][ez]
+            dsz = w[0][ex] * w[1][ey] * (1.0 if ez else -1.0)
+            gc[0] = gc[0] + cots[4] * dsx + cots[5] * dsy + cots[6] * dsz
+        grad.index_add_(0, codes[k][sel],
+                        torch.stack(gc, dim=-1)[sel].double())
     grad = grad.float()
     if not ray_grads:
         return grad, None, None, None, None
+    rows = _fetch(tab, codes, act)
     gfx = gfy = gfz = 0.0
-    for c, tab in enumerate(tabs):
-        v = _fetch(tab, codes, act)
-        dfx, dfy, dfz = _value_f_grads(v, fx, fy, fz)
+    for c in range(NCH):
+        dfx, dfy, dfz = _value_f_grads(_channel(rows, c), fx, fy, fz)
         gfx = gfx + cots[c] * dfx
         gfy = gfy + cots[c] * dfy
         gfz = gfz + cots[c] * dfz
-        if c == 0 and lit:
-            g2 = _grad_f_grads(v, fx, fy, fz, cots[4], cots[5], cots[6])
     if lit:
+        g2 = _grad_f_grads(_channel(rows, 0), fx, fy, fz, cots[4], cots[5],
+                           cots[6])
         gfx, gfy, gfz = gfx + g2[0], gfy + g2[1], gfz + g2[2]
     gdot = gfx * d[None, :, 0] + gfy * d[None, :, 1] + gfz * d[None, :, 2]
+    sf = torch.arange(S, dtype=torch.float32, device=o.device) + 0.5
     terms = torch.stack((gfx, gfy, gfz, gfx * t, gfy * t, gfz * t, gdot,
-                         gdot * (torch.arange(S, dtype=torch.float32,
-                                              device=o.device) + 0.5)[:, None]))
+                         gdot * sf[:, None]))
     terms = torch.where(act, terms, 0.0)                     # [8, S, N]
     # the kernel's order: s in order within each chunk, then the chunks
     part = terms.new_zeros((max(-(-S // RAY_CHUNK), 1), 8, n))
@@ -246,15 +300,15 @@ def ray_sums_reference(part: torch.Tensor):
 # kernel wrappers
 
 
-def _check_rays(tabs, o, d, t0, dt, dim):
+def _check_rays(tab, o, d, t0, dt, dim):
     device = o.device
     _device_kind(device)
     _require_cubic_pow2((dim,) * 3)
-    if len(tabs) != NCH:
-        raise ValueError(f"expected {NCH} tables, got {len(tabs)}")
     f32 = torch.float32
-    for c, tab in enumerate(tabs):
-        _check(f"tabs[{c}]", tab, f32, (dim ** 3,), device)
+    _check("tab", tab, f32, (dim ** 3, NCH), device)
+    if device.type == "cuda" and tab.data_ptr() % 16:
+        raise ValueError("tab must be 16-byte aligned (the kernels read "
+                         "its rows as float4)")
     n = o.shape[0]
     _check("o", o, f32, (n, 3), device)
     _check("d", d, f32, (n, 3), device)
@@ -267,15 +321,15 @@ def _ptrs(xs):
     return (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
 
 
-def sample_fields_fwd(tabs, o, d, t0, dt, S: int, dim: int,
+def sample_fields_fwd(tab, o, d, t0, dt, S: int, dim: int,
                       lit: bool = False):
     """Raw trilinear samples along rays: (sigma, r, g, b[, gsx, gsy, gsz]),
-    each float32 [S, N]. tabs: four flat Morton tables [dim^3]; o, d
-    [N, 3]; t0, dt [N]. CUDA tensors launch ``sample_fwd_kernel``; CPU
-    tensors run the plain version."""
-    device, n = _check_rays(tabs, o, d, t0, dt, dim)
+    each float32 [S, N]. tab: the channel-interleaved Morton table
+    [dim^3, 4]; o, d [N, 3]; t0, dt [N]. CUDA tensors launch
+    ``sample_fwd_kernel``; CPU tensors run the plain version."""
+    device, n = _check_rays(tab, o, d, t0, dt, dim)
     if device.type == "cpu":
-        return sample_fields_fwd_reference(tabs, o, d, t0, dt, S, dim, lit)
+        return sample_fields_fwd_reference(tab, o, d, t0, dt, S, dim, lit)
 
     from vxtpu_torch import _build
 
@@ -285,7 +339,7 @@ def sample_fields_fwd(tabs, o, d, t0, dt, S: int, dim: int,
     if n and S:
         rc = lib.vx_sample_fwd(
             o.data_ptr(), d.data_ptr(), t0.data_ptr(), dt.data_ptr(), n, S,
-            _ptrs(tabs), dim, int(lit), _ptrs(outs),
+            tab.data_ptr(), dim, int(lit), _ptrs(outs),
             torch.cuda.current_stream(device).cuda_stream)
         if rc:
             raise RuntimeError(f"sample_fwd_kernel launch failed: "
@@ -294,17 +348,15 @@ def sample_fields_fwd(tabs, o, d, t0, dt, S: int, dim: int,
     return tuple(outs)
 
 
-def sample_grads(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False,
+def sample_grads(tab, o, d, t0, dt, cots, dim: int, lit: bool = False,
                  ray_grads: bool = True):
-    """Backward of ``sample_fields_fwd`` with the gradient in the
-    parameters' own layout: (grad [4, dim^3] (rows sigma, r, g, b), go
-    [N, 3], gd [N, 3], gt0 [N], gdt [N]), the ray outputs None unless
-    ``ray_grads``. CUDA tensors launch ``sample_bwd_kernel`` (the pure
-    scatter, or with ``ray_grads`` the chunked variant and
-    ``sample_ray_sum_kernel``), which scatters into a channel-interleaved
-    [dim^3, 4] scratch, and ``grad_transpose_kernel``; CPU tensors run the
-    plain version."""
-    device, n = _check_rays(tabs, o, d, t0, dt, dim)
+    """Backward of ``sample_fields_fwd`` with the gradient in the table's
+    own shape: (grad [dim^3, 4], go [N, 3], gd [N, 3], gt0 [N], gdt [N]),
+    the ray outputs None unless ``ray_grads``. CUDA tensors launch
+    ``sample_bwd_kernel`` (the pure scatter, or with ``ray_grads`` the
+    chunked variant and ``sample_ray_sum_kernel``), which adds into the
+    zeroed gradient that it returns; CPU tensors run the plain version."""
+    device, n = _check_rays(tab, o, d, t0, dt, dim)
     if len(cots) != (7 if lit else 4):
         raise ValueError(f"expected {7 if lit else 4} cotangents, "
                          f"got {len(cots)}")
@@ -312,7 +364,7 @@ def sample_grads(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False,
     for c, x in enumerate(cots):
         _check(f"cots[{c}]", x, torch.float32, (S, n), device)
     if device.type == "cpu":
-        return sample_fields_bwd_reference(tabs, o, d, t0, dt, cots, dim, lit,
+        return sample_fields_bwd_reference(tab, o, d, t0, dt, cots, dim, lit,
                                            ray_grads)
 
     from vxtpu_torch import _build
@@ -320,7 +372,7 @@ def sample_grads(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False,
     lib = _build.load()
     f32 = dict(dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    grad4 = torch.zeros((dim ** 3, NCH), **f32)     # channel-interleaved
+    grad = torch.zeros((dim ** 3, NCH), **f32)
     # the kernel writes every slot of part; with S == 0 the sums are 0
     part = ((torch.empty((-(-S // RAY_CHUNK), 8, n), **f32) if S
              else torch.zeros((1, 8, n), **f32)) if ray_grads else None)
@@ -328,15 +380,13 @@ def sample_grads(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False,
     if n and S:
         rc = lib.vx_sample_bwd(
             o.data_ptr(), d.data_ptr(), t0.data_ptr(), dt.data_ptr(), n, S,
-            _ptrs(tabs), dim, int(lit), int(ray_grads), RAY_CHUNK,
-            _ptrs(cots), grad4.data_ptr(),
+            tab.data_ptr(), dim, int(lit), int(ray_grads), RAY_CHUNK,
+            _ptrs(cots), grad.data_ptr(),
             part.data_ptr() if ray_grads else None, stream)
         if rc:
             raise RuntimeError(f"{name} launch failed: "
                                f"{_build.error_string(rc)}")
         LAUNCHES[name] += 1
-    grad = grad_transpose(grad4)
-    del grad4
     if not ray_grads:
         return grad, None, None, None, None
     return (grad, *ray_sums(part))
@@ -372,43 +422,14 @@ def ray_sums(part: torch.Tensor):
     return go, gd, gt0, gdt
 
 
-def grad_transpose_reference(src: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``grad_transpose``: the four channels stacked."""
-    return torch.stack(src.unbind(1))
-
-
-def grad_transpose(src: torch.Tensor) -> torch.Tensor:
-    """The scatter's channel-interleaved gradient [W, 4] -> the tables'
-    layout [4, W]. CUDA tensors launch ``grad_transpose_kernel``; CPU
-    tensors run the plain version."""
-    if (src.dim() != 2 or src.shape[1] != NCH or src.dtype != torch.float32
-            or not src.is_contiguous()):
-        raise ValueError(f"expected a contiguous float32 [W, {NCH}] tensor, "
-                         f"got {src.dtype} {tuple(src.shape)}")
-    if src.device.type == "cpu":
-        return grad_transpose_reference(src)
-
-    from vxtpu_torch import _build
-
-    dst = torch.empty((NCH, src.shape[0]), dtype=torch.float32,
-                      device=src.device)
-    rc = _build.load().vx_grad_transpose(
-        src.data_ptr(), src.shape[0], dst.data_ptr(),
-        torch.cuda.current_stream(src.device).cuda_stream)
-    if rc:
-        raise RuntimeError(f"grad_transpose_kernel launch failed: "
-                           f"{_build.error_string(rc)}")
-    LAUNCHES["grad_transpose_kernel"] += 1
-    return dst
-
-
-def sample_fields_bwd(tabs, o, d, t0, dt, cots, dim: int, lit: bool = False,
+def sample_fields_bwd(tab, o, d, t0, dt, cots, dim: int, lit: bool = False,
                       ray_grads: bool = True):
-    """Backward of ``sample_fields_fwd``: cotangents ``cots`` of its
-    outputs (4, or 7 when lit, each [S, N]) -> (gradient tables (4 x
-    [dim^3], rows of one [4, dim^3] tensor), go [N, 3], gd [N, 3], gt0
-    [N], gdt [N]); the four ray outputs are None when ``ray_grads`` is
-    False. CUDA tensors launch the kernels; CPU tensors run the plain
-    version (see ``sample_grads``)."""
-    grad, *rays = sample_grads(tabs, o, d, t0, dt, cots, dim, lit, ray_grads)
-    return (tuple(grad), *rays)
+    """Backward of ``sample_fields_fwd`` in vxtpu's form: cotangents
+    ``cots`` of its outputs (4, or 7 when lit, each [S, N]) -> (the four
+    planar gradient tables sigma, r, g, b (4 x [dim^3], the rows of one
+    [4, dim^3] tensor), go [N, 3], gd [N, 3], gt0 [N], gdt [N]); the four
+    ray outputs are None when ``ray_grads`` is False. ``sample_grads``
+    computes it (CUDA tensors launch the kernels, CPU tensors run the
+    plain version) in the table's [dim^3, 4] shape."""
+    grad, *rays = sample_grads(tab, o, d, t0, dt, cots, dim, lit, ray_grads)
+    return (tuple(grad.t().contiguous()), *rays)

@@ -1,14 +1,15 @@
 """Differentiable soft rendering on the field-sampling kernels (counterpart
 of ``vxtpu/render/soft_pallas.py``): the trainer's fast path.
 
-  * ``MortonSoftGrid`` holds the scene in the kernels' layout, flat
-    fine-voxel Morton tables, so a training step never re-lays the grid
-    out; conversion happens only at the ends (``from_soft`` / ``to_soft``).
+  * ``MortonSoftGrid`` holds the scene in the kernels' layout, one
+    channel-interleaved fine-voxel Morton table [D^3, 4], so a training
+    step never re-lays the grid out; conversion happens only at the ends
+    (``from_soft`` / ``to_soft``).
   * ``SampleFields`` is the only hand-differentiated boundary (vxtpu's
     ``jax.custom_vjp`` around ``sample_fields``): forward the sampling
-    kernel, backward the scatter kernel, which returns the tables'
-    gradient in their own layout and skips the rays' unless they need
-    it. Everything else (softplus, mask, lit shading, the transmittance
+    kernel, backward the scatter kernel, which returns the table's
+    gradient in its own shape and skips the rays' unless they need it.
+    Everything else (softplus, mask, lit shading, the transmittance
     cumprod, sky) is [S, N] tensor code that autograd differentiates.
 
 Semantics are ``render/soft.render_soft_rays``'s: the same sample
@@ -37,64 +38,69 @@ _EPS = 1e-10
 class MortonSoftGrid:
     """Optimisable scene in fine-voxel Morton layout.
 
-    sigma_tab: float32 [D^3] raw densities (softplus'd downstream).
-    rgb_tab:   float32 [3, D^3] rgb logits (sigmoid'd downstream)."""
+    tab: float32 [D^3, 4]; row m holds (sigma, r, g, b) of the voxel whose
+    Morton code is m: the raw density (softplus'd downstream) and the rgb
+    logits (sigmoid'd downstream). vxtpu keeps the same words as two
+    planar tables, which the read-only views ``sigma_tab`` and
+    ``rgb_tab`` show."""
 
-    sigma_tab: torch.Tensor
-    rgb_tab: torch.Tensor
+    tab: torch.Tensor
 
     @property
     def dim(self) -> int:
-        return round(self.sigma_tab.shape[0] ** (1.0 / 3.0))
+        return round(self.tab.shape[0] ** (1.0 / 3.0))
 
     @property
     def dims(self) -> tuple[int, int, int]:
         return (self.dim,) * 3
 
+    @property
+    def sigma_tab(self) -> torch.Tensor:
+        """[D^3] view of the densities (vxtpu's sigma_tab)."""
+        return self.tab[:, 0]
+
+    @property
+    def rgb_tab(self) -> torch.Tensor:
+        """[3, D^3] view of the rgb logits (vxtpu's rgb_tab)."""
+        return self.tab[:, 1:].t()
+
     @staticmethod
     def from_soft(soft: SoftGrid) -> "MortonSoftGrid":
-        return MortonSoftGrid(
-            sigma_tab=ks.build_field_morton(soft.sigma_raw),
-            rgb_tab=torch.stack([ks.build_field_morton(soft.rgb_raw[c])
-                                 for c in range(3)]))
+        return MortonSoftGrid(tab=ks.build_interleaved_morton(
+            soft.sigma_raw, soft.rgb_raw))
 
     def to_soft(self) -> SoftGrid:
-        d = self.dim
-        return SoftGrid(
-            sigma_raw=ks.field_from_morton(self.sigma_tab, d),
-            rgb_raw=torch.stack([ks.field_from_morton(self.rgb_tab[c], d)
-                                 for c in range(3)]))
+        sigma, rgb = ks.fields_from_interleaved(self.tab, self.dim)
+        return SoftGrid(sigma_raw=sigma, rgb_raw=rgb)
 
 
 class SampleFields(torch.autograd.Function):
     """Raw trilinear samples along rays, differentiable with respect to the
-    scene's tables (sigma_tab [D^3], rgb_tab [3, D^3]) and the ray
-    parameters (o, d, t0, dt): forward ``sample_fields_fwd``, backward
-    ``sample_grads``, whose one [4, D^3] gradient comes back as the views
-    g_sigma = grad[0] and g_rgb = grad[1:4] (no per-row select, so autograd
-    builds no [3, D^3] zero-filled copies). The backward asks for the ray
-    cotangents only where o, d, t0 or dt needs a gradient. ``plain`` runs
-    the plain versions on any device (the oracle of the kernel path)."""
+    scene's table (tab [D^3, 4]) and the ray parameters (o, d, t0, dt):
+    forward ``sample_fields_fwd``, backward ``sample_grads``, whose
+    gradient has the table's shape and is handed over as it is. The
+    backward asks for the ray cotangents only where o, d, t0 or dt needs
+    a gradient. ``plain`` runs the plain versions on any device (the
+    oracle of the kernel path)."""
 
     @staticmethod
-    def forward(ctx, S, dim, lit, plain, sigma_tab, rgb_tab, o, d, t0, dt):
-        ctx.save_for_backward(sigma_tab, rgb_tab, o, d, t0, dt)
+    def forward(ctx, S, dim, lit, plain, tab, o, d, t0, dt):
+        ctx.save_for_backward(tab, o, d, t0, dt)
         ctx.S, ctx.dim, ctx.lit, ctx.plain = S, dim, lit, plain
         fwd = (ks.sample_fields_fwd_reference if plain
                else ks.sample_fields_fwd)
-        return fwd((sigma_tab, *rgb_tab.unbind(0)), o, d, t0, dt, S, dim,
-                   lit)
+        return fwd(tab, o, d, t0, dt, S, dim, lit)
 
     @staticmethod
     def backward(ctx, *cots):
-        sigma_tab, rgb_tab, o, d, t0, dt = ctx.saved_tensors
-        ray_grads = any(ctx.needs_input_grad[6:10])
+        tab, o, d, t0, dt = ctx.saved_tensors
+        ray_grads = any(ctx.needs_input_grad[5:9])
         bwd = (ks.sample_fields_bwd_reference if ctx.plain
                else ks.sample_grads)
         grad, go, gd, gt0, gdt = bwd(
-            (sigma_tab, *rgb_tab.unbind(0)), o, d, t0, dt,
-            tuple(c.contiguous() for c in cots), ctx.dim, ctx.lit, ray_grads)
-        return (None, None, None, None, grad[0], grad[1:], go, gd, gt0, gdt)
+            tab, o, d, t0, dt, tuple(c.contiguous() for c in cots), ctx.dim,
+            ctx.lit, ray_grads)
+        return (None, None, None, None, grad, go, gd, gt0, gdt)
 
 
 def _mask_at_cm(mask, scale, px, py, pz):
@@ -175,9 +181,8 @@ def render_soft_rays_kernel(msoft: MortonSoftGrid, o: torch.Tensor,
     lit = (lights is not None and lights.count > 0
            and settings.shading != "flat")
     t0, dt, valid = _enter_dt_soft(o, d, dims, num_samples, seg_bounds)
-    vals = SampleFields.apply(num_samples, msoft.dim, lit, plain,
-                              msoft.sigma_tab, msoft.rgb_tab, o.contiguous(),
-                              d.contiguous(), t0.contiguous(),
+    vals = SampleFields.apply(num_samples, msoft.dim, lit, plain, msoft.tab,
+                              o.contiguous(), d.contiguous(), t0.contiguous(),
                               dt.contiguous())
     sv, rr, gg, bb = vals[:4]                                 # [S, N]
     sigma = softplus(sv)
@@ -214,7 +219,7 @@ def render_soft_image_kernel(msoft: MortonSoftGrid, cam,
                              width: int, num_samples: int,
                              lights=None) -> torch.Tensor:
     """[H, W, 3] differentiable render through the sampling kernels
-    (gradients reach the Morton tables and the camera pose)."""
+    (gradients reach the Morton table and the camera pose)."""
     o, d = generate_rays(cam, height, width)
     rgb = render_soft_rays_kernel(msoft, o, d, settings, num_samples, lights)
     return rgb.reshape(height, width, 3)

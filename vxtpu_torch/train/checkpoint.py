@@ -84,6 +84,18 @@ def opt_state_from_leaves(leaves: list, template: list,
     return out
 
 
+def _migrate_rgb_layout(rgb: np.ndarray) -> np.ndarray:
+    """rgb_raw as [3,X,Y,Z]: vxtpu's old [X,Y,Z,3] layout is moved to
+    channel-major; a [3,X,Y,3] array, which could be either, raises
+    ValueError (as vxtpu's loader does)."""
+    if rgb.ndim == 4 and rgb.shape[0] == 3 and rgb.shape[-1] == 3:
+        raise ValueError(f"ambiguous rgb_raw checkpoint shape "
+                         f"{rgb.shape}: cannot infer layout")
+    if rgb.ndim == 4 and rgb.shape[-1] == 3:
+        return np.ascontiguousarray(np.transpose(rgb, (3, 0, 1, 2)))
+    return rgb
+
+
 def save_checkpoint(path: str, soft: SoftGrid, cam: Camera, step: int,
                     extra: dict | None = None, opt_state=None,
                     compress: bool = True) -> None:
@@ -102,7 +114,8 @@ def save_checkpoint(path: str, soft: SoftGrid, cam: Camera, step: int,
                    cam_pitch=host(cam.pitch), cam_fov_y=host(cam.fov_y),
                    step=np.asarray(step))
     for k, v in (extra or {}).items():
-        payload["x_" + k] = np.asarray(v)
+        payload["x_" + k] = host(v) if isinstance(v, torch.Tensor) \
+            else np.asarray(v)
     if opt_state is not None:
         for i, leaf in enumerate(opt_state_leaves(opt_state)):
             payload[f"o_{i:04d}"] = leaf
@@ -120,10 +133,7 @@ def load_checkpoint(path: str, device=DEFAULT):
         return torch.as_tensor(np.asarray(a), device=device)
 
     with np.load(path) as z:
-        rgb = np.asarray(z["rgb_raw"])
-        if rgb.ndim == 4 and rgb.shape[-1] == 3 and rgb.shape[0] != 3:
-            # vxtpu's old [X,Y,Z,3] layout
-            rgb = np.ascontiguousarray(np.transpose(rgb, (3, 0, 1, 2)))
+        rgb = _migrate_rgb_layout(np.asarray(z["rgb_raw"]))
         soft = SoftGrid(sigma_raw=dev(z["sigma_raw"]), rgb_raw=dev(rgb))
         cam = Camera(pos=dev(z["cam_pos"]), yaw=dev(z["cam_yaw"]),
                      pitch=dev(z["cam_pitch"]), fov_y=dev(z["cam_fov_y"]))

@@ -9,15 +9,20 @@ PyTorch runs eagerly, so a step is a plain loop body: loss, backward,
 ``torch.optim.Adam`` (vxtpu's ``optax.adam``: betas (0.9, 0.999), eps
 1e-8, the same update up to rounding). With ``field_kernel`` the scene is
 trained in fine-voxel Morton layout through the sampling kernels
-(``render/soft_kernel.py``) with the Morton TV prior; otherwise through
-the plain soft renderer and autograd.
+(``render/soft_kernel.py``) with the Morton TV prior, and Adam sees one
+tensor, its [D^3, 4] table; otherwise through the plain soft renderer
+and autograd.
 
 The optimizer state handed in and out (``opt_state``) is a list of
 ``AdamGroupState`` in optax's order: one group (``soft``), or two
 (``cam``, then ``soft``) when the camera is optimised, as
 ``optax.multi_transform`` keeps them; within a group the step count and
-the moments of each parameter in field order. So a state saved by either
-package resumes in the other (``train/checkpoint.py``).
+the moments of each parameter in vxtpu's field order. For the
+field-kernel fit those are vxtpu's two planar tables (sigma [D^3], rgb
+[3, D^3]): the interleaved table's moments are split into them where the
+live optimizer's state is read (``read_opt_state``) and joined back where
+it is written (``write_opt_state``), and nowhere else. So a state saved by
+either package resumes in the other (``train/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -29,11 +34,12 @@ import torch
 
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.camera.rays import generate_rays
+from vxtpu_torch.render import kernel_sample as ks
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
 from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                             render_soft_rays_kernel)
-from vxtpu_torch.train.loss import mse, tv_loss, tv_loss_morton
+from vxtpu_torch.train.loss import mse, tv_loss, tv_prior_morton
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -84,10 +90,9 @@ def _loss_fn(model, cam: Camera, o, d, target, hw,
         pred = render_soft_rays_kernel(model, o, d, settings,
                                        cfg.num_samples)
         loss = mse(pred, target)
-        if cfg.tv_sigma:
-            loss = loss + cfg.tv_sigma * tv_loss_morton(model.sigma_tab)
-        if cfg.tv_rgb:
-            loss = loss + cfg.tv_rgb * tv_loss_morton(model.rgb_tab)
+        if cfg.tv_sigma or cfg.tv_rgb:
+            loss = loss + tv_prior_morton(model.tab, cfg.tv_sigma,
+                                          cfg.tv_rgb)
         return loss
     pred, _ = render_soft_rays(model, o, d, settings, cfg.num_samples)
     loss = mse(pred, target)
@@ -99,14 +104,26 @@ def _loss_fn(model, cam: Camera, o, d, target, hw,
 
 
 def make_optimizer(cfg: TrainConfig, params, cam_params=None):
-    """The Adam that the fit uses: ``params`` (the scene's tensors) at
-    ``cfg.lr``, and with ``cfg.optimize_camera`` the camera's four
-    tensors at ``cfg.cam_lr`` (every leaf, as optax treats them)."""
-    groups = [dict(params=list(params), lr=cfg.lr, name="soft")]
+    """The Adam that the fit uses: ``params`` (the scene's tensors: a
+    SoftGrid's two, or with ``cfg.field_kernel`` a MortonSoftGrid's one
+    table) at ``cfg.lr``, and with ``cfg.optimize_camera`` the camera's
+    four tensors at ``cfg.cam_lr`` (every leaf, as optax treats them)."""
+    groups = [dict(params=list(params), lr=cfg.lr, name="soft",
+                   interleaved=cfg.field_kernel)]
     if cfg.optimize_camera:
         groups.insert(0, dict(params=list(cam_params), lr=cfg.cam_lr,
-                              name="cam"))
+                              name="cam", interleaved=False))
     return torch.optim.Adam(groups, betas=BETAS, eps=ADAM_EPS)
+
+
+def state_params(model) -> list:
+    """The tensors that the optimizer state holds moments for, in optax's
+    order: a SoftGrid's fields, or a MortonSoftGrid's planar views
+    (sigma_tab, rgb_tab) of its one table. ``init_opt_state([...])`` of
+    them is the template of ``checkpoint.load_opt_state``."""
+    if isinstance(model, MortonSoftGrid):
+        return [model.sigma_tab, model.rgb_tab]
+    return [getattr(model, f.name) for f in dataclasses.fields(model)]
 
 
 def init_opt_state(groups) -> list:
@@ -119,26 +136,45 @@ def init_opt_state(groups) -> list:
 
 
 def read_opt_state(opt: torch.optim.Optimizer) -> list:
+    """The live optimizer's state in optax's order; an interleaved
+    table's moments split into vxtpu's planar tables."""
     out = []
     for group in opt.param_groups:
         ps = group["params"]
         states = [opt.state.get(p, {}) for p in ps]
         count = int(states[0]["step"]) if states[0] else 0
-        out.append(AdamGroupState(
-            count,
-            [s["exp_avg"].detach().clone() if s else torch.zeros_like(p)
-             for s, p in zip(states, ps)],
-            [s["exp_avg_sq"].detach().clone() if s else torch.zeros_like(p)
-             for s, p in zip(states, ps)]))
+        mu, nu = [], []
+        for s, p in zip(states, ps):
+            m = s["exp_avg"].detach() if s else torch.zeros_like(p)
+            v = s["exp_avg_sq"].detach() if s else torch.zeros_like(p)
+            if group["interleaved"]:
+                mu += ks.split_table(m)
+                nu += ks.split_table(v)
+            else:
+                mu.append(m.clone())
+                nu.append(v.clone())
+        out.append(AdamGroupState(count, mu, nu))
     return out
 
 
 def write_opt_state(opt: torch.optim.Optimizer, state: list) -> None:
+    """Load ``state`` (optax's order, as ``read_opt_state`` gives it) into
+    the live optimizer; vxtpu's planar moments are joined into an
+    interleaved table's."""
     if len(state) != len(opt.param_groups):
         raise ValueError(f"optimizer state has {len(state)} groups, the "
                          f"optimizer {len(opt.param_groups)}")
     for group, gs in zip(opt.param_groups, state):
-        for p, m, v in zip(group["params"], gs.mu, gs.nu, strict=True):
+        mu, nu = gs.mu, gs.nu
+        if group["interleaved"]:
+            if len(mu) != 2 * len(group["params"]):
+                raise ValueError(f"optimizer state has {len(mu)} moments, "
+                                 f"the table needs 2 (sigma, rgb)")
+            mu = [ks.interleave_tables(*mu[i:i + 2])
+                  for i in range(0, len(mu), 2)]
+            nu = [ks.interleave_tables(*nu[i:i + 2])
+                  for i in range(0, len(nu), 2)]
+        for p, m, v in zip(group["params"], mu, nu, strict=True):
             if m.shape != p.shape or v.shape != p.shape:
                 raise ValueError(f"optimizer moment of shape "
                                  f"{tuple(m.shape)} for a parameter of "

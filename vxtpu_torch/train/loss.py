@@ -37,3 +37,18 @@ def tv_loss_morton(table: torch.Tensor) -> torch.Tensor:
     dz = t[..., 1, :, :] - t[..., 0, :, :]           # index bit 2 = z
     return 2.0 * (torch.mean(dx ** 2) + torch.mean(dy ** 2)
                   + torch.mean(dz ** 2)) / 3.0
+
+
+def tv_prior_morton(tab: torch.Tensor, tv_sigma: float,
+                    tv_rgb: float) -> torch.Tensor:
+    """``tv_sigma * tv_loss_morton(sigma) + tv_rgb * tv_loss_morton(rgb)``
+    on the channel-interleaved Morton table [D^3, 4] (channel 0 sigma,
+    1-3 rgb) with no re-layout: the rgb term is the mean over its three
+    channels, as ``tv_loss_morton`` of the planar [3, D^3] table takes
+    it."""
+    t = tab.reshape(-1, 2, 2, 2, tab.shape[-1])     # z, y, x index bits
+    dx = t[:, :, :, 1] - t[:, :, :, 0]
+    dy = t[:, :, 1] - t[:, :, 0]
+    dz = t[:, 1] - t[:, 0]
+    per = sum(torch.mean(x ** 2, dim=(0, 1, 2)) for x in (dx, dy, dz))
+    return 2.0 * (tv_sigma * per[0] + tv_rgb * torch.mean(per[1:])) / 3.0
