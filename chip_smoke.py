@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive vxtpu_torch's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--save DIR]
+    python3 chip_smoke.py [--save DIR] [--k5-times]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.
 Phases, each printing what it found (any failure raises, exit code != 0):
@@ -41,12 +41,19 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              K3's outputs against its checksums (vxtpu_torch/data);
   8. pipeline the composable render pipeline (render / animate / bench
              --kernel pallas) through the row-major march kernel K5:
-             K5 against its plain version (64^3 and non-cubic cases, then
-             every primary and shadow ray of the c3_256_shadows frame,
-             exactly); the c3 frame (256^3 terrain seed 7, per-voxel RGB,
+             K5 against its plain version (64^3 and non-cubic cases, ray
+             counts that leave a partial last block, then every primary
+             and shadow ray of the c3_256_shadows frame, exactly); the c3
+             frame (256^3 terrain seed 7, per-voxel RGB,
              1024x1024, full + shadows + fog) through render_image, with
              and without the face-texture atlas; K5 against K1 (march-
-             only) on the 512^3/1080p lambert frame of phase 4; the animate
+             only) on the 512^3/1080p lambert frame of phase 4; K5's
+             device time per launch on the c3 primary and shadow rays and
+             at 512^3 (profiler; cross-checked by the same launches
+             replayed from a CUDA graph; one window's launches listed),
+             its bounds at each with the table words its marches read (2
+             B each: the bricked table), and the blocks it holds an SM;
+             the animate
              and bench commands; K5 and the row-major table against the
              JAX package's checksums (vxtpu_torch/data/packed_seed7.json).
              Runs between phases 5 and 6, on phase 4's 512^3 world;
@@ -83,11 +90,15 @@ steps, done, dist on every ray), march_sorted to single-round K1 exactly
 bit.
 
 The line before the last is one JSON object with the kernels' counts,
-errors, times and bounds (K1's and K5's bounds count the distinct table
-words their marches read, counted on the plain march; the bounds without
-them are kept as bound_rays_only_ms); the last line is {"ok": true,
-"device": {...}}.
---save DIR writes the main-path frames there as PNGs.
+errors, times and bounds (the bounds of K1, K1' and K5 count the
+distinct table words their marches read, counted on the plain march;
+the bounds without them are kept as bound_rays_only_ms); the last line
+is {"ok": true, "device": {...}}.
+--save DIR writes the main-path frames there as PNGs. --k5-times runs
+phases 1 and 2, then K5 alone on its three ray sets as phase 8 times it
+(k5_rays, k5_times), and prints one JSON line; copied into a checkout of
+another commit, it times that commit's K5 the same way, so that two
+commits can be compared in turns on one card.
 """
 
 from __future__ import annotations
@@ -574,16 +585,169 @@ def cross_entry_frame(device) -> None:
                              f"within 2/255 of JAX's")
 
 
-def k5_bound(n, steps, with_tmax, table_words=0) -> dict:
+def k5_bound(n, steps, with_tmax, table_words=0, word_bytes=2) -> dict:
     """Least time (ms) of one K5 launch over n rays that take ``steps``
     iterations in all: each ray's inputs (o, d: 24 B; t_max: 4 B) read
     once and its outputs (hit 1, t 4, voxel 12, normal 12, steps 4 B)
-    written once, and the ``table_words`` distinct int32 row-major words
-    its marches read (counted on the plain march), over the HBM rate.
+    written once, and the ``table_words`` distinct words its marches read
+    (counted on the plain march), ``word_bytes`` each, over the HBM rate:
+    2 for the bricked 16-bit table the kernel reads; 4 gives the bound
+    over int32 words, the yardstick of K5 before it had the bricked copy.
     Operations: K5_OPS_RAY per ray and K5_OPS_STEP per iteration over the
     float32 peak."""
-    return _bound(n * (24 + (4 if with_tmax else 0) + 33) + 4 * table_words,
+    return _bound(n * (24 + (4 if with_tmax else 0) + 33)
+                  + word_bytes * table_words,
                   n * K5_OPS_RAY + steps * K5_OPS_STEP)
+
+
+def graph_ms(fn, reps=20, windows=5) -> float:
+    """Device time (ms) per call of ``fn`` without the host's launch cost,
+    the cross-check of the profiler: ``reps`` calls captured in one CUDA
+    graph, then the median over ``windows`` replays of CUDA events around
+    one replay, over ``reps``. The gaps between the graph's kernels stay
+    in it, so it reads a little above the profiler's device time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def sass_opcodes(kernel: str, listing: Path) -> dict:
+    """Opcode -> count in the SASS of ``kernel`` (``cuobjdump -sass`` of
+    the built library, the toolkit's cuobjdump beside nvcc), whose lines
+    are written to ``listing``."""
+    from vxtpu_torch import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    ops, inside, lines = {}, False, []
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)", line)
+            if m:
+                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+                lines.append(line)
+    listing.parent.mkdir(parents=True, exist_ok=True)
+    listing.write_text("\n".join(lines) + "\n")
+    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def k5_rays(device) -> dict:
+    """K5's ray sets at the main paths' shapes, built as phase 8 builds
+    them: name -> (o, d, t_max, accel, dims, max_steps). ``c3``: the
+    c3_256_shadows frame's primary rays (256^3 terrain seed 7, 1024x1024);
+    ``c3_shadow``: their shadow rays toward the config's light (t_max
+    set); ``512``: phase 4's 512^3 seed-7 1080x1920 lambert rays."""
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.app.run import build_scene
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_packed as kp
+    from vxtpu_torch.render.pipeline import shadow_ray_batch
+    from vxtpu_torch.world import procgen
+    from vxtpu_torch.world.packed import build_packed
+
+    cfg = CONFIGS["c3_256_shadows"]
+    dims = (256,) * 3
+    _, accel, cam, lights = build_scene(cfg, dims, "packed", device)
+    ms = cfg.settings.resolve_max_steps(dims)
+    o, d = generate_rays(cam, 1024, 1024)
+    sp, sd, stm = shadow_ray_batch(kp.march_packed(o, d, accel, dims, ms),
+                                   o, d, lights.pos[0])
+    big = procgen.terrain((FULL,) * 3, seed=7, device=device)
+    _, requests = _main_scene(device, FULL)
+    _, bcam, lam, _ = requests[0]
+    bo, bd = generate_rays(bcam, H, W)
+    return {"c3": (o, d, None, accel, dims, ms),
+            "c3_shadow": (sp, sd, stm, accel, dims, ms),
+            "512": (bo, bd, None, build_packed(big.occupancy), big.dims,
+                    lam.resolve_max_steps(big.dims))}
+
+
+def k5_times(rays: dict, device, reps=20, rounds=3, record=False,
+             prefix="K5 alone") -> dict:
+    """K5 alone on each ray set of ``rays`` (name -> (o, d, t_max, accel,
+    dims, max_steps)): K5 against its plain version (raises on any
+    mismatch), the iterations, the distinct table words the plain march
+    reads, the bound with them at 2 B (``bound_ms``) and at 4 B
+    (``bound_int32_ms``); on the GPU, K5's device time per launch (the
+    median of ``rounds`` profiler windows of ``reps`` launches,
+    render/probe.py:device_ms), the same launches replayed from one CUDA
+    graph (``graph_ms``) and, with ``record``, the device time of each
+    launch of one more profiler window (``launch_us``)."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.render import kernel_packed as kp
+    from vxtpu_torch.render import probe
+
+    out = {}
+    for name, (o, d, tm, acc, dims, ms) in rays.items():
+        with _logged_fetch(kp, acc.words) as log:
+            ref = kp.march_packed_reference(o, d, acc, dims, ms, t_max=tm)
+        m = kc.packed_mismatch(kp.march_packed(o, d, acc, dims, ms, t_max=tm),
+                               ref)
+        kc.check_packed(m, f"K5 {name}")
+        steps = int(ref.steps.sum(dtype=torch.int64))
+        bound = k5_bound(o.shape[0], steps, tm is not None, log.count())
+        row = dict(n=o.shape[0], steps=steps, table_words=log.count(),
+                   t_abs=m["t_abs"], bound_ms=bound["bound_ms"],
+                   bound_by=bound["bound_by"],
+                   bound_int32_ms=k5_bound(o.shape[0], steps, tm is not None,
+                                           log.count(), 4)["bound_ms"],
+                   bound_rays_only_ms=k5_bound(o.shape[0], steps,
+                                               tm is not None)["bound_ms"])
+        line = ""
+        if device.type == "cuda":
+            fn = lambda: kp.march_packed(o, d, acc, dims, ms, t_max=tm)
+            row["device_ms_rounds"] = [
+                probe.device_ms(fn, reps, "march_packed_kernel")
+                for _ in range(rounds)]
+            row["device_ms"] = statistics.median(row["device_ms_rounds"])
+            row["graph_ms"] = graph_ms(fn, reps)
+            line = (f"; device {row['device_ms']:.5f} ms per launch "
+                    f"(profiler windows of {reps}: "
+                    + ", ".join(f"{t:.5f}" for t in row["device_ms_rounds"])
+                    + f"), CUDA graph {row['graph_ms']:.5f}; bound / time "
+                    f"{row['bound_ms'] / row['device_ms']:.3f}")
+            if record:
+                row["launch_us"] = probe.launch_us(fn, reps,
+                                                   "march_packed_kernel")
+                line += (f"; one more window, {len(row['launch_us'])} of "
+                         f"{reps} launches recorded, us: "
+                         + " ".join(f"{u:.2f}" for u in row["launch_us"]))
+        print(f"{prefix} {name}: {row['n']} rays, {steps} iterations, "
+              f"{row['table_words']} table words; 0 mismatches, max |dt| "
+              f"{m['t_abs']:.3g}; bound {row['bound_ms']:.5f} ms by "
+              f"{row['bound_by']} (table words at 2 B; "
+              f"{row['bound_int32_ms']:.5f} at 4 B, "
+              f"{row['bound_rays_only_ms']:.5f} without){line}")
+        out[name] = row
+    return out
 
 
 def _run_cli(argv) -> list:
@@ -639,31 +803,19 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     _sync(device)
     print(f"phase 8 pipeline: {cfg.name} at {D}^3: terrain + row-major table "
           f"in {time.perf_counter() - t0:.2f} s; table "
-          f"{accel.words.numel() * 4 / 2**20:.0f} MiB int32")
+          f"{accel.words.numel() * 4 / 2**20:.0f} MiB int32, its bricked copy "
+          f"(K5's) {accel.bricks.numel() * 2 / 2**20:.0f} MiB 16-bit")
     settings = cfg.settings
     ms = settings.resolve_max_steps(dims)
     o, d = generate_rays(cam, h, w)
     rec = kp.march_packed(o, d, accel, dims, ms)
-    with _logged_fetch(kp, accel.words) as log:
-        ref = kp.march_packed_reference(o, d, accel, dims, ms)
-    table_words = log.count()
-    m = kc.packed_mismatch(rec, ref)
-    kc.check_packed(m, "K5 c3 primary rays")
-    err = max(err, m["t_abs"])
     sp, sd, stm = shadow_ray_batch(rec, o, d, lights.pos[0])
-    srec = kp.march_packed(sp, sd, accel, dims, ms, t_max=stm)
-    sref = kp.march_packed_reference(sp, sd, accel, dims, ms, t_max=stm)
-    sm = kc.packed_mismatch(srec, sref)
-    kc.check_packed(sm, "K5 c3 shadow rays")
-    err = max(err, sm["t_abs"])
-    steps = int(rec.steps.sum(dtype=torch.int64))
-    ssteps = int(srec.steps.sum(dtype=torch.int64))
-    print(f"phase 8 pipeline: K5 vs plain on all {m['n']} primary rays of the "
-          f"{h}x{w} frame: mismatches hit/voxel/normal/steps "
-          f"{m['hit']}/{m['voxel']}/{m['normal']}/{m['steps']}, max |dt| "
-          f"{m['t_abs']:.3g}; on their {sm['n']} shadow rays "
-          f"{sm['hit']}/{sm['voxel']}/{sm['normal']}/{sm['steps']}, max |dt| "
-          f"{sm['t_abs']:.3g}")
+    # K5 against its plain version on every primary and shadow ray of the
+    # frame, exactly; their bounds; on the card K5's device times
+    k5 = k5_times({"c3": (o, d, None, accel, dims, ms),
+                   "c3_shadow": (sp, sd, stm, accel, dims, ms)}, device,
+                  record=True, prefix="phase 8 pipeline: K5 alone")
+    err = max(err, k5["c3"]["t_abs"], k5["c3_shadow"]["t_abs"])
 
     # the main path, counted: the frame, and the frame with the atlas
     atlas = build_procedural_atlas(tex_size=16, device=device)
@@ -700,22 +852,12 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
                                                      t_max=stm), device, runs)
     plain_ms = median_ms(lambda: kp.march_packed_reference(
         o, d, accel, dims, ms), device, 3)
-    bound = k5_bound(h * w, steps, False, table_words)
     times = dict(ms=k5_ms, plain_ms=plain_ms, shadow_ms=k5_shadow_ms,
-                 frame_ms=frame_ms, steps=steps, shadow_steps=ssteps,
-                 bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                 bound_rays_only_ms=k5_bound(h * w, steps, False)["bound_ms"],
-                 table_words=table_words)
-    sb = k5_bound(h * w, ssteps, True)
+                 frame_ms=frame_ms, **k5)
     print(f"phase 8 pipeline: c3 frame {frame_ms:.3f} ms "
-          f"({h * w / frame_ms / 1e3:.1f} Mrays/s); K5 alone on the primary "
-          f"rays {k5_ms:.3f} ms (bound {bound['bound_ms']:.4f} ms by "
-          f"{bound['bound_by']} with the {table_words} table words its "
-          f"marches read, {times['bound_rays_only_ms']:.4f} ms without), "
-          f"on the shadow rays {k5_shadow_ms:.3f} ms "
-          f"(bound {sb['bound_ms']:.4f} ms by {sb['bound_by']}); plain "
-          f"{plain_ms:.1f} ms; rec.steps total primary {steps} shadow "
-          f"{ssteps}")
+          f"({h * w / frame_ms / 1e3:.1f} Mrays/s); K5 a call (events) on "
+          f"the primary rays {k5_ms:.3f} ms, on the shadow rays "
+          f"{k5_shadow_ms:.3f} ms; plain {plain_ms:.1f} ms")
     if device.type == "cuda":
         kernels, dense, wall = _profile_step(
             lambda: render_image(kp.make_march_packed, grid, cam, lights,
@@ -729,7 +871,7 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
         for name, kms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
             print(f"phase 8 pipeline:   kernel {kms:8.3f} ms  {name[:90]}")
         times["profile"] = dict(wall_ms=wall, busy_ms=busy, k5_ms=k5_dev)
-    del grid, img, img_atlas, rec, ref, srec, sref
+    del grid, img, img_atlas, rec
 
     # K5 against K1 (march-only) on phase 4's lambert frame
     B = big_grid.dims[0]
@@ -760,36 +902,35 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
                                        lam), device, runs)
     f1 = median_ms(lambda: render_rays(m1, bo, bd, albedo, bdims, light,
                                        lam), device, runs)
-    s5 = int(r5.steps.sum(dtype=torch.int64))
     print(f"phase 8 pipeline: K5 vs K1 at {B}^3 {bh}x{bw} lambert: hit, t, "
           f"voxel and normal agree on {share * 100:.4f}% of the {n_hit} rays "
           f"that either hits; of the {int(misses.sum())} misses, voxel "
           f"differs on {miss_vox} and steps on {miss_steps} (K5's contract); "
-          f"rgb beyond {kc.RGB_ATOL} on {img_same} px. K5 alone {b5:.3f} ms "
-          f"on a {bpacked.words.numel() * 4 / 2**20:.0f} MiB table, K1 "
-          f"march-only {b1:.3f} ms; pipeline frame K5 {f5:.3f} ms, K1 "
-          f"{f1:.3f} ms; K5 iterations {s5}")
+          f"rgb beyond {kc.RGB_ATOL} on {img_same} px. A call (events): K5 "
+          f"{b5:.3f} ms on a {bpacked.bricks.numel() * 2 / 2**20:.0f} MiB "
+          f"bricked table, K1 march-only {b1:.3f} ms; pipeline frame K5 "
+          f"{f5:.3f} ms, K1 {f1:.3f} ms")
     if share < 0.999:
         raise AssertionError(f"K5 and K1 agree on only {share:.5f} of the "
                              f"hit rays")
+    k5b = k5_times({"512": (bo, bd, None, bpacked, bdims,
+                            lam.resolve_max_steps(bdims))}, device,
+                   record=True, prefix="phase 8 pipeline: K5 alone")["512"]
+    err = max(err, k5b["t_abs"])
     times["big"] = dict(k5_ms=b5, k1_ms=b1, frame_k5_ms=f5, frame_k1_ms=f1,
-                        agree=share, steps=s5)
+                        agree=share, k5=k5b)
     if device.type == "cuda":
-        # device times: events around one call measure its launch too
-        for tag, fn in (("K5", lambda: m5(bo, bd)),
-                        ("K1", lambda: m1(bo, bd))):
-            kernels, _, _ = _profile_step(fn, device, big=bh * bw, steps=5)
-            dev = max(kernels.values())
-            times["big"][f"{tag.lower()}_device_ms"] = dev
-            print(f"phase 8 pipeline: {tag} march alone at {B}^3 {bh}x{bw}: "
-                  f"{dev:.4f} ms of device time per launch (profiler, 5 "
-                  f"launches)")
-        kernels, _, _ = _profile_step(
-            lambda: kp.march_packed(o, d, accel, dims, ms), device, big=h * w,
-            steps=5)
-        times["device_ms"] = max(kernels.values())
-        print(f"phase 8 pipeline: K5 alone on the c3 primary rays: "
-              f"{times['device_ms']:.4f} ms of device time per launch")
+        from vxtpu_torch import _build
+        from vxtpu_torch.render.probe import device_ms
+
+        dev = device_ms(lambda: m1(bo, bd), 10, "march_shade")
+        times["big"]["k1_device_ms"] = dev
+        print(f"phase 8 pipeline: K1 march alone at {B}^3 {bh}x{bw}: "
+              f"{dev:.4f} ms of device time per launch (profiler, 10 "
+              f"launches)")
+        times["blocks_per_sm"] = _build.load().vx_march_packed_blocks_per_sm()
+        print(f"phase 8 pipeline: K5 holds {times['blocks_per_sm']} blocks of "
+              f"256 threads an SM")
     del bpacked, m5, m1, r5, r1, rgb5, rgb1
 
     # the commands themselves
@@ -855,15 +996,17 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     return {"launches": launches, "err": err, "times": times}
 
 
-def k1r_bound(n, steps, resumed, with_tmax) -> dict:
+def k1r_bound(n, steps, resumed, with_tmax, table_words=0) -> dict:
     """Least time (ms) of one K1' launch over n rays that take ``steps``
     DDA steps in all: each ray's inputs (o, d: 24 B; t_max: 4 B; the
     resume state voxel, dist, steps: 20 B) read once and its outputs (hit
     1, t 4, voxel 12, normal 12, steps 4, done 1, dist 4 B) written once,
-    over the HBM rate; the table words the marches read are not counted
-    (as for K1). Operations: MARCH_OPS_RAY per ray and MARCH_OPS_STEP per
-    step over the float32 peak."""
+    and the ``table_words`` distinct int16 occupancy words its marches
+    read (counted on the plain march, as for K1), over the HBM rate.
+    Operations: MARCH_OPS_RAY per ray and MARCH_OPS_STEP per step over the
+    float32 peak."""
     b = n * (24 + (4 if with_tmax else 0) + (20 if resumed else 0) + 38)
+    b += 2 * table_words
     f = n * MARCH_OPS_RAY + steps * MARCH_OPS_STEP
     tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
     return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
@@ -1009,15 +1152,17 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
 
     # K1' against its plain version on every lambert ray
     r0k, e0k = km.march(o, d, accel, dims, ms, iter_budget=24, extended=True)
-    r0p, e0p = km.march_reference(o, d, accel, dims, ms, iter_budget=24,
-                                  extended=True)
+    with _logged_fetch(km, accel.words) as log0:
+        r0p, e0p = km.march_reference(o, d, accel, dims, ms, iter_budget=24,
+                                      extended=True)
     m0 = kc.resume_mismatch(r0k, e0k, r0p, e0p)
     state = (r0p.voxel, torch.where(e0p["done"], -1, e0p["dist"]),
              r0p.steps)
     r1k, e1k = km.march(o, d, accel, dims, ms, resume_state=state,
                         extended=True)
-    r1p, e1p = km.march_reference(o, d, accel, dims, ms,
-                                  resume_state=state, extended=True)
+    with _logged_fetch(km, accel.words) as log1:
+        r1p, e1p = km.march_reference(o, d, accel, dims, ms,
+                                      resume_state=state, extended=True)
     m1 = kc.resume_mismatch(r1k, e1k, r1p, e1p)
     merged = kc.exact_mismatch(kc.merge_rounds(e0k["done"], r0k, r1k),
                                single["lambert"])
@@ -1075,7 +1220,10 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
     steps0 = int((r0k.steps).sum(dtype=torch.int64))
     alive = ~e0k["done"]
     steps1 = int((r1k.steps - r0k.steps)[alive].sum(dtype=torch.int64))
-    times["bound0"] = k1r_bound(n, steps0, False, False)
+    words0, words1 = log0.count(), log1.count()
+    times["bound0"] = k1r_bound(n, steps0, False, False, words0)
+    times["bound0_rays_only_ms"] = k1r_bound(n, steps0, False,
+                                             False)["bound_ms"]
     if device.type == "cuda":
         round0 = lambda: km.march(o, d, accel, dims, ms, iter_budget=24,
                                   extended=True)
@@ -1106,17 +1254,26 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
                 lambda bo=bo, bd=bd, bs=bs: km.march(
                     bo, bd, accel, dims, ms, resume_state=bs, extended=True),
                 reps, "march_resume_kernel")
-        b1 = k1r_bound(n, steps1, True, False)
+        t["resume_launch_us"] = probe.launch_us(resume_all, reps,
+                                                "march_resume_kernel")
+        print(f"phase 9 resume: K1' resume of all rays, one more profiler "
+              f"window: {len(t['resume_launch_us'])} of {reps} launches "
+              f"recorded, us: "
+              + " ".join(f"{u:.2f}" for u in t["resume_launch_us"]))
+        b1 = k1r_bound(n, steps1, True, False, words1)
         times.update(t)
         times["bound1"] = b1
         print(f"phase 9 resume: device time per launch at {D}^3 {h}x{w} "
               f"(profiler, {reps} launches): K1' round 0 (budget 24) "
               f"{t['round0_ms']:.4f} ms (events {t['round0_events_ms']:.3f} "
               f"ms; bound {times['bound0']['bound_ms']:.4f} ms by "
-              f"{times['bound0']['bound_by']}; plain "
+              f"{times['bound0']['bound_by']} with the {words0} table words "
+              f"its plain march reads, {times['bound0_rays_only_ms']:.4f} ms "
+              f"without; plain "
               f"{t['round0_plain_ms']:.1f} ms); K1' resume of all rays "
               f"{t['resume_all_ms']:.4f} ms (bound {b1['bound_ms']:.4f} ms by "
-              f"{b1['bound_by']}); the {ids.numel()} survivors alone in "
+              f"{b1['bound_by']} with {words1} table words); the "
+              f"{ids.numel()} survivors alone in "
               f"launch order {t['survivors_launch_ms']:.4f} ms, in Morton "
               f"order {t['survivors_Morton_ms']:.4f} ms; K1 march-only "
               f"{t['k1_ms']:.4f} ms; round-0 steps {steps0}, resume steps "
@@ -1755,10 +1912,30 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--save", default=None,
                    help="directory for the main-path frames as PNGs")
+    p.add_argument("--k5-times", action="store_true",
+                   help="phases 1 and 2, then K5 alone on its three ray "
+                        "sets (k5_rays, k5_times) and a JSON line of the "
+                        "results; copied into a checkout of another commit, "
+                        "it times that commit's K5 the same way")
+    p.add_argument("--sass", default=None, metavar="FILE",
+                   help="with --k5-times: write K5's SASS listing to FILE "
+                        "and print its opcodes by count")
     args = p.parse_args(argv)
     _require_checkout()
     device, name, smi = phase_device()
     phase_build()
+    if args.k5_times:
+        from vxtpu_torch import _build
+
+        blocks = getattr(_build.load(), "vx_march_packed_blocks_per_sm", None)
+        out = {"blocks_per_sm": blocks() if blocks else None, "gpu": smi}
+        if args.sass:
+            out["sass"] = sass_opcodes("march_packed_kernel", Path(args.sass))
+            print(f"K5 SASS: {sum(out['sass'].values())} instructions; "
+                  + ", ".join(f"{k} {v}" for k, v in out["sass"].items()))
+        out["k5_times"] = k5_times(k5_rays(device), device)
+        print(json.dumps(out))
+        return 0
     err3 = phase_kernels(device)
     main_run = phase_main(device, save=args.save)
     cross_fingerprint(main_run["grid"], main_run["accel"])
@@ -1816,16 +1993,23 @@ def main(argv=None) -> int:
             "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
             "library_ms": tt[k]["library_ms"]})
     pt = pipe["times"]
+    c3, c3s, big = pt["c3"], pt["c3_shadow"], pt["big"]["k5"]
     kernels.append({
         "name": "march_packed_kernel", "route": "cuda",
         "source": "vxtpu_torch/csrc/march_packed.cu",
         "replaces": "vxtpu/render/kernel_pallas.py:85",
         "launches": pipe["launches"]["march_packed_kernel"],
         "max_abs_err": pipe["err"], "ms": pt["ms"],
-        "plain_ms": pt["plain_ms"], "bound_ms": pt["bound_ms"],
-        "bound_by": pt["bound_by"],
-        "bound_rays_only_ms": pt["bound_rays_only_ms"],
-        "table_words": pt["table_words"], "library_ms": None})
+        "device_ms": c3.get("device_ms"), "graph_ms": c3.get("graph_ms"),
+        "plain_ms": pt["plain_ms"], "bound_ms": c3["bound_ms"],
+        "bound_by": c3["bound_by"], "bound_int32_ms": c3["bound_int32_ms"],
+        "bound_rays_only_ms": c3["bound_rays_only_ms"],
+        "table_words": c3["table_words"],
+        "shadow_device_ms": c3s.get("device_ms"),
+        "shadow_bound_ms": c3s["bound_ms"],
+        "big_device_ms": big.get("device_ms"),
+        "big_graph_ms": big.get("graph_ms"), "big_bound_ms": big["bound_ms"],
+        "blocks_per_sm": pt.get("blocks_per_sm"), "library_ms": None})
     rt = resume["times"]
     kernels.append({
         "name": "march_resume_kernel", "route": "cuda",
@@ -1836,7 +2020,10 @@ def main(argv=None) -> int:
         "max_abs_err": resume["err"]["march_resume_kernel"],
         "ms": rt["round0_ms"], "plain_ms": rt["round0_plain_ms"],
         "bound_ms": rt["bound0"]["bound_ms"],
-        "bound_by": rt["bound0"]["bound_by"], "library_ms": None})
+        "bound_by": rt["bound0"]["bound_by"],
+        "bound_rays_only_ms": rt["bound0_rays_only_ms"],
+        "resume_ms": rt["resume_all_ms"],
+        "resume_bound_ms": rt["bound1"]["bound_ms"], "library_ms": None})
     full = next(r for r in rt["cost"] if (r["variant"], r["layout"],
                                           r["threads"]) ==
                 ("full", "morton16", 256))

@@ -201,6 +201,45 @@ def test_packed_march_kernel_matches_plain(cuda, name):
     assert kp.LAUNCHES["march_packed_kernel"] == 1
 
 
+def test_packed_march_takes_unaligned_rays_and_refuses_a_wrong_bricked_table(
+        cuda):
+    """The kernel reads each ray's o, d and t_max as scalars, so rays that
+    start 4 bytes past an aligned address (views into a larger buffer)
+    march as the plain version does; a bricked copy of the wrong size or
+    type raises."""
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.world.packed import PackedAccel, build_packed
+
+    dims = (32, 32, 32)
+    acc = build_packed(procgen.terrain(dims, seed=11, device=cuda).occupancy)
+    cam = kc._cameras_dims(dims, cuda)["outside"]
+    o, d = generate_rays(cam, 19, 27)                # 513 rays
+    n = o.shape[0]
+    views = []
+    for x in (o, d):
+        buf = torch.zeros(3 * n + 1, device=cuda)
+        buf[1:] = x.reshape(-1)
+        views.append(buf[1:].view(n, 3))
+    tbuf = torch.zeros(n + 1, device=cuda)
+    tbuf[1:] = 40.0
+    uo, ud, ut = views[0], views[1], tbuf[1:]
+    assert uo.data_ptr() % 16 and ud.data_ptr() % 16 and ut.data_ptr() % 16
+    ms = sum(dims) + 2
+    kp.reset_launch_counts()
+    rec = kp.march_packed(uo, ud, acc, dims, ms, t_max=ut)
+    assert kp.LAUNCHES["march_packed_kernel"] == 1
+    ref = kp.march_packed_reference(o, d, acc, dims, ms,
+                                    t_max=torch.full((n,), 40.0, device=cuda))
+    kc.check_packed(kc.packed_mismatch(rec, ref), "unaligned rays")
+    assert bool(rec.hit.any())
+    with pytest.raises(ValueError, match="bricks"):
+        kp.march_packed(o, d, PackedAccel(acc.words, acc.bricks[:-64]), dims,
+                        ms)
+    with pytest.raises(TypeError, match="bricks"):
+        kp.march_packed(o, d, PackedAccel(acc.words, acc.bricks.int()), dims,
+                        ms)
+
+
 def test_cuda_tensor_never_reaches_packed_plain_version(cuda, monkeypatch):
     """On CUDA tensors the pipeline's row-major march launches the kernel
     for the primary and the shadow rays: no plain version is called."""

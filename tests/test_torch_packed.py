@@ -69,8 +69,61 @@ def test_build_packed_equals_vxtpu(scene, dims):
     assert got.words.dtype == torch.int32
     assert got.words.shape == (dims[0] * dims[1] * dims[2] // 8,)
     np.testing.assert_array_equal(got.to_rows128_f32().numpy(), want)
-    assert torch.equal(got.words, convert.packed_accel_from_numpy(
-        want, dims, device=CPU).words)
+    conv = convert.packed_accel_from_numpy(want, dims, device=CPU)
+    assert torch.equal(got.words, conv.words)
+    assert torch.equal(got.bricks, conv.bricks)
+
+
+def _brick_readback(bricks, dims):
+    """Every coarse cell's word read back from a bricked table, in
+    row-major cell order, through the brick index written out here from
+    its definition: brick(cx>>2, cy>>2, cz>>2) * 64 + ((cx&3) << 4 |
+    (cy&3) << 2 | (cz&3)), bricks row-major over the coarse dims padded
+    up to multiples of 4. The uint16 bit patterns as int32."""
+    cx, cy, cz = (n // 2 for n in dims)
+    by, bz = -(-cy // 4), -(-cz // 4)
+    c = torch.arange(cx * cy * cz)
+    x, y, z = c // (cy * cz), (c // cz) % cy, c % cz
+    idx = ((((x >> 2) * by + (y >> 2)) * bz + (z >> 2)) * 64
+           + ((x & 3) << 4 | (y & 3) << 2 | (z & 3)))
+    return bricks.to(torch.int32)[idx] & 0xFFFF
+
+
+# 64^3, 48x80x32, and coarse dims 18x22x10, none a multiple of 4
+BRICK_DIMS = [(64, 64, 64), (48, 80, 32), (36, 44, 20)]
+
+
+@pytest.mark.parametrize("dims", BRICK_DIMS,
+                         ids=["x".join(map(str, d)) for d in BRICK_DIMS])
+def test_bricked_copy_of_vxtpu_words(dims):
+    """convert's PackedAccel of vxtpu's row-major words carries the bricked
+    16-bit copy the CUDA kernel reads: every cell's word, read back
+    through the brick index, equals words & 0xFFFF (and every word fits
+    16 bits); build_packed makes the same copy."""
+    want = np.asarray(jax_table("box", dims).words)
+    acc = convert.packed_accel_from_numpy(want, dims, device=CPU)
+    nb = 1
+    for n in dims:
+        nb *= -(-n // 8)
+    assert acc.bricks.dtype == torch.int16
+    assert acc.bricks.shape == (nb * 64,)
+    assert torch.equal(_brick_readback(acc.bricks, dims), acc.words & 0xFFFF)
+    assert torch.equal(acc.words & 0xFFFF, acc.words)
+    occ = convert.occupancy_from_numpy(
+        np.asarray(jax_scene("box", dims).occupancy), device=CPU)
+    assert torch.equal(packed.build_packed(occ).bricks, acc.bricks)
+
+
+def test_bricked_copy_keeps_all_16_bits():
+    """Words at and above 32768 (D >= 128) keep their bit pattern in the
+    int16 copy."""
+    dims = (36, 44, 20)
+    n = 18 * 22 * 10
+    words = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 65536, n).astype(np.int32))
+    words[:2] = torch.tensor([32768, 65535], dtype=torch.int32)
+    got = _brick_readback(packed.brick_words(words, dims), dims)
+    assert torch.equal(got, words)
 
 
 def test_odd_dims_raise():
@@ -195,5 +248,5 @@ def test_march_packed_rejects_bad_inputs():
     with pytest.raises(ValueError):
         march_packed(o, d, acc, (8, 8, 7), 26)
     with pytest.raises(TypeError):
-        march_packed(o, d, packed.PackedAccel(acc.words.to(torch.int16)),
-                     (8, 8, 8), 26)
+        march_packed(o, d, packed.PackedAccel(acc.words.to(torch.int16),
+                                              acc.bricks), (8, 8, 8), 26)

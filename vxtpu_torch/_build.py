@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
         _P, _P, _P, _P, _P,                               # outputs
         _P]                                               # stream
     lib.vx_march_packed.restype = _I
+    lib.vx_march_packed_blocks_per_sm.argtypes = []
+    lib.vx_march_packed_blocks_per_sm.restype = _I
     lib.vx_sample_fwd.argtypes = [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P,
                                   _P]
     lib.vx_sample_fwd.restype = _I

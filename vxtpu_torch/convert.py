@@ -12,7 +12,8 @@ import torch
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.device import DEFAULT, resolve
 from vxtpu_torch.world.lights import Lights
-from vxtpu_torch.world.packed import PackedAccel, PackedMorton, coarse_dims
+from vxtpu_torch.world.packed import (PackedAccel, PackedMorton, coarse_dims,
+                                      packed_accel)
 
 
 def occupancy_from_numpy(occ: np.ndarray, device=DEFAULT) -> torch.Tensor:
@@ -47,10 +48,11 @@ def packed_morton_from_numpy(words_f32_rows128: np.ndarray, dims,
 
 def packed_accel_from_numpy(words_f32_rows128: np.ndarray, dims,
                             device=DEFAULT) -> PackedAccel:
-    """vxtpu ``PackedAccel.words`` (row-major) -> int32 [cx*cy*cz]."""
+    """vxtpu ``PackedAccel.words`` (row-major) -> int32 [cx*cy*cz], with
+    its bricked 16-bit copy."""
     cx, cy, cz = coarse_dims(dims)
-    return PackedAccel(words=_flat_words(words_f32_rows128, cx * cy * cz,
-                                         torch.int32, device))
+    return packed_accel(_flat_words(words_f32_rows128, cx * cy * cz,
+                                    torch.int32, device), dims)
 
 
 def resume_state_from_numpy(voxel, dist, steps, done,

@@ -386,9 +386,13 @@ PACKED_T_ATOL = 1e-6
 PACKED_CASES = ([f"{s}-{c}" for s in ("box", "sphere", "terrain")
                  for c in ("outside", "inside")]
                 + ["terrain-outside-tmax", "terrain-outside-shadow",
-                   "terrain-outside-n117", "terrain_64x64x32-outside",
-                   "terrain_64x64x32-inside", "terrain_48x80x32-outside",
+                   "terrain-outside-n117", "terrain-outside-shadow-n1961",
+                   "terrain_64x64x32-outside", "terrain_64x64x32-inside",
+                   "terrain_48x80x32-outside", "terrain_36x44x20-outside",
                    "sphere_48x80x32-outside-shadow"])
+# ray counts of the n<N> variants (h, w): 117 rays fill no block of 256;
+# 1961 leave a partial last block after 7 whole ones
+PACKED_RAYS = {"n117": (9, 13), "n1961": (37, 53)}
 
 
 def packed_mismatch(a: km.HitRecord, b: km.HitRecord) -> dict:
@@ -403,7 +407,8 @@ def run_packed_case(name: str, device, D: int = 64, h: int = 256,
     """march_packed (the kernel) vs march_packed_reference on one scene and
     ray set: a camera's rays, capped at t_max = 1.2 D ('tmax'), or the
     shadow rays toward a light from the plain march's hits ('shadow');
-    'n117' takes 9 x 13 rays, no multiple of the block size."""
+    'n117' and 'n1961' take PACKED_RAYS' h x w rays, no multiple of the
+    kernel's 256-thread block."""
     scene, cam_name, *rest = name.split("-")
     scene, _, size = scene.partition("_")
     dims = tuple(int(x) for x in size.split("x")) if size else (D,) * 3
@@ -417,14 +422,14 @@ def run_packed_case(name: str, device, D: int = 64, h: int = 256,
     else:
         grid = procgen.terrain(dims, seed=11, device=device)
     acc = build_packed(grid.occupancy)
-    if rest == ["n117"]:
-        h, w = 9, 13
+    for v in rest:
+        h, w = PACKED_RAYS.get(v, (h, w))
     o, d = generate_rays(_cameras_dims(dims, device)[cam_name], h, w)
     ms = sum(dims) + 2
     t_max = None
-    if rest == ["tmax"]:
+    if "tmax" in rest:
         t_max = torch.full((o.shape[0],), 1.2 * max(dims), device=device)
-    elif rest == ["shadow"]:
+    elif "shadow" in rest:
         X, Y, Z = dims
         light = torch.tensor((0.8 * X, -0.3 * Y, 1.9 * Z), device=device)
         prim = kp.march_packed_reference(o, d, acc, dims, ms)

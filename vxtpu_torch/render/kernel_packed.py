@@ -8,14 +8,19 @@ factory of the composable pipeline (``render/pipeline.py``). The kernel,
 ``march_packed_kernel``, is hand-written CUDA C++ in
 ``vxtpu_torch/csrc/march_packed.cu``, built for sm_90a at first use.
 
-What bounds it on an H100: one thread per ray runs a divergent loop whose
-every change of coarse cell is a dependent table read, so the march is
-latency-bound on those reads, not on bandwidth or arithmetic. What the
-design does about it: the int32 row-major table (8 MB at 256^3) stays
-resident in the 50 MB L2 and is read through the read-only path; the
-current cell's word stays in registers, so steps inside one 2x2x2 cell
-read nothing; empty space is crossed in one jump per empty box. At 512^3
-(a 64 MB table) the reads spill out of L2.
+What bounds it on an H100: one thread per ray runs a divergent loop of a
+few iterations, some hundred instructions each, whose every change of
+coarse cell is a dependent table read; the kernel is bound by
+instruction issue and latency, and its byte bound (the ray I/O) is less
+than half its time. What the design does about it: each step forms the
+one face per axis the ray leaves by, as an exact integer, and reads the
+table only when the ray changes cell; fewer live values let 6 blocks of
+256 threads share an SM; and the kernel reads ``PackedAccel.bricks``, a
+16-bit copy of the words in 4x4x4-cell bricks of one 128-byte line
+(``world/packed.py``): 4 MiB at 256^3 and 32 MiB at 512^3, both
+resident in the 50 MB L2 (the int32 table at 512^3, 64 MiB, is not).
+The current cell's word stays in registers, so steps inside one 2x2x2
+cell read nothing; empty space is crossed in one jump per empty box.
 
 The per-ray contract is vxtpu v1's, which differs from the fused march
 (``kernel_march.march_reference``) in five places:
@@ -29,7 +34,8 @@ The per-ray contract is vxtpu v1's, which differs from the fused march
      t_enter <= t_max, so a valid ray with t_enter > t_max takes one
      iteration and stops with steps = 1;
   5. the word is child_bits | D << 8 (D = 0: the cell is occupied), the
-     cell index row-major over ``coarse_dims``, which need only be even.
+     cell index row-major over ``coarse_dims``, which need only be even
+     (the kernel reads the same words from their bricked copy).
 
 On a CUDA tensor ``march_packed`` launches the kernel (or raises); on a
 CPU tensor it runs ``march_packed_reference``.
@@ -47,7 +53,8 @@ from vxtpu_torch.render.kernel_march import (BIG, BIG_T, EPS, _check,
                                              _ptr)
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.types import HitRecord
-from vxtpu_torch.world.packed import PackedAccel, build_packed, coarse_dims
+from vxtpu_torch.world.packed import (BRICK, PackedAccel, brick_dims,
+                                      build_packed, coarse_dims)
 
 # Kernel launches since the last reset_launch_counts(). The wrapper adds
 # one where it launches the kernel, and nowhere else.
@@ -214,6 +221,9 @@ def march_packed(o: torch.Tensor, d: torch.Tensor, accel: PackedAccel,
     if kind == "cpu":
         return march_packed_reference(o, d, accel, dims, max_steps, t_max)
 
+    bx, by, bz = brick_dims(dims)
+    _check("accel.bricks", accel.bricks, torch.int16,
+           (bx * by * bz * BRICK ** 3,), device)
     from vxtpu_torch import _build
 
     lib = _build.load()
@@ -225,7 +235,7 @@ def march_packed(o: torch.Tensor, d: torch.Tensor, accel: PackedAccel,
     steps = torch.empty(n, dtype=torch.int32, device=device)
     if n:
         rc = lib.vx_march_packed(
-            _ptr(o), _ptr(d), _ptr(t_max), n, _ptr(accel.words), X, Y, Z,
+            _ptr(o), _ptr(d), _ptr(t_max), n, _ptr(accel.bricks), X, Y, Z,
             max_steps, _ptr(hit), _ptr(t), _ptr(voxel), _ptr(normal),
             _ptr(steps), torch.cuda.current_stream(device).cuda_stream)
         if rc:

@@ -238,16 +238,10 @@ def _events_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def _device_us(e) -> float:
-    us = getattr(e, "self_device_time_total", None)
-    return us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
-
-
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Device time (ms) per launch of the kernels whose name holds
-    ``kernel``, from torch.profiler over ``reps`` calls after a warm-up:
-    their summed device time over the launches it recorded (it can drop
-    some). Raises if it recorded none."""
+def launch_us(fn, reps: int, kernel: str) -> list:
+    """Device time (us) of each launch of the kernels whose name holds
+    ``kernel`` that torch.profiler recorded over ``reps`` calls after a
+    warm-up, in the order they ran (it can drop some)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,12 +252,24 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    seen = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in seen)
-    if not launches:
-        raise RuntimeError(f"the profiler saw no {kernel} on the device")
-    return sum(_device_us(e) for e in seen) / 1e3 / launches
+    seen = sorted((e.time_range.start, e.time_range.elapsed_us())
+                  for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and kernel in e.name)
+    return [us for _, us in seen]
+
+
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device time (ms) per launch of the kernels whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls after a warm-up:
+    their summed device time over the launches it recorded. It can drop
+    some launches, and now and then a whole window: such a window is
+    taken again, three windows at most. Raises if none recorded one."""
+    for _ in range(3):
+        us = launch_us(fn, reps, kernel)
+        if us:
+            return sum(us) / len(us) / 1e3
+    raise RuntimeError(f"the profiler saw no {kernel} on the device in "
+                       f"three windows")
 
 
 def cost_probe(o: torch.Tensor, d: torch.Tensor, tables: dict, dims,

@@ -5,9 +5,14 @@ Row-major (``build_packed``, the table of the row-major march kernel):
 cell c = 2x2x2 fine voxels, word[c] = child_bits | (D << 8), D = 0 iff
 the cell holds a solid voxel, else its coarse chessboard distance to the
 nearest occupied cell (capped). The cell's linear index is
-``(cx * cyd + cy) * czd + cz`` over ``coarse_dims`` (any even dims). On
-the GPU the table is int32 [cx*cy*cz] (a word reaches 65,535 with cap up
-to 255, too much for int16; 8 MB at 256^3).
+``(cx * cyd + cy) * czd + cz`` over ``coarse_dims`` (any even dims). The
+table is int32 [cx*cy*cz] (8 MB at 256^3), the layout the plain march and
+the comparisons with vxtpu read. A word reaches 65,535 (D <= 255), so a
+``uint16`` holds every word: ``brick_words`` makes the 16-bit copy the
+CUDA kernel reads, in bricks of 4x4x4 coarse cells, one 128-byte line
+each (4 MiB at 256^3, 32 MiB at 512^3). ``packed_accel`` pairs the two;
+``build_packed`` and ``convert.packed_accel_from_numpy`` both go through
+it.
 
 Morton (``build_packed_morton``, the table of the fused march kernel):
     cell c = 2x2x2 fine voxels; its signed occupancy word is
@@ -99,22 +104,57 @@ def _packed_words(occupancy: torch.Tensor, cap: int) -> torch.Tensor:
     return bits | (d << 8)
 
 
+BRICK = 4     # coarse cells a brick spans on each axis
+
+
+def brick_dims(dims) -> tuple[int, int, int]:
+    """Bricks of the bricked table on each axis: the coarse dims of even
+    fine dims, padded up to multiples of BRICK, over BRICK."""
+    return tuple(-(-n // BRICK) for n in coarse_dims(dims))  # type: ignore
+
+
+def brick_words(words: torch.Tensor, dims) -> torch.Tensor:
+    """The bricked 16-bit copy of a row-major word table: int16 [BX*BY*BZ
+    * 64] holding each word's uint16 bit pattern, the word of coarse cell
+    (cx, cy, cz) at ``brick(cx>>2, cy>>2, cz>>2) * 64 + ((cx&3) << 4 |
+    (cy&3) << 2 | (cz&3))``, bricks row-major over ``brick_dims``. The
+    padding cells hold 0 and no march reads them."""
+    cx, cy, cz = coarse_dims(dims)
+    bx, by, bz = brick_dims(dims)
+    pad = torch.zeros((bx * BRICK, by * BRICK, bz * BRICK),
+                      dtype=torch.int32, device=words.device)
+    pad[:cx, :cy, :cz] = words.reshape(cx, cy, cz)
+    b = pad.reshape(bx, BRICK, by, BRICK, bz, BRICK).permute(0, 2, 4, 1, 3, 5)
+    # the uint16 bit pattern as int16: 32768..65535 -> -32768..-1
+    return (((b.reshape(-1) + 32768) & 0xFFFF) - 32768).to(torch.int16)
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedAccel:
     """words: int32 [cx*cy*cz], child_bits | D << 8 of each coarse cell in
-    row-major order."""
+    row-major order, which the plain march and the comparisons with vxtpu
+    read; bricks: the same words as ``brick_words`` lays them out, which
+    the CUDA kernel reads. Make both with ``packed_accel``."""
 
     words: torch.Tensor
+    bricks: torch.Tensor
 
     def to_rows128_f32(self) -> torch.Tensor:
         """vxtpu's ``PackedAccel.words`` layout (comparisons only)."""
         return rows128_f32(self.words)
 
 
+def packed_accel(words: torch.Tensor, dims) -> PackedAccel:
+    """The PackedAccel of a flat int32 row-major word table of fine grid
+    ``dims``: the words and their bricked 16-bit copy."""
+    return PackedAccel(words=words, bricks=brick_words(words, dims))
+
+
 def build_packed(occupancy: torch.Tensor, cap: int = 64) -> PackedAccel:
     """Row-major word table of a uint8 occupancy grid [X, Y, Z] (even
-    dims)."""
-    return PackedAccel(words=_packed_words(occupancy, cap).reshape(-1))
+    dims), with its bricked copy."""
+    return packed_accel(_packed_words(occupancy, cap).reshape(-1),
+                        occupancy.shape)
 
 
 @dataclasses.dataclass(frozen=True)
