@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive vxtpu_torch's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--save DIR] [--k5-times]
+    python3 chip_smoke.py [--save DIR] [--k5-times | --k1-times] [--sass FILE]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.
 Phases, each printing what it found (any failure raises, exit code != 0):
@@ -9,15 +9,19 @@ Phases, each printing what it found (any failure raises, exit code != 0):
   1. device  the card's name and power limit (nvidia-smi);
   2. build   compile the CUDA kernels of vxtpu_torch/csrc with nvcc;
   3. kernels each kernel against its plain PyTorch version on the card,
-             64^3 scenes at 256x256 (vxtpu_torch.kernel_check);
+             64^3 scenes at 256x256 (vxtpu_torch.kernel_check), each
+             instantiation of K1 (march_shade_kernel) on every ray and
+             pixel;
   4. main    the full-size path: 512^3 terrain (seed 7), Morton tables,
              and five 1080x1920 frames through render_frame_fused
              (outside camera lambert; full + shadows + fog in-kernel and
              composed; the bench's inside camera, which sits in solid rock,
-             lambert; an inside camera in the air, lambert). Launch counts,
-             finiteness,
-             hit fraction, agreement with the plain versions, median
-             frame times and total march steps;
+             lambert; an inside camera in the air, lambert). Launch counts
+             (K1's by instantiation), finiteness, hit fraction, agreement
+             with the plain versions (K1: hit, voxel, normal and steps on
+             every ray, rgb within 1e-5 on every pixel), median frame
+             times, the kernel alone (events and profiler device time)
+             and total march steps;
   5. cross   the 512^3 world fingerprint and the frame of the 128^3 entry
              scene against the JAX package's data in vxtpu_torch/data;
   6. train   the config-4 trainer (c4_512_diff as its config defines it):
@@ -47,7 +51,12 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              frame (256^3 terrain seed 7, per-voxel RGB,
              1024x1024, full + shadows + fog) through render_image, with
              and without the face-texture atlas; K5 against K1 (march-
-             only) on the 512^3/1080p lambert frame of phase 4; K5's
+             only) on the 512^3/1080p lambert frame of phase 4; K1 alone
+             on those rays in each launch mode (march only, lambert, full
+             + shadows + fog) and K1' round 0, each against its plain
+             version and its own bound, with its device time (profiler,
+             CUDA graph) and the blocks an SM of each K1 instantiation
+             (k1_times, k1_occupancy); K5's
              device time per launch on the c3 primary and shadow rays and
              at 512^3 (profiler; cross-checked by the same launches
              replayed from a CUDA graph; one window's launches listed),
@@ -96,9 +105,16 @@ the bounds without them are kept as bound_rays_only_ms); the last line
 is {"ok": true, "device": {...}}.
 --save DIR writes the main-path frames there as PNGs. --k5-times runs
 phases 1 and 2, then K5 alone on its three ray sets as phase 8 times it
-(k5_rays, k5_times), and prints one JSON line; copied into a checkout of
-another commit, it times that commit's K5 the same way, so that two
-commits can be compared in turns on one card.
+(k5_rays, k5_times), and prints one JSON line; --k1-times runs phases 1
+and 2, then K1 alone in each launch mode and K1' round 0 on phase 4's
+512^3 rays as phase 8 times them (k1_world, k1_times), the registers and
+spills of each K1 instantiation (ptxas) and its blocks an SM (the CUDA
+occupancy API), and prints one JSON line. Copied into a checkout of
+another commit, either times that commit's kernel the same way, so that
+two commits can be compared in turns on one card (--k1-times needs a
+commit whose kernel_check has check_exact). --sass FILE writes the
+kernel's SASS listing there and prints its opcodes by count (K1's by
+instantiation).
 """
 
 from __future__ import annotations
@@ -210,31 +226,50 @@ def phase_device():
 def _kernel_name(mangled: str) -> str:
     """A kernel's name, with its integer template arguments, from its
     mangled name."""
-    m = re.search(r"([A-Za-z_]+_kernel)(I((?:L[ib]-?\d+E)+)E)?", mangled)
+    m = re.search(r"([A-Za-z_]+_kernel)(I((?:L[ib]n?\d+E)+)E)?", mangled)
     if not m:
         return mangled
-    args = re.findall(r"L[ib](-?\d+)E", m.group(3) or "")
+    # the Itanium ABI writes a negative argument as n<digits>
+    args = [a.replace("n", "-") for a in
+            re.findall(r"L[ib](n?\d+)E", m.group(3) or "")]
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
-def phase_build() -> float:
+def ptxas_usage() -> dict:
+    """Kernel name -> its registers, stack frame and spill bytes, from the
+    ptxas lines of the build log."""
+    from vxtpu_torch import _build
+
+    log = _build.library_path().with_suffix(".log")
+    usage, name, frame = {}, "?", {}
+    for line in log.read_text().splitlines() if log.exists() else []:
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+        elif "spill" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            frame = dict(zip(("stack", "spill_stores", "spill_loads"), nums))
+        elif "registers" in line:
+            usage[name] = dict(
+                registers=int(re.search(r"Used (\d+) registers",
+                                        line).group(1)),
+                line=f"{line.split(':', 1)[1].strip()}", **frame)
+    return usage
+
+
+def phase_build() -> dict:
     from vxtpu_torch import _build
 
     t0 = time.perf_counter()
     _build.load()
     dt = time.perf_counter() - t0
-    log = _build.library_path().with_suffix(".log")
-    name, spill = "?", ""
-    for line in log.read_text().splitlines() if log.exists() else []:
-        if "Compiling entry function" in line:
-            name = _kernel_name(line.split("'")[1])
-        elif "spill" in line:
-            spill = line.strip()
-        elif "registers" in line:
-            print(f"phase 2 build: ptxas {name}: "
-                  f"{line.split(':', 1)[1].strip()}; {spill}")
+    usage = ptxas_usage()
+    for name, u in usage.items():
+        print(f"phase 2 build: ptxas {name}: {u['line']}; "
+              f"{u.get('stack', '?')} bytes stack frame, "
+              f"{u.get('spill_stores', '?')} bytes spill stores, "
+              f"{u.get('spill_loads', '?')} bytes spill loads")
     print(f"phase 2 build: {_build.library_path().name} in {dt:.1f} s")
-    return dt
+    return usage
 
 
 def phase_kernels(device, D=64, h=256, w=256) -> dict:
@@ -261,6 +296,18 @@ def phase_kernels(device, D=64, h=256, w=256) -> dict:
                                      "full_shadows_fog_composed")
         k = "shade_kernel" if uses_shade_kernel else "march_shade_kernel"
         err[k] = max(err[k], m["max_abs"])
+    for name in kc.K1_CASES:
+        m = kc.run_k1_case(name, device, D, h, w)
+        im = m["image"]
+        print(f"phase 3 kernels: K1 instantiation {m['variant']} ({name}): "
+              f"{m['hits']} hits of {m['n']}; mismatches hit {m['hit']} "
+              f"voxel {m['voxel']} normal {m['normal']} steps {m['steps']}"
+              + (f"; rgb beyond {kc.RGB_ATOL} on {im['rgb']} px, max "
+                 f"{im['max_abs']:.3g}" if im else ""))
+        kc.check_k1_case(m, f"K1 {name}")
+        if im:
+            err["march_shade_kernel"] = max(err["march_shade_kernel"],
+                                            im["max_abs"])
     err.update({"sample_fwd_kernel": 0.0, BWD[False]: 0.0, BWD[True]: 0.0,
                 "sample_ray_sum_kernel": 0.0})
     for name in kc.SAMPLE_CASES:
@@ -399,11 +446,14 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
             raise AssertionError(f"{name}: frame not finite or misshapen")
     launches = {k: km.LAUNCHES[k] for k in ("march_shade_kernel",
                                              "shade_kernel")}
+    variants = {k: v for k, v in km.VARIANT_LAUNCHES.items() if v}
     print(f"phase 4 main: launches during the {len(requests)} requests: "
-          f"{launches}")
-    if device.type == "cuda" and min(launches.values()) == 0:
+          f"{launches}; march_shade_kernel by instantiation: {variants}")
+    if device.type == "cuda" and (
+            min(launches.values()) == 0 or
+            set(variants) != {"march", "lambert", "full_shadows"}):
         raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{launches}")
+                             f"{launches}, {variants}")
     if not torch.equal(frames["full_shadows_fog"],
                        frames["full_shadows_fog_composed"]):
         diff = float((frames["full_shadows_fog"]
@@ -447,8 +497,7 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
             rec_p, rgb_p = plain()
         rm = kc.record_mismatch(rec, rec_p)
         im = kc.image_mismatch(rgb, rgb_p)
-        kc.check_records(rm, f"main {name}")
-        kc.check_image(im, f"main {name}")
+        kc.check_exact(rm, im, f"main {name}")
         k = "march_shade_kernel" if inkernel else "shade_kernel"
         err[k] = max(err[k], im["max_abs"])
         steps = int(rec.steps.sum(dtype=torch.int64))
@@ -471,11 +520,19 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
         if inkernel:
             kspec = km.ShadeSpec.from_settings(settings, light,
                                                shadows=settings.shadows)
-            t_kern = median_ms(lambda o=o, d=d, sp=kspec: km.march(
+            kfn = lambda o=o, d=d, sp=kspec: km.march(
                 o, d, accel, dims, ms, shade_spec=sp, mats=mats,
-                lights_arr=lights_arr), device, runs)
+                lights_arr=lights_arr)
+            t_kern = median_ms(kfn, device, runs)
             times[name]["kernel_ms"] = t_kern
-            line += f"; kernel alone {t_kern:.3f} ms"
+            line += f"; kernel alone {t_kern:.3f} ms (events)"
+            if device.type == "cuda":
+                from vxtpu_torch.render.probe import device_ms
+
+                times[name]["kernel_device_ms"] = device_ms(
+                    kfn, 20, "march_shade_kernel")
+                line += (f", {times[name]['kernel_device_ms']:.4f} ms device "
+                         f"(profiler, 20 launches)")
             # the composed frame's plain version is this same function
             t_p = median_ms(lambda c=cam, f=plain: f(*generate_rays(c, h, w)),
                             device, runs)
@@ -513,8 +570,8 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
                   f"{times['shade_kernel'].get('device_ms', float('nan')):.4f}"
                   f" ms; plain {t_sp:.3f} ms; rgb beyond {kc.RGB_ATOL} on "
                   f"{sm['rgb']} px (max {sm['max_abs']:.3g})")
-    return {"launches": launches, "err": err, "times": times, "grid": grid,
-            "accel": accel}
+    return {"launches": launches, "variant_launches": variants, "err": err,
+            "times": times, "grid": grid, "accel": accel}
 
 
 DATA = ROOT / "vxtpu_torch" / "data"
@@ -632,21 +689,26 @@ def graph_ms(fn, reps=20, windows=5) -> float:
     return statistics.median(times)
 
 
-def sass_opcodes(kernel: str, listing: Path) -> dict:
-    """Opcode -> count in the SASS of ``kernel`` (``cuobjdump -sass`` of
-    the built library, the toolkit's cuobjdump beside nvcc), whose lines
-    are written to ``listing``."""
+def sass_functions(kernel: str, listing: Path) -> dict:
+    """Function -> {opcode: count} in the SASS of every function whose
+    name holds ``kernel`` (``cuobjdump -sass`` of the built library, the
+    toolkit's cuobjdump beside nvcc; a template's instantiations apart),
+    whose lines are written to ``listing``."""
     from vxtpu_torch import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(_build.library_path())],
                          capture_output=True, text=True, check=True,
                          timeout=300).stdout
-    ops, inside, lines = {}, False, []
+    funcs, ops, lines = {}, None, []
     for line in out.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside:
+            fname = line.split("Function :", 1)[1].strip()
+            ops = None
+            if kernel in fname:
+                ops = funcs.setdefault(_kernel_name(fname), {})
+                lines.append(f"// {_kernel_name(fname)}")
+        elif ops is not None:
             m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_]*)", line)
             if m:
@@ -654,6 +716,16 @@ def sass_opcodes(kernel: str, listing: Path) -> dict:
                 lines.append(line)
     listing.parent.mkdir(parents=True, exist_ok=True)
     listing.write_text("\n".join(lines) + "\n")
+    return {f: dict(sorted(o.items(), key=lambda kv: -kv[1]))
+            for f, o in funcs.items()}
+
+
+def sass_opcodes(kernel: str, listing: Path) -> dict:
+    """Opcode -> count over the functions of sass_functions."""
+    ops = {}
+    for fops in sass_functions(kernel, listing).values():
+        for k, v in fops.items():
+            ops[k] = ops.get(k, 0) + v
     return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
 
 
@@ -748,6 +820,188 @@ def k5_times(rays: dict, device, reps=20, rounds=3, record=False,
               f"{row['bound_rays_only_ms']:.5f} without){line}")
         out[name] = row
     return out
+
+
+# K1's launch modes as k1_times times them: name -> (the settings of
+# _main_scene's outside frame that launch it, in-kernel shadows). march:
+# march only (the composed frame's primary and shadow marches); lambert:
+# the headline frame's one launch; full_shadows_fog: entry()'s launch
+K1_MODES = ("march", "lambert", "full_shadows_fog")
+
+
+def k1_world(device, grid=None, h=H, w=W) -> dict:
+    """Phase 4's world and rays, for K1 alone: ``grid`` (by default the
+    FULL^3 seed-7 terrain), its Morton occupancy and material tables, the
+    outside camera's h x w rays and the light."""
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.world import procgen
+    from vxtpu_torch.world.packed import (build_material_morton,
+                                          build_packed_morton)
+
+    if grid is None:
+        grid = procgen.terrain((FULL,) * 3, seed=7, device=device)
+    dims = grid.dims
+    light, requests = _main_scene(device, dims[0])
+    by_name = {name: (cam, st) for name, cam, st, _ in requests}
+    o, d = generate_rays(by_name["lambert"][0], h, w)
+    return dict(dims=dims, accel=build_packed_morton(grid.occupancy, cap=64),
+                mats=build_material_morton(grid.occupancy), o=o, d=d,
+                light=light, lambert=by_name["lambert"][1],
+                full=by_name["full_shadows_fog"][1])
+
+
+def k1_bound(n, steps, table_words, shaded, hits=0, shadow_rays=0) -> dict:
+    """Least time (ms) of one K1 launch over n rays: each ray's inputs (o,
+    d: 24 B) read once and its outputs (hit 1, t 4, voxel 12, normal 12,
+    steps 4 B; shaded, rgb 12 B more) written once, one material word (4
+    B) per hit ray when shaded, and the ``table_words`` distinct int16
+    occupancy words its marches read (counted on the plain march), over
+    the HBM rate. Operations: MARCH_OPS_RAY per ray and per shadow ray,
+    MARCH_OPS_STEP per DDA step of either march (``steps``: all of
+    them)."""
+    b = n * (24 + (45 if shaded else 33)) + (4 * hits if shaded else 0)
+    return _bound(b + 2 * table_words,
+                  (n + shadow_rays) * MARCH_OPS_RAY + steps * MARCH_OPS_STEP)
+
+
+def k1_times(world: dict, device, reps=20, rounds=3, record=False,
+             prefix="K1 alone") -> dict:
+    """K1 alone in each launch mode of K1_MODES on ``world`` (k1_world),
+    and K1' round 0 (budget 24) on the same rays: each against its plain
+    version on every ray (hit, voxel, normal and steps equal, t within
+    rtol 1e-5, rgb within 1e-5 on every pixel; K1' exact on every field;
+    raises otherwise), the steps and distinct table words its plain
+    version reads, its bound (k1_bound, k1r_bound); on the GPU its device
+    time per launch (the median of ``rounds`` profiler windows of ``reps``
+    launches, render/probe.py:device_ms), the same launches replayed from
+    a CUDA graph (``graph_ms``), bound / time (``share``) and, with
+    ``record``, the device time of each launch of one more window
+    (``launch_us``)."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render import probe
+
+    o, d, acc, mats, dims = (world[k] for k in ("o", "d", "accel", "mats",
+                                                "dims"))
+    light = world["light"]
+    lights_arr = km.pack_lights(light)
+    n = o.shape[0]
+    specs = {"march": (world["lambert"], None),
+             "lambert": (world["lambert"], km.ShadeSpec.from_settings(
+                 world["lambert"], light, shadows=False)),
+             "full_shadows_fog": (world["full"], km.ShadeSpec.from_settings(
+                 world["full"], light, shadows=True))}
+    out = {}
+    for mode in (*K1_MODES, "resume_round0"):
+        settings, spec = specs.get(mode, specs["march"])
+        ms = settings.resolve_max_steps(dims)
+        if mode == "resume_round0":
+            kernel = "march_resume_kernel"
+            fn = lambda ms=ms: km.march(o, d, acc, dims, ms, iter_budget=24,
+                                        extended=True)
+            with _logged_fetch(km, acc.words) as log:
+                want, ext_p = km.march_reference(o, d, acc, dims, ms,
+                                                 iter_budget=24, extended=True)
+            got, ext_k = fn()
+            bad = kc.resume_mismatch(got, ext_k, want, ext_p)
+            steps = int(want.steps.sum(dtype=torch.int64))
+            bound = k1r_bound(n, steps, False, False, log.count())
+            row = dict(n=n, steps=steps, table_words=log.count(),
+                       mismatches=bad, bound_ms=bound["bound_ms"],
+                       bound_by=bound["bound_by"])
+            what = f"{bad} (every field)"
+            if any(bad.values()):
+                raise AssertionError(f"K1' round 0 differs from its plain "
+                                     f"version: {bad}")
+        else:
+            kernel = "march_shade_kernel"
+            fn = lambda ms=ms, spec=spec: km.march(
+                o, d, acc, dims, ms, shade_spec=spec, mats=mats,
+                lights_arr=lights_arr)
+            with _logged_fetch(km, acc.words) as log:
+                want = km.march_shade_reference(o, d, acc, dims, ms, None,
+                                                spec, mats, lights_arr)
+            got = fn()
+            rm = kc.record_mismatch(got[0] if spec else got,
+                                    want[0] if spec else want)
+            im = kc.image_mismatch(got[1], want[1]) if spec else None
+            kc.check_exact(rm, im, f"K1 {mode} against its plain version")
+            rec = want[0] if spec else want
+            steps = int(rec.steps.sum(dtype=torch.int64))
+            hits = int(rec.hit.sum())
+            # the steps of each phase a warp runs: the primary march, then
+            # one shadow march per light
+            phases = [rec.steps]
+            shadow_rays = 0
+            if spec is not None and spec.runs_shadow_marches:
+                for li in range(light.count):
+                    p_, ldir, dist, facing = km.shadow_rays(
+                        rec, o, d, light.pos[li])
+                    srec = km.march_reference(
+                        p_, ldir, acc, dims, ms,
+                        torch.where(rec.hit, dist - 2.0 * km.SHADOW_EPS, 0.0),
+                        active=facing)
+                    shadow_rays += int(facing.sum())
+                    phases.append(srec.steps)
+            shadow_steps = sum(int(x.sum(dtype=torch.int64))
+                               for x in phases[1:])
+            bound = k1_bound(n, steps + shadow_steps, log.count(),
+                             spec is not None, hits, shadow_rays)
+            row = dict(n=n, steps=steps, hits=hits, shadow_rays=shadow_rays,
+                       shadow_steps=shadow_steps, table_words=log.count(),
+                       coherence=warp_coherence(*phases),
+                       shadow_coherence=warp_coherence(*phases[1:])
+                       if shadow_rays else None,
+                       t_rel=rm["t_rel"],
+                       rgb_max_abs=im["max_abs"] if im else None,
+                       bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+            what = (f"0 mismatches in hit, voxel, normal, steps (t rel "
+                    f"{rm['t_rel']:.3g}"
+                    + (f", max |drgb| {im['max_abs']:.3g}" if im else "")
+                    + f"); warp coherence {row['coherence']:.4f}"
+                    + (f" (the shadow marches alone "
+                       f"{row['shadow_coherence']:.4f})"
+                       if shadow_rays else ""))
+        line = ""
+        if device.type == "cuda":
+            row["device_ms_rounds"] = [probe.device_ms(fn, reps, kernel)
+                                       for _ in range(rounds)]
+            row["device_ms"] = statistics.median(row["device_ms_rounds"])
+            row["graph_ms"] = graph_ms(fn, reps)
+            row["share"] = row["bound_ms"] / row["device_ms"]
+            line = (f"; device {row['device_ms']:.5f} ms per launch "
+                    f"(profiler windows of {reps}: "
+                    + ", ".join(f"{t:.5f}" for t in row["device_ms_rounds"])
+                    + f"), CUDA graph {row['graph_ms']:.5f}; bound / time "
+                    f"{row['share']:.3f}")
+            if record:
+                row["launch_us"] = probe.launch_us(fn, reps, kernel)
+                line += (f"; one more window, {len(row['launch_us'])} of "
+                         f"{reps} launches recorded, us: "
+                         + " ".join(f"{u:.2f}" for u in row["launch_us"]))
+        print(f"{prefix} {mode}: {n} rays, {steps} steps"
+              + (f" + {row['shadow_steps']} on {row['shadow_rays']} shadow "
+                 f"rays" if row.get("shadow_rays") else "")
+              + f", {row['table_words']} table words; {what}; bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']}{line}")
+        out[mode] = row
+    return out
+
+
+def k1_occupancy() -> dict:
+    """K1 variant -> blocks of 256 threads an SM holds at 512^3, through
+    the CUDA API; "not available" where the library has no entry for
+    it."""
+    from vxtpu_torch import _build
+    from vxtpu_torch.render import kernel_march as km
+
+    lib = _build.load()
+    if not hasattr(lib, "vx_march_shade_blocks_per_sm"):
+        return {"march_shade_kernel": "not available"}
+    return {v: lib.vx_march_shade_blocks_per_sm(i, FULL)
+            for i, v in enumerate(km.K1_VARIANTS)}
 
 
 def _run_cli(argv) -> list:
@@ -919,19 +1173,19 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     err = max(err, k5b["t_abs"])
     times["big"] = dict(k5_ms=b5, k1_ms=b1, frame_k5_ms=f5, frame_k1_ms=f1,
                         agree=share, k5=k5b)
+    del bpacked, m5, m1, r5, r1, rgb5, rgb1
+    # K1 alone on the same rays in each of its launch modes, each against
+    # its own bound (and K1' round 0)
+    times["k1"] = k1_times(k1_world(device, big_grid, bh, bw), device,
+                           record=True, prefix="phase 8 pipeline: K1 alone")
     if device.type == "cuda":
         from vxtpu_torch import _build
-        from vxtpu_torch.render.probe import device_ms
 
-        dev = device_ms(lambda: m1(bo, bd), 10, "march_shade")
-        times["big"]["k1_device_ms"] = dev
-        print(f"phase 8 pipeline: K1 march alone at {B}^3 {bh}x{bw}: "
-              f"{dev:.4f} ms of device time per launch (profiler, 10 "
-              f"launches)")
         times["blocks_per_sm"] = _build.load().vx_march_packed_blocks_per_sm()
+        times["k1_occupancy"] = k1_occupancy()
         print(f"phase 8 pipeline: K5 holds {times['blocks_per_sm']} blocks of "
-              f"256 threads an SM")
-    del bpacked, m5, m1, r5, r1, rgb5, rgb1
+              f"256 threads an SM; K1 at {B}^3 by instantiation: "
+              f"{times['k1_occupancy']}")
 
     # the commands themselves
     with tempfile.TemporaryDirectory() as tmp:
@@ -1029,16 +1283,21 @@ def probe_bound(n, n_iters, variant, table_bytes) -> dict:
                 bound_by="bytes" if tb >= tf else "operations")
 
 
-def warp_coherence(steps) -> float:
+def warp_coherence(*phases) -> float:
     """Sum of steps over the sum, over consecutive 32-ray groups in launch
-    order, of 32 x the group's largest steps: the share of a warp's
-    iterations that its rays use (1 = no divergence tail)."""
+    order, of 32 x the group's largest steps in each phase (a warp runs
+    its phases, such as the primary march and then each shadow march,
+    one after another, each as long as its longest lane): the share of a
+    warp's iterations that its rays use (1 = no divergence tail)."""
     import torch
 
-    s = steps.to(torch.int64)
-    s = torch.cat([s, s.new_zeros((-s.numel()) % 32)]).view(-1, 32)
-    lanes = 32 * int(s.amax(1).sum())
-    return int(s.sum()) / lanes if lanes else 1.0
+    used = lanes = 0
+    for steps in phases:
+        s = steps.to(torch.int64)
+        s = torch.cat([s, s.new_zeros((-s.numel()) % 32)]).view(-1, 32)
+        used += int(s.sum())
+        lanes += 32 * int(s.amax(1).sum())
+    return used / lanes if lanes else 1.0
 
 
 def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
@@ -1885,24 +2144,21 @@ def cross_train(device) -> dict:
 
 
 def k1_k2_bounds(times, h, w, n_lights=1) -> dict:
-    """Least times (ms) of K1 (lambert frame) and K2 (the shade kernel
-    alone). Bytes: each ray's inputs (o, d: 24 B) and outputs (K1: hit,
-    t, voxel, normal, steps, rgb = 45 B; K2 reads hit, t, voxel, normal
-    and the visibility and writes rgb), plus one material word per hit
-    ray, and for K1 the distinct int16 occupancy words its marches read
-    (counted on the plain march; without them, ``bound_rays_only_ms``). Operations: MARCH_OPS_RAY per ray and
-    MARCH_OPS_STEP per DDA step."""
+    """Least times (ms) of K1 in the lambert frame (k1_bound; without its
+    table words, ``bound_rays_only_ms``) and of K2, the shade kernel alone:
+    each ray's inputs (o, d, hit, t, voxel, normal and the visibility) read
+    once and its rgb written once, plus one material word per hit ray;
+    MARCH_OPS_RAY operations per ray and per light."""
     n = h * w
     lam = times["lambert"]
-    k1_bytes = n * (24 + 45) + lam["hits"] * 4
-    k1_ops = n * MARCH_OPS_RAY + lam["steps"] * MARCH_OPS_STEP
+    k1 = k1_bound(n, lam["steps"], lam["table_words"], True, lam["hits"])
     comp = times["full_shadows_fog_composed"]
     k2_bytes = n * (24 + 29 + 4 * n_lights + 12) + comp["hits"] * 4
     k2_ops = n * MARCH_OPS_RAY * (1 + n_lights)
-    k1 = _bound(k1_bytes + 2 * lam["table_words"], k1_ops)
     return {"march_shade_kernel": dict(
                 bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
-                bound_rays_only_ms=_bound(k1_bytes, k1_ops)["bound_ms"],
+                bound_rays_only_ms=k1_bound(n, lam["steps"], 0, True,
+                                            lam["hits"])["bound_ms"],
                 table_words=lam["table_words"]),
             "shade_kernel": {k: v for k, v in _bound(k2_bytes, k2_ops).items()
                              if k.startswith("bound")}}
@@ -1917,13 +2173,36 @@ def main(argv=None) -> int:
                         "sets (k5_rays, k5_times) and a JSON line of the "
                         "results; copied into a checkout of another commit, "
                         "it times that commit's K5 the same way")
+    p.add_argument("--k1-times", action="store_true",
+                   help="phases 1 and 2, then K1 alone in each launch mode "
+                        "and K1' round 0 on phase 4's 512^3 1080x1920 rays "
+                        "(k1_world, k1_times), the blocks an SM of each K1 "
+                        "instantiation and a JSON line of the results; "
+                        "copied into a checkout of another commit, it times "
+                        "that commit's K1 the same way")
     p.add_argument("--sass", default=None, metavar="FILE",
-                   help="with --k5-times: write K5's SASS listing to FILE "
-                        "and print its opcodes by count")
+                   help="with --k5-times or --k1-times: write that kernel's "
+                        "SASS listing to FILE and print its opcodes by "
+                        "count")
     args = p.parse_args(argv)
     _require_checkout()
     device, name, smi = phase_device()
-    phase_build()
+    usage = phase_build()
+    if args.k1_times:
+        out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
+                                     if "march_shade" in k},
+               "occupancy": k1_occupancy()}
+        print(f"K1 blocks an SM at {FULL}^3 (CUDA occupancy API): "
+              f"{out['occupancy']}")
+        if args.sass:
+            out["sass"] = sass_functions("march_shade_kernel",
+                                         Path(args.sass))
+            for fn, ops in out["sass"].items():
+                print(f"K1 SASS {fn}: {sum(ops.values())} instructions; "
+                      + ", ".join(f"{k} {v}" for k, v in ops.items()))
+        out["k1_times"] = k1_times(k1_world(device), device, record=True)
+        print(json.dumps(out))
+        return 0
     if args.k5_times:
         from vxtpu_torch import _build
 
@@ -1953,16 +2232,24 @@ def main(argv=None) -> int:
     times = main_run["times"]
     tt = train["times"]
     bounds = k1_k2_bounds(times, H, W)
+    k1 = pipe["times"]["k1"]
     kernels = [
         {"name": "march_shade_kernel", "route": "cuda",
          "source": "vxtpu_torch/csrc/march.cu",
          "replaces": "vxtpu/render/kernel_pallas_v2.py:434",
          "launches": main_run["launches"]["march_shade_kernel"],
+         "variant_launches": main_run["variant_launches"],
          "max_abs_err": max(err3["march_shade_kernel"],
                             main_run["err"]["march_shade_kernel"]),
          "ms": times["lambert"]["kernel_ms"],
+         "device_ms": times["lambert"].get("kernel_device_ms"),
          "plain_ms": times["lambert"]["plain_ms"],
-         **bounds["march_shade_kernel"], "library_ms": None},
+         **bounds["march_shade_kernel"],
+         "modes": {m: {k: k1[m][k] for k in ("device_ms", "graph_ms",
+                                               "bound_ms", "bound_by",
+                                               "share")}
+                   for m in K1_MODES},
+         "occupancy": pipe["times"]["k1_occupancy"], "library_ms": None},
         {"name": "shade_kernel", "route": "cuda",
          "source": "vxtpu_torch/csrc/march.cu",
          "replaces": "vxtpu/render/kernel_pallas_v2.py:1219",

@@ -67,6 +67,33 @@ def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
     assert km.LAUNCHES["march_shade_kernel"] == 1
 
 
+@pytest.mark.parametrize("name", list(kc.K1_CASES))
+def test_march_shade_instantiation_matches_plain(cuda, name):
+    """Each instantiation of march_shade_kernel equals its plain version on
+    every ray and pixel (no agreement margin), and the wrapper launched the
+    one its ShadeSpec names."""
+    km.reset_launch_counts()
+    m = kc.run_k1_case(name, cuda)
+    kc.check_k1_case(m, name)
+    assert m["variant"] == kc.K1_CASES[name]
+    assert km.VARIANT_LAUNCHES == {
+        v: int(v == m["variant"]) for v in km.K1_VARIANTS}
+    assert km.LAUNCHES["march_shade_kernel"] == 1
+
+
+@pytest.mark.parametrize("variant, want", enumerate((8, 8, 6, 6, 5, 5)))
+def test_march_shade_instantiation_occupancy(cuda, variant, want):
+    """Each instantiation holds at least the blocks an SM its
+    __launch_bounds__ asks for (8 marching and at most shading flat, 6
+    lighting, 5 with shadow marches), with the dilation table of a 512^3
+    and of a 2048^3 grid."""
+    from vxtpu_torch import _build
+
+    lib = _build.load()
+    assert lib.vx_march_shade_blocks_per_sm(variant, 512) >= want
+    assert lib.vx_march_shade_blocks_per_sm(variant, 2048) >= want
+
+
 @pytest.mark.parametrize("name", kc.SAMPLE_CASES)
 def test_sample_kernels_match_plain(cuda, name):
     ks.reset_launch_counts()

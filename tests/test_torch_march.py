@@ -123,6 +123,8 @@ def test_march_cpu_launches_no_kernel():
     assert kernel_march.LAUNCHES == {"march_shade_kernel": 0,
                                      "shade_kernel": 0,
                                      "march_resume_kernel": 0}
+    assert kernel_march.VARIANT_LAUNCHES == dict.fromkeys(
+        kernel_march.K1_VARIANTS, 0)
 
 
 def test_march_rejects_bad_inputs():
@@ -141,3 +143,29 @@ def test_march_rejects_bad_inputs():
         march(o, d, acc, (32, 32, 16), MAX_STEPS)
     with pytest.raises(ValueError):
         march(o, d, acc, DIMS, MAX_STEPS, t_max=torch.zeros(3))
+
+
+@pytest.mark.parametrize("spec, variant", [
+    (None, "march"),
+    (kernel_march.ShadeSpec(mode="flat"), "flat"),
+    (kernel_march.ShadeSpec(mode="flat", shadows=True), "flat"),
+    (kernel_march.ShadeSpec(mode="lambert"), "lambert"),
+    (kernel_march.ShadeSpec(mode="lambert", rgb8=True, fog=True), "lambert"),
+    (kernel_march.ShadeSpec(mode="lambert", shadows=True), "lambert_shadows"),
+    (kernel_march.ShadeSpec(mode="lambert", shadows=True, n_lights=0),
+     "lambert"),
+    (kernel_march.ShadeSpec(mode="full", fog=True), "full"),
+    (kernel_march.ShadeSpec(mode="full", shadows=True, fog=True,
+                            n_lights=2), "full_shadows"),
+])
+def test_k1_variant_from_shade_spec(spec, variant):
+    """The wrapper's choice of march_shade_kernel instantiation, and the
+    shade parameters it passes beside it agree as the C entry demands
+    (its mode, and shadows exactly for the shadow variants)."""
+    v = kernel_march.k1_variant(spec)
+    assert kernel_march.K1_VARIANTS[v] == variant
+    if spec is None:
+        return
+    p = kernel_march._shade_params(spec)
+    assert p.shadows == int(v >= 4)
+    assert p.mode == (v - 3 if v >= 4 else v - 1)

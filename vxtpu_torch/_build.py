@@ -99,6 +99,8 @@ def load() -> ctypes.CDLL:
         _P, _P, _P, _P, _P, _P,                           # outputs
         _P]                                               # stream
     lib.vx_march_shade.restype = _I
+    lib.vx_march_shade_blocks_per_sm.argtypes = [_I, _I]
+    lib.vx_march_shade_blocks_per_sm.restype = _I
     lib.vx_shade.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P,
                              _P, _P]
     lib.vx_shade.restype = _I

@@ -15,20 +15,56 @@
 //                          per ray that restarts from a stored (voxel,
 //                          dist, steps) state.
 //
-// What bounds it on this card: one thread per ray runs a divergent loop
-// whose every cell change is a dependent table read, so the march is
-// latency-bound on those reads (one per step per ray), not on bandwidth
-// or arithmetic. The design: the int16 Morton table (32 MB at 512^3) stays
-// resident in the 50 MB L2 and is read with __ldg; the current coarse
-// cell's child bits stay in registers, so steps inside one occupied 2x2x2
-// cell read nothing; an empty cell's -D word jumps the ray across the whole
-// provably-empty box. The material / RGB8 word is read once per hit ray.
-//// The resume kernel shares the march (march_ray<true>): the same bound and
-// design, one more read per resumed ray for its cell's child bits.
+// What bounds K1 on this card: one thread per ray runs a divergent loop of
+// a few iterations (about 2.6 DDA steps a ray on the 512^3 1080p frames),
+// each about a hundred instructions, and every change of coarse cell is a
+// dependent read of the int16 Morton table (32 MiB at 512^3, resident in
+// the 50 MB L2). Its byte bound (the ray I/O and the table words its rays
+// touch, at the HBM rate) is about half its time or less: it is bound by
+// instruction issue and by the latency of each ray's dependent chain of
+// loads, not by bytes. Tensor cores have no part in it: a DDA step is a
+// compare-and-select on scalars whose next table address depends on the
+// last.
+//
+// What the design does about it:
+//   * one instantiation per launch mode, march_shade_kernel<kMode,
+//     kShadows> (march only; flat, lambert or full shading; lambert or
+//     full with the in-kernel shadow marches), each carrying only the
+//     code it runs, with its own __launch_bounds__ and no spills: 8
+//     blocks of 256 threads an SM for the march-only and flat launches
+//     (32 registers), 6 for lambert and full (at most 40), 5 with the
+//     shadow marches (at most 48: the primary hit stays live across
+//     them); the shadow visibility is one bit a light. The march-only and
+//     lambert launches no longer carry the registers of the shadow march;
+//   * fewer instructions a step: the faces the ray leaves by are
+//     integers (2c - 2(D-1), 2c + 2D, v, v + 1), formed exactly as a
+//     masked voxel index plus one of two offsets picked per step, one
+//     face an axis, and converted once; the voxel index is clamped in
+//     float and truncated once (no separate floor); the grid sizes are
+//     kernel parameters (constant memory); the cell's word is read only
+//     when a coordinate changes above its lowest bit;
+//   * the Morton index of a cell from a dilation table in shared memory,
+//     filled once a block (entry v: part1by2(v >> 1), max(X, Y, Z)
+//     entries): three shared loads and two shifted ORs instead of three
+//     part1by2 (about thirty integer instructions);
+//   * the current cell's word stays in registers, so steps inside one
+//     occupied 2x2x2 cell read nothing, and an empty cell's -D word jumps
+//     the ray across the whole provably-empty box. The material / RGB8
+//     word is read once per hit ray.
+// Tried on the card and dropped (numbers in PERF.md): dilated coordinates
+// carried in registers (stepped by dilated add or subtract, formed anew
+// after a jump) instead of the table.
+//
+// The resume kernel (K1') shares the march (march_ray<true>) and the
+// table: the same bound and design, one more read per resumed ray for its
+// cell's word. The shade kernel (K2) shares the epilogue.
 //
 // Floating point: built with -fmad=false and without fast math, so every
 // add, multiply, divide and sqrtf rounds as the plain PyTorch version's
-// element-wise ops do and DDA boundaries land on the same voxels.
+// element-wise ops do and DDA boundaries land on the same voxels. The
+// faces are exact integers however they are formed, and clamp-then-
+// truncate gives floor-then-clamp's integer for every float but NaN, so
+// every output field equals the plain version's bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,11 +89,32 @@ struct ShadeParams {
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLights = 8;
 constexpr float kEps = 1e-4f;        // reinit samples the voxel at t + EPS
 constexpr float kBig = 3.0e30f;      // 1/d where |d| < 1e-12
 constexpr float kBigT = 1e30f;       // t of a miss
 constexpr float kShadowEps = 1e-3f;  // shadow-ray origin nudge
+
+// The instantiations of march_shade_kernel are numbered by a variant id
+// (render/kernel_march.py:K1_VARIANTS): 0 march only (kMode -1: no
+// epilogue), 1 + mode for each shading mode, 3 + mode for the lit modes
+// with their in-kernel shadow marches.
+
+// blocks of kThreads an SM must hold (kMode -1: march only): 8, at most 32
+// registers, where the kernel marches and at most shades flat; 6, at most
+// 40, where it lights the hit; 5, at most 48, where it also marches to the
+// lights (the primary hit stays live across the shadow march)
+constexpr int min_blocks(int mode, bool shadows) {
+  return shadows ? 5 : (mode < 1 ? 8 : 6);
+}
+
+// grid sizes, passed by value (kernel parameters live in constant memory,
+// not in registers)
+struct Grid {
+  int X, Y, Z;             // fine dims
+  float fX, fY, fZ;        // the same, as floats
+  float fXm1, fYm1, fZm1;  // the largest voxel index on each axis
+  int n_dil;               // entries of the dilation table: max(X, Y, Z)
+};
 
 struct MarchResult {
   int hit;
@@ -92,32 +149,44 @@ __device__ __forceinline__ int morton3(int x, int y, int z) {
   return part1by2(x) | (part1by2(y) << 1) | (part1by2(z) << 2);
 }
 
+// The block's dilation table, in shared memory: entry v is part1by2(v >> 1),
+// the dilated coarse coordinate of fine voxel coordinate v, so the Morton
+// index of a voxel's cell is three shared loads, two shifts and two ORs
+// (not three part1by2). Every thread of the block must call this before
+// any returns.
+__device__ __forceinline__ void fill_dilation(int* dil, const Grid& g) {
+  for (int v = threadIdx.x; v < g.n_dil; v += kThreads)
+    dil[v] = part1by2(v >> 1);
+  __syncthreads();
+}
+
+__device__ __forceinline__ int cell_index(const int* dil, int vx, int vy,
+                                          int vz) {
+  return dil[vx] | (dil[vy] << 1) | (dil[vz] << 2);
+}
+
 __device__ __forceinline__ float inv_dir(float d) {
   return fabsf(d) < 1e-12f ? kBig : 1.0f / d;
 }
 
-// floor, clamp to [0, n-1] in float, then convert: the plain version
-// clamps before converting too, so out-of-range values agree
-__device__ __forceinline__ int floor_clip(float p, int n) {
-  return (int)fminf(fmaxf(floorf(p), 0.0f), (float)(n - 1));
+// clamp to [0, m] in float, then convert (truncating): for a p in range
+// that is floor(p), outside it 0 or m. The plain version floors first,
+// then clamps and converts: the same integer for every p but NaN, which
+// no valid ray reaches (here NaN gives 0, as floor-then-clamp did)
+__device__ __forceinline__ int clip_floor(float p, float m) {
+  return (int)fminf(fmaxf(p, 0.0f), m);
 }
 
-__device__ __forceinline__ bool child_bit(int cb, int vx, int vy, int vz) {
+// the child bit of a voxel in its cell's word w (0 for an empty cell's -D)
+__device__ __forceinline__ bool child_bit(int w, int vx, int vy, int vz) {
   const int ci = ((vx & 1) << 2) | ((vy & 1) << 1) | (vz & 1);
-  return ((cb >> ci) & 1) != 0;
+  return w > 0 && ((w >> ci) & 1) != 0;
 }
 
-// t at which the ray leaves the current voxel (dist == 0) or the empty
-// box [2c - 2(dist-1), 2c + 2 dist) of an empty cell (dist > 0) on one axis
-__device__ __forceinline__ float axis_t(int v, int dist, float o, float d,
+// t at which the ray reaches `face` (an integer) on one axis
+__device__ __forceinline__ float face_t(int face, float o, float d,
                                         float iv) {
-  const float vf = (float)v;
-  const float cf = (float)(v >> 1);
-  const float df = (float)dist;
-  const bool big = dist > 0;
-  const float lo = big ? 2.0f * cf - 2.0f * (df - 1.0f) : vf;
-  const float hi = big ? 2.0f * cf + 2.0f * df : vf + 1.0f;
-  const float t = ((d >= 0.0f ? hi : lo) - o) * iv;
+  const float t = ((float)face - o) * iv;
   return fabsf(d) < 1e-12f ? kBig : t;
 }
 
@@ -132,16 +201,14 @@ __device__ __forceinline__ float axis_t(int v, int dist, float o, float d,
 // (dist -2) fetches its given voxel as the entry voxel, with the entry t
 // and face of the slab clip; any other ray continues from (voxel, dist),
 // its iteration count starting at 0 and its steps at rin.steps. A resumed
-// ray has no child bits in registers yet, so it first reads its current
-// cell's word (vxtpu's cbok carry): that read is neither a step nor an
-// iteration. With iter_cap < 1 nothing runs, and a pending ray reports
-// dist -2.
+// ray has no word in registers yet, so it first reads its current cell's
+// word (vxtpu's cbok carry): that read is neither a step nor an iteration.
+// With iter_cap < 1 nothing runs, and a pending ray reports dist -2.
 template <bool kResume>
-__device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
-                                 float dy, float dz, float t_max,
-                                 const int16_t* __restrict__ occ, int X, int Y,
-                                 int Z, int iter_cap,
-                                 ResumeIn rin = ResumeIn{}) {
+__device__ __forceinline__ MarchResult
+march_ray(float ox, float oy, float oz, float dx, float dy, float dz,
+          float t_max, const int16_t* __restrict__ occ, const int* dil,
+          const Grid& g, int iter_cap, ResumeIn rin = ResumeIn{}) {
   MarchResult r;
   r.hit = 0;
   r.t = kBigT;
@@ -151,35 +218,31 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
   const float ivx = inv_dir(dx), ivy = inv_dir(dy), ivz = inv_dir(dz);
   float a, b;
   a = (0.0f - ox) * ivx;
-  b = ((float)X - ox) * ivx;
+  b = (g.fX - ox) * ivx;
   const float nx = fminf(a, b), fx = fmaxf(a, b);
   a = (0.0f - oy) * ivy;
-  b = ((float)Y - oy) * ivy;
+  b = (g.fY - oy) * ivy;
   const float ny = fminf(a, b), fy = fmaxf(a, b);
   a = (0.0f - oz) * ivz;
-  b = ((float)Z - oz) * ivz;
+  b = (g.fZ - oz) * ivz;
   const float nz = fminf(a, b), fz = fmaxf(a, b);
   const float t_enter = fmaxf(fmaxf(nx, ny), fmaxf(nz, 0.0f));
   const float t_exit = fminf(fminf(fx, fy), fz);
   const float t_end = fminf(t_exit, t_max);
   const bool valid = (t_enter <= t_exit) && (t_enter <= t_end);
 
-  const int sgx = dx >= 0.0f ? 1 : -1;
-  const int sgy = dy >= 0.0f ? 1 : -1;
-  const int sgz = dz >= 0.0f ? 1 : -1;
-
-  int vx = floor_clip(ox + (t_enter + kEps) * dx, X);
-  int vy = floor_clip(oy + (t_enter + kEps) * dy, Y);
-  int vz = floor_clip(oz + (t_enter + kEps) * dz, Z);
+  int vx = clip_floor(ox + (t_enter + kEps) * dx, g.fXm1);
+  int vy = clip_floor(oy + (t_enter + kEps) * dy, g.fYm1);
+  int vz = clip_floor(oz + (t_enter + kEps) * dz, g.fZm1);
   bool entry = true;  // the first iteration fetches the entry voxel
   int it = 1;         // the entry fetch counts as an iteration
   if constexpr (kResume) {
     r.done = 1;
     r.dist = 0;
     if (rin.given) {
-      vx = min(max(rin.vx, 0), X - 1);
-      vy = min(max(rin.vy, 0), Y - 1);
-      vz = min(max(rin.vz, 0), Z - 1);
+      vx = min(max(rin.vx, 0), g.X - 1);
+      vy = min(max(rin.vy, 0), g.Y - 1);
+      vz = min(max(rin.vz, 0), g.Z - 1);
       r.steps = rin.steps;
       r.dist = max(rin.dist, 0);
       entry = rin.dist == -2;
@@ -201,9 +264,9 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
   }
 
   // entry fetch: the entry face is the axis with the largest near-slab t,
-  // ties toward the lowest axis
-  int w = __ldg(occ + morton3(vx >> 1, vy >> 1, vz >> 1));
-  int cb = max(w, 0);
+  // ties toward the lowest axis. w: the current cell's word (child bits,
+  // or -D of an empty cell); dist: the empty-box radius the march uses
+  int w = __ldg(occ + cell_index(dil, vx, vy, vz));
   int dist = max(-w, 0);
   if constexpr (kResume) {
     if (!entry) {  // a resumed ray: the word gave its cell's child bits
@@ -211,12 +274,12 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
       it = 0;
     }
   }
-  if (entry && child_bit(cb, vx, vy, vz)) {
+  if (entry && child_bit(w, vx, vy, vz)) {
     const float tn_max = fmaxf(fmaxf(nx, ny), nz);
     r.hit = 1;
     r.t = t_enter;
     r.ax = nx >= tn_max ? 0 : (ny >= tn_max ? 1 : 2);
-    r.sg = r.ax == 0 ? sgx : (r.ax == 1 ? sgy : sgz);
+    r.sg = (r.ax == 0 ? dx : (r.ax == 1 ? dy : dz)) >= 0.0f ? 1 : -1;
     if constexpr (kResume) {
       r.done = 1;
       r.dist = dist;
@@ -225,9 +288,17 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
   }
 
   for (; it < iter_cap; ++it) {
-    const float tx = axis_t(vx, dist, ox, dx, ivx);
-    const float ty = axis_t(vy, dist, oy, dy, ivy);
-    const float tz = axis_t(vz, dist, oz, dz, ivz);
+    // the faces the ray leaves by: of the empty box [2c - 2(dist-1),
+    // 2c + 2 dist) where dist > 0, else of the voxel [v, v + 1). One face
+    // an axis, the one the ray's direction picks, formed as an exact
+    // integer: the voxel index with its low bit masked in a box, plus one
+    // of two offsets
+    const int base = ~min(dist, 1);
+    const int hi = max(2 * dist, 1);
+    const int lo = min(2 - 2 * dist, 0);
+    const float tx = face_t((vx & base) + (dx >= 0.0f ? hi : lo), ox, dx, ivx);
+    const float ty = face_t((vy & base) + (dy >= 0.0f ? hi : lo), oy, dy, ivy);
+    const float tz = face_t((vz & base) + (dz >= 0.0f ? hi : lo), oz, dz, ivz);
     const float t_new = fminf(fminf(tx, ty), tz);
     const bool mx = (tx <= ty) && (tx <= tz);
     const bool my = !mx && (ty <= tz);
@@ -236,44 +307,45 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
     const float px = ox + (t_new + kEps) * dx;
     const float py = oy + (t_new + kEps) * dy;
     const float pz = oz + (t_new + kEps) * dz;
-    bool inside = px >= 0.0f && px < (float)X && py >= 0.0f &&
-                  py < (float)Y && pz >= 0.0f && pz < (float)Z;
-    int nvx = floor_clip(px, X);
-    int nvy = floor_clip(py, Y);
-    int nvz = floor_clip(pz, Z);
+    bool inside = px >= 0.0f && px < g.fX && py >= 0.0f && py < g.fY &&
+                  pz >= 0.0f && pz < g.fZ;
+    int nvx = clip_floor(px, g.fXm1);
+    int nvy = clip_floor(py, g.fYm1);
+    int nvz = clip_floor(pz, g.fZm1);
     if (nvx == vx && nvy == vy && nvz == vz) {
       // progress guard: rounding re-landed in the same voxel -> one DDA
       // step along the crossing axis
-      const int fx_ = vx + sgx, fy_ = vy + sgy, fz_ = vz + sgz;
-      if (mx) nvx = min(max(fx_, 0), X - 1);
-      if (my) nvy = min(max(fy_, 0), Y - 1);
-      if (mz) nvz = min(max(fz_, 0), Z - 1);
-      inside = (mx && fx_ >= 0 && fx_ < X) || (my && fy_ >= 0 && fy_ < Y) ||
-               (mz && fz_ >= 0 && fz_ < Z);
+      const int fx_ = vx + (dx >= 0.0f ? 1 : -1);
+      const int fy_ = vy + (dy >= 0.0f ? 1 : -1);
+      const int fz_ = vz + (dz >= 0.0f ? 1 : -1);
+      if (mx) nvx = min(max(fx_, 0), g.X - 1);
+      if (my) nvy = min(max(fy_, 0), g.Y - 1);
+      if (mz) nvz = min(max(fz_, 0), g.Z - 1);
+      inside = (mx && fx_ >= 0 && fx_ < g.X) || (my && fy_ >= 0 && fy_ < g.Y) ||
+               (mz && fz_ >= 0 && fz_ < g.Z);
     }
     if (!inside || t_new > t_end) {
       if constexpr (kResume) r.done = 1;
       break;
     }
 
-    // a step inside the current occupied cell resolves from the child
-    // bits already in registers; any other step reads the target's word
-    const bool same_cell = (nvx >> 1) == (vx >> 1) &&
-                           (nvy >> 1) == (vy >> 1) && (nvz >> 1) == (vz >> 1);
-    if (!(same_cell && dist == 0)) {
-      w = __ldg(occ + morton3(nvx >> 1, nvy >> 1, nvz >> 1));
-      cb = max(w, 0);
-      dist = max(-w, 0);
-    }
+    // the word is a function of the cell: read it only when a coordinate
+    // changes above its lowest bit (a step inside an occupied cell
+    // resolves from the child bits already in registers)
+    const bool new_cell = ((nvx ^ vx) | (nvy ^ vy) | (nvz ^ vz)) > 1;
     vx = nvx;
     vy = nvy;
     vz = nvz;
     ++r.steps;
-    if (child_bit(cb, vx, vy, vz)) {
+    if (new_cell) {
+      w = __ldg(occ + cell_index(dil, vx, vy, vz));
+      dist = max(-w, 0);
+    }
+    if (child_bit(w, vx, vy, vz)) {
       r.hit = 1;
       r.t = t_new;
       r.ax = mx ? 0 : (my ? 1 : 2);
-      r.sg = mx ? sgx : (my ? sgy : sgz);
+      r.sg = (mx ? dx : (my ? dy : dz)) >= 0.0f ? 1 : -1;
       if constexpr (kResume) r.done = 1;
       break;
     }
@@ -285,17 +357,32 @@ __device__ MarchResult march_ray(float ox, float oy, float oz, float dx,
   return r;
 }
 
+// Per-light visibility as the shade epilogue reads it: a row of the [N, L]
+// input (shade_kernel; none: every light visible), or one bit a light set
+// where the in-kernel shadow march hit (0)
+struct VisRow {
+  const float* p;  // null: every light visible
+  __device__ float operator[](int li) const { return p ? p[li] : 1.0f; }
+};
+struct VisBits {
+  unsigned bits;
+  __device__ float operator[](int li) const {
+    return (bits >> li) & 1u ? 0.0f : 1.0f;
+  }
+};
+
 // The shade epilogue for one pixel (vxtpu's _shade_epilogue): albedo from
 // the material word (3-bit child id -> palette) or the RGB8 word; flat,
 // lambert or lambert + Blinn-Phong per light with attenuation
 // I / (1 + 0.002 d^2) and visibility; fog; the sky gradient on a miss.
-__device__ void shade_pixel(const ShadeParams& P,
-                            const float* __restrict__ lights,
-                            const int32_t* __restrict__ mats, int mats_len,
-                            bool hit, float t, int vx, int vy, int vz,
-                            float nx, float ny, float nz, float ox, float oy,
-                            float oz, float dx, float dy, float dz,
-                            const float* vis, float* out) {
+// mode: P.mode, or the instantiation's own where it is known at compile
+// time (then only its branch is compiled).
+template <class Vis>
+__device__ __forceinline__ void shade_pixel(
+    const ShadeParams& P, int mode, const float* __restrict__ lights,
+    const int32_t* __restrict__ mats, int mats_len, bool hit, float t, int vx,
+    int vy, int vz, float nx, float ny, float nz, float ox, float oy, float oz,
+    float dx, float dy, float dz, Vis vis, float* out) {
   int w = 0;
   if (hit) {
     const int idx = P.rgb8 ? morton3(vx, vy, vz)
@@ -319,7 +406,7 @@ __device__ void shade_pixel(const ShadeParams& P,
   }
   const float t_s = hit ? t : 0.0f;
   float ar, ag, ab;
-  if (P.mode == 0) {
+  if (mode == 0) {
     float fw = 0.80f * fabsf(nx) + 0.68f * fabsf(ny) + 1.00f * fabsf(nz);
     if (nz < -0.5f) fw = 0.45f;
     ar = pr * fw;
@@ -340,12 +427,12 @@ __device__ void shade_pixel(const ShadeParams& P,
       const float ldx = lvx * rinv, ldy = lvy * rinv, ldz = lvz * rinv;
       const float ndotl = fmaxf(nx * ldx + ny * ldy + nz * ldz, 0.0f);
       const float atten = L[6] / (1.0f + 0.002f * dist2);
-      const float v = vis ? vis[li] : 1.0f;
+      const float v = vis[li];
       const float diff = ndotl * atten * v;
       ar = ar + pr * diff * L[3];
       ag = ag + pg * diff * L[4];
       ab = ab + pb * diff * L[5];
-      if (P.mode == 2) {
+      if (mode == 2) {
         const float hx = ldx - dx, hy = ldy - dy, hz = ldz - dz;
         const float hn = 1.0f / sqrtf(fmaxf(hx * hx + hy * hy + hz * hz, 1e-12f));
         const float ndoth = fmaxf((nx * hx + ny * hy + nz * hz) * hn, 0.0f);
@@ -372,24 +459,31 @@ __device__ void shade_pixel(const ShadeParams& P,
   out[2] = fminf(fmaxf(hit ? ab : skb, 0.0f), 1.0f);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// One instantiation per launch mode, so that each carries only the code
+// it runs: kMode -1 marches only (no epilogue, no material read); 0 flat,
+// 1 lambert, 2 full shade in the kernel; kShadows adds one shadow march per
+// light from the hit point (lit modes only).
+template <int kMode, bool kShadows>
+__global__ void __launch_bounds__(kThreads, min_blocks(kMode, kShadows))
 march_shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ t_max, int n,
-                   const int16_t* __restrict__ occ, int X, int Y, int Z,
+                   const int16_t* __restrict__ occ, const Grid g,
                    int iter_cap, const int32_t* __restrict__ mats,
                    int mats_len, const float* __restrict__ lights,
-                   ShadeParams P, int do_shade,
-                   uint8_t* __restrict__ hit_out, float* __restrict__ t_out,
-                   int32_t* __restrict__ vox_out, float* __restrict__ nrm_out,
+                   const ShadeParams P, uint8_t* __restrict__ hit_out,
+                   float* __restrict__ t_out, int32_t* __restrict__ vox_out,
+                   float* __restrict__ nrm_out,
                    int32_t* __restrict__ steps_out,
                    float* __restrict__ rgb_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ int dil[];
+  fill_dilation(dil, g);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
   const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
   const float tm = t_max ? t_max[i] : kBigT;
   const MarchResult r =
-      march_ray<false>(ox, oy, oz, dx, dy, dz, tm, occ, X, Y, Z, iter_cap);
+      march_ray<false>(ox, oy, oz, dx, dy, dz, tm, occ, dil, g, iter_cap);
   const bool hit = r.hit != 0;
   const float sgf = -(float)r.sg;
   const float nx = hit && r.ax == 0 ? sgf : 0.0f;
@@ -404,13 +498,13 @@ march_shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
   nrm_out[3 * i + 1] = ny;
   nrm_out[3 * i + 2] = nz;
   steps_out[i] = r.steps;
-  if (!do_shade) return;
-
-  float vis[kMaxLights];
-  if (P.shadows) {
+  if constexpr (kShadows) {
+    static_assert(kMode > 0, "shadow marches need a lit mode");
     // second march per light, from the hit point nudged off the face
     // toward the light, capped at dist - 2 eps; skipped for misses and
-    // where n.l <= 0 (both light terms are zero there)
+    // where n.l <= 0 (both light terms are zero there). A light whose
+    // march hits sets its bit: visibility 0
+    unsigned shadowed = 0;
     const float t_s = hit ? r.t : 0.0f;
     const float px = hit ? ox + t_s * dx + nx * kShadowEps : 0.0f;
     const float py = hit ? oy + t_s * dy + ny * kShadowEps : 0.0f;
@@ -422,18 +516,21 @@ march_shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
       const float dn = fmaxf(ldist, 1e-12f);
       const float ldx = lvx / dn, ldy = lvy / dn, ldz = lvz / dn;
       const float ndl = nx * ldx + ny * ldy + nz * ldz;
-      vis[li] = 1.0f;
       if (hit && ndl > 0.0f) {
-        const MarchResult s = march_ray<false>(px, py, pz, ldx, ldy, ldz,
-                                        ldist - 2.0f * kShadowEps, occ, X, Y,
-                                        Z, iter_cap);
-        if (s.hit) vis[li] = 0.0f;
+        const MarchResult s =
+            march_ray<false>(px, py, pz, ldx, ldy, ldz,
+                             ldist - 2.0f * kShadowEps, occ, dil, g, iter_cap);
+        if (s.hit) shadowed |= 1u << li;
       }
     }
+    shade_pixel(P, kMode, lights, mats, mats_len, hit, r.t, r.vx, r.vy, r.vz,
+                nx, ny, nz, ox, oy, oz, dx, dy, dz, VisBits{shadowed},
+                rgb_out + 3 * i);
+  } else if constexpr (kMode >= 0) {
+    shade_pixel(P, kMode, lights, mats, mats_len, hit, r.t, r.vx, r.vy, r.vz,
+                nx, ny, nz, ox, oy, oz, dx, dy, dz, VisRow{nullptr},
+                rgb_out + 3 * i);
   }
-  shade_pixel(P, lights, mats, mats_len, hit, r.t, r.vx, r.vy, r.vz, nx, ny,
-              nz, ox, oy, oz, dx, dy, dz, P.shadows ? vis : nullptr,
-              rgb_out + 3 * i);
 }
 
 // One march-only round per ray (K1's march_ray in resume mode): the
@@ -445,14 +542,16 @@ march_resume_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const int32_t* __restrict__ rvox,
                     const int32_t* __restrict__ rdist,
                     const int32_t* __restrict__ rsteps,
-                    const int16_t* __restrict__ occ, int X, int Y, int Z,
+                    const int16_t* __restrict__ occ, const Grid g,
                     int iter_cap, uint8_t* __restrict__ hit_out,
                     float* __restrict__ t_out, int32_t* __restrict__ vox_out,
                     float* __restrict__ nrm_out,
                     int32_t* __restrict__ steps_out,
                     uint8_t* __restrict__ done_out,
                     int32_t* __restrict__ dist_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ int dil[];
+  fill_dilation(dil, g);
+  const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   ResumeIn rin = {0, 0, 0, 0, 0, 0};
   if (rvox != nullptr) {
@@ -465,7 +564,7 @@ march_resume_kernel(const float* __restrict__ o, const float* __restrict__ d,
   }
   const MarchResult r = march_ray<true>(
       o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i], d[3 * i + 1],
-      d[3 * i + 2], t_max ? t_max[i] : kBigT, occ, X, Y, Z, iter_cap, rin);
+      d[3 * i + 2], t_max ? t_max[i] : kBigT, occ, dil, g, iter_cap, rin);
   const bool hit = r.hit != 0;
   const float sgf = -(float)r.sg;
   hit_out[i] = hit ? 1 : 0;
@@ -491,12 +590,42 @@ shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
              float* __restrict__ rgb_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  shade_pixel(P, lights, mats, mats_len, hit[i] != 0, t[i], vox[3 * i],
-              vox[3 * i + 1], vox[3 * i + 2], nrm[3 * i], nrm[3 * i + 1],
-              nrm[3 * i + 2], o[3 * i], o[3 * i + 1], o[3 * i + 2], d[3 * i],
-              d[3 * i + 1], d[3 * i + 2],
-              P.use_vis ? vis + (size_t)i * P.n_lights : nullptr,
+  const bool h = hit[i] != 0;
+  const float ti = t[i];
+  const int vx = vox[3 * i], vy = vox[3 * i + 1], vz = vox[3 * i + 2];
+  const float nx = nrm[3 * i], ny = nrm[3 * i + 1], nz = nrm[3 * i + 2];
+  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
+  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
+  shade_pixel(P, P.mode, lights, mats, mats_len, h, ti, vx, vy, vz, nx, ny, nz,
+              ox, oy, oz, dx, dy, dz,
+              VisRow{P.use_vis ? vis + (size_t)i * P.n_lights : nullptr},
               rgb_out + 3 * i);
+}
+
+// The instantiation of each variant id
+const void* march_shade_variant(int variant) {
+  switch (variant) {
+    case 0: return (const void*)march_shade_kernel<-1, false>;
+    case 1: return (const void*)march_shade_kernel<0, false>;
+    case 2: return (const void*)march_shade_kernel<1, false>;
+    case 3: return (const void*)march_shade_kernel<2, false>;
+    case 4: return (const void*)march_shade_kernel<1, true>;
+    case 5: return (const void*)march_shade_kernel<2, true>;
+    default: return nullptr;
+  }
+}
+
+Grid make_grid(int X, int Y, int Z) {
+  return Grid{X,
+              Y,
+              Z,
+              (float)X,
+              (float)Y,
+              (float)Z,
+              (float)(X - 1),
+              (float)(Y - 1),
+              (float)(Z - 1),
+              X > Y ? (X > Z ? X : Z) : (Y > Z ? Y : Z)};
 }
 
 }  // namespace
@@ -504,6 +633,9 @@ shade_kernel(const float* __restrict__ o, const float* __restrict__ d,
 // Plain C entry points (loaded with ctypes). Each launches its kernel on
 // `stream` and returns cudaGetLastError(); nothing here synchronises.
 
+// params null: march only; else the instantiation of its mode and shadows
+// flag marches and shades (a mode outside 0..2 launches nothing and
+// returns cudaErrorInvalidValue).
 extern "C" int vx_march_shade(const float* o, const float* d,
                               const float* t_max, int n, const int16_t* occ,
                               int X, int Y, int Z, int iter_cap,
@@ -513,19 +645,37 @@ extern "C" int vx_march_shade(const float* o, const float* d,
                               int32_t* steps, float* rgb,
                               cudaStream_t stream) {
   ShadeParams P = {};
-  int do_shade = 0;
   int mats_len = 0;
   if (params != nullptr) {
     P = *params;
-    do_shade = 1;
+    if (P.mode < 0 || P.mode > 2) return (int)cudaErrorInvalidValue;
     const int cells = (X / 2) * (Y / 2) * (Z / 2);
     mats_len = P.rgb8 ? X * Y * Z : cells;
   }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  march_shade_kernel<<<blocks, kThreads, 0, stream>>>(
-      o, d, t_max, n, occ, X, Y, Z, iter_cap, mats, mats_len, lights, P,
-      do_shade, hit, t, vox, nrm, steps, rgb);
-  return (int)cudaGetLastError();
+  const void* fn =
+      march_shade_variant(params ? (P.shadows ? 3 : 1) + P.mode : 0);
+  Grid g = make_grid(X, Y, Z);
+  void* args[] = {&o,    &d,      &t_max, &n,   &occ,   &g,
+                  &iter_cap, &mats, &mats_len, &lights, &P, &hit,
+                  &t,    &vox,    &nrm,   &steps, &rgb};
+  const cudaError_t e = cudaLaunchKernel(
+      fn, dim3((n + kThreads - 1) / kThreads), dim3(kThreads), args,
+      sizeof(int) * g.n_dil, stream);
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+// Blocks of a march_shade_kernel instantiation (by variant id) an SM holds
+// at once with the dilation table of an X^3 grid (its occupancy, for the
+// record); 0 for an unknown variant or a failed query.
+extern "C" int vx_march_shade_blocks_per_sm(int variant, int X) {
+  const void* fn = march_shade_variant(variant);
+  int blocks = 0;
+  if (fn == nullptr ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, fn, kThreads, sizeof(int) * X) != cudaSuccess)
+    return 0;
+  return blocks;
 }
 
 extern "C" int vx_march_resume(const float* o, const float* d,
@@ -536,10 +686,11 @@ extern "C" int vx_march_resume(const float* o, const float* d,
                                uint8_t* hit, float* t, int32_t* vox,
                                float* nrm, int32_t* steps, uint8_t* done,
                                int32_t* dist, cudaStream_t stream) {
+  const Grid g = make_grid(X, Y, Z);
   const int blocks = (n + kThreads - 1) / kThreads;
-  march_resume_kernel<<<blocks, kThreads, 0, stream>>>(
-      o, d, t_max, n, rvox, rdist, rsteps, occ, X, Y, Z, iter_cap, hit, t,
-      vox, nrm, steps, done, dist);
+  march_resume_kernel<<<blocks, kThreads, sizeof(int) * g.n_dil, stream>>>(
+      o, d, t_max, n, rvox, rdist, rsteps, occ, g, iter_cap, hit, t, vox, nrm,
+      steps, done, dist);
   return (int)cudaGetLastError();
 }
 

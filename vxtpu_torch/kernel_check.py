@@ -5,7 +5,9 @@ March and shade (K1, K2): hit, voxel, normal and steps equal on >= 99.9%
 of rays; t within rtol 1e-5 where both hit; rgb within 1e-5 on >= 99.9%
 of pixels. Both sides round every operation the same way (the kernels
 are built with -fmad=false), so the margin only absorbs rays that graze a
-voxel edge and the last bits of expf/powf.
+voxel edge and the last bits of expf/powf. ``check_exact`` holds K1 to no
+margin: every ray and every pixel (the main-path frames, each
+instantiation of march_shade_kernel in tests/test_torch_cuda.py).
 
 Row-major march (K5): hit, voxel, normal and steps equal on every ray
 and |t difference| <= 1e-6 (the same operations in the same order, no
@@ -83,6 +85,21 @@ def check_records(m: dict, what: str) -> None:
                                  f"{m['n']} rays")
     if m["t_rel"] > T_RTOL:
         raise AssertionError(f"{what}: t differs by rel {m['t_rel']:.3g}")
+
+
+def check_exact(rm: dict, im: dict | None, what: str) -> None:
+    """K1 on a main-path frame: hit, voxel, normal and steps equal on every
+    ray (no RAY_AGREE margin), t within T_RTOL, and rgb (im, when given)
+    within RGB_ATOL on every pixel."""
+    bad = {k: rm[k] for k in ("hit", "voxel", "normal", "steps") if rm[k]}
+    if bad:
+        raise AssertionError(f"{what}: differs on {bad} of {rm['n']} rays")
+    if rm["t_rel"] > T_RTOL:
+        raise AssertionError(f"{what}: t differs by rel {rm['t_rel']:.3g}")
+    if im is not None and im["rgb"]:
+        raise AssertionError(f"{what}: rgb differs by more than {RGB_ATOL} "
+                             f"on {im['rgb']} of {im['n']} pixels (max "
+                             f"{im['max_abs']:.3g})")
 
 
 def check_image(m: dict, what: str) -> None:
@@ -207,6 +224,74 @@ def check_shade_case(m: dict, what: str) -> None:
     if "rec_n" in m:
         check_records({k[4:]: v for k, v in m.items()
                        if k.startswith("rec_")}, what)
+    if m["hits"] == 0:
+        raise AssertionError(f"{what}: no ray hit")
+
+
+# K1's instantiations one by one (km.K1_VARIANTS), each case naming the
+# variant it must launch: march only, each shading mode, the lit modes with
+# in-kernel shadows, the RGB8 albedo, and ray counts that leave a partial
+# last block (PACKED_RAYS' n117 and n1961)
+K1_CASES = {
+    "march": "march", "flat": "flat", "lambert": "lambert",
+    "full_fog": "full", "lambert_shadows": "lambert_shadows",
+    "full_shadows_fog": "full_shadows", "rgb8": "lambert",
+    "march-n117": "march", "full_shadows_fog-n1961": "full_shadows",
+}
+
+
+def run_k1_case(name: str, device, D: int = 64, h: int = 256,
+                w: int = 256) -> dict:
+    """One instantiation of march_shade_kernel (km.march, the kernel) vs
+    march_shade_reference on the 64^3 terrain from the outside camera:
+    record_mismatch, and image_mismatch of the rgb where it shades."""
+    mode, *rest = name.split("-")
+    for v in rest:
+        h, w = PACKED_RAYS[v]
+    dims = (D,) * 3
+    rgb8 = mode == "rgb8"
+    grid = procgen.terrain(dims, seed=11, with_rgb=rgb8, device=device)
+    acc = build_packed_morton(grid.occupancy, cap=64)
+    mats = build_rgb8_morton(grid) if rgb8 else \
+        build_material_morton(grid.occupancy)
+    o, d = generate_rays(_cameras(D, device)["outside"], h, w)
+    two = Lights.make([(0.15 * D, -0.3 * D, 1.4 * D),
+                       (1.25 * D, 0.95 * D, 1.55 * D)],
+                      [(1.0, 0.9, 0.8), (0.4, 0.5, 1.0)], [2.0, 1.0],
+                      device=device)
+    settings, lights = {
+        "march": (RenderSettings(shading="lambert"), two),
+        "flat": (RenderSettings(shading="flat"), Lights.none(device)),
+        "lambert": (RenderSettings(shading="lambert"), two),
+        "full_fog": (RenderSettings(shading="full", fog=True), two),
+        "lambert_shadows": (RenderSettings(shading="lambert", shadows=True),
+                            two),
+        "full_shadows_fog": (RenderSettings(shading="full", shadows=True,
+                                            fog=True), two),
+        "rgb8": (RenderSettings(shading="lambert"), two),
+    }[mode]
+    ms = settings.resolve_max_steps(dims)
+    lights_arr = km.pack_lights(lights)
+    spec = None if mode == "march" else km.ShadeSpec.from_settings(
+        settings, lights, rgb8=rgb8)
+    got = km.march(o, d, acc, dims, ms, shade_spec=spec, mats=mats,
+                   lights_arr=lights_arr)
+    want = km.march_shade_reference(o, d, acc, dims, ms, None, spec, mats,
+                                    lights_arr)
+    if spec is None:
+        m = record_mismatch(got, want)
+        m["image"] = None
+    else:
+        m = record_mismatch(got[0], want[0])
+        m["image"] = image_mismatch(got[1], want[1])
+        got = got[0]
+    m["hits"] = int(got.hit.sum())
+    m["variant"] = km.K1_VARIANTS[km.k1_variant(spec)]
+    return m
+
+
+def check_k1_case(m: dict, what: str) -> None:
+    check_exact(m, m["image"], what)
     if m["hits"] == 0:
         raise AssertionError(f"{what}: no ray hit")
 

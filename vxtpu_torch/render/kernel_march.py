@@ -9,16 +9,20 @@ per-light visibility). Both kernels are hand-written CUDA C++ in
 ``vxtpu_torch/csrc/march.cu``, built for sm_90a at first use.
 
 What bounds the kernel on an H100: one thread per ray marches a
-divergent, data-dependent loop, and every step that leaves a 2x2x2 cell
-reads one table word, so the march is latency-bound on dependent table
-reads, not on bandwidth or arithmetic. What the design does about it: the
-occupancy table is int16 in Morton order (32 MB at 512^3), small enough to
-stay resident in the 50 MB L2 and read through the read-only path; a
-cell's child bits stay in registers, so steps inside one occupied cell
-read nothing; empty space is crossed in one jump per empty box. The
-material or RGB8 word is read once per hit ray. None of the TPU
-machinery (row windows, one-hot MXU fetch, bf16 casts, [8,128] tiles,
-tuning knobs, per-tile iteration counters) carries over.
+divergent, data-dependent loop of about a hundred instructions a step,
+and every step that leaves a 2x2x2 cell reads one table word, so the
+march is bound by instruction issue and the latency of dependent table
+reads, not by bandwidth. What the design does about it (the header of
+``csrc/march.cu`` has the details): one instantiation of the kernel per
+launch mode (``K1_VARIANTS``; ``k1_variant`` picks it from the
+ShadeSpec), each with only the registers its own code needs; one integer
+face per axis a step; the Morton index of a cell from a dilation table in
+shared memory; the int16 Morton table (32 MiB at 512^3) read through the
+read-only path from the 50 MB L2; a cell's child bits kept in registers,
+so steps inside one occupied cell read nothing; empty space crossed in one
+jump per empty box. The material or RGB8 word is read once per hit ray.
+None of the TPU machinery (row windows, one-hot MXU fetch, bf16 casts,
+[8,128] tiles, tuning knobs, per-tile iteration counters) carries over.
 
 Resume mode (vxtpu's ``iter_budget``, ``resume_state`` and ``extended``
 arguments of ``march_pallas_v2``) launches ``march_resume_kernel``, the
@@ -58,10 +62,21 @@ MAX_LIGHTS = 8
 LAUNCHES = {"march_shade_kernel": 0, "shade_kernel": 0,
             "march_resume_kernel": 0}
 
+# The instantiations of march_shade_kernel (csrc/march.cu), in the order of
+# their variant id: march only, each shading mode, and the lit modes with
+# their in-kernel shadow marches. vx_march_shade picks one from the shade
+# parameters as k1_variant does from the ShadeSpec. VARIANT_LAUNCHES
+# counts the launches of each; LAUNCHES["march_shade_kernel"] counts them
+# all.
+K1_VARIANTS = ("march", "flat", "lambert", "full", "lambert_shadows",
+               "full_shadows")
+VARIANT_LAUNCHES = dict.fromkeys(K1_VARIANTS, 0)
+
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 _MODES = {"flat": 0, "lambert": 1, "full": 2}
@@ -111,6 +126,17 @@ class ShadeSpec:
             specular_exp=self.specular_exp, specular_k=self.specular_k,
             fog_density=self.fog_density, sky_top=self.sky_top,
             sky_horizon=self.sky_horizon)
+
+
+def k1_variant(spec: "ShadeSpec | None") -> int:
+    """The variant id (an index of K1_VARIANTS) of the instantiation of
+    march_shade_kernel that marches, and shades as ``spec`` says (None:
+    march only)."""
+    if spec is None:
+        return 0
+    if spec.runs_shadow_marches:
+        return 3 + _MODES[spec.mode]
+    return 1 + _MODES[spec.mode]
 
 
 def pack_lights(lights: Lights) -> torch.Tensor:
@@ -560,8 +586,8 @@ def march(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
     or RGB8 table, and ``lights_arr`` from ``pack_lights``) it returns
     (HitRecord, rgb [N, 3]), shading in the same kernel, after the
     per-light shadow marches when ``shade_spec.shadows`` is set.
-    CUDA tensors launch ``march_shade_kernel``; CPU tensors run the plain
-    version.
+    CUDA tensors launch the instantiation of ``march_shade_kernel`` that
+    ``k1_variant(shade_spec)`` names; CPU tensors run the plain version.
 
     Resume mode, as ``march_pallas_v2`` takes it: ``iter_budget`` caps
     each ray's iterations in this call (the entry fetch counts as one;
@@ -635,6 +661,7 @@ def march(o: torch.Tensor, d: torch.Tensor, accel: PackedMorton,
             raise RuntimeError(f"march_shade_kernel launch failed: "
                                f"{_build.error_string(rc)}")
         LAUNCHES["march_shade_kernel"] += 1
+        VARIANT_LAUNCHES[K1_VARIANTS[k1_variant(shade_spec)]] += 1
     rec = HitRecord(hit=hit, t=t, voxel=voxel, normal=normal, steps=steps)
     return rec if shade_spec is None else (rec, rgb)
 

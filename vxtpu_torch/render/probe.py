@@ -43,6 +43,8 @@ tensor it runs ``march_probe_reference``.
 from __future__ import annotations
 
 import functools
+import sys
+import time
 
 import torch
 
@@ -258,18 +260,27 @@ def launch_us(fn, reps: int, kernel: str) -> list:
     return [us for _, us in seen]
 
 
+# profiler windows device_ms takes at most before it gives up
+_EMPTY_WINDOW_RETRIES = 6
+
+
 def device_ms(fn, reps: int, kernel: str) -> float:
     """Device time (ms) per launch of the kernels whose name holds
     ``kernel``, from torch.profiler over ``reps`` calls after a warm-up:
     their summed device time over the launches it recorded. It can drop
-    some launches, and now and then a whole window: such a window is
-    taken again, three windows at most. Raises if none recorded one."""
-    for _ in range(3):
+    some launches, and now and then records none for several windows in
+    a row: such a window is noted on stderr and taken again after a pause
+    that grows by 0.5 s with each empty one, _EMPTY_WINDOW_RETRIES
+    windows at most. Raises if none recorded one."""
+    for k in range(_EMPTY_WINDOW_RETRIES):
         us = launch_us(fn, reps, kernel)
         if us:
             return sum(us) / len(us) / 1e3
+        print(f"device_ms: the profiler recorded no {kernel} in window "
+              f"{k + 1} of {_EMPTY_WINDOW_RETRIES}", file=sys.stderr)
+        time.sleep(0.5 * (k + 1))
     raise RuntimeError(f"the profiler saw no {kernel} on the device in "
-                       f"three windows")
+                       f"{_EMPTY_WINDOW_RETRIES} windows")
 
 
 def cost_probe(o: torch.Tensor, d: torch.Tensor, tables: dict, dims,
