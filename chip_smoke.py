@@ -82,7 +82,35 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              march-only (profiler device times), the sorted march and
              an argsort alone (sorted_probe), K6's ns per ray-iteration
              for each variant x layout x {128, 256, 512} threads
-             (cost_probe), each one's plain time and bound.
+             (cost_probe), each one's plain time and bound;
+ 10. xla+mask the CLI's default march and the masked trainer (run after
+             phase 9; neither uses phase 4's world: the c3 frame is 256^3
+             with per-voxel RGB, the masked fit's truth 512^3 with RGB).
+             (a) the c3_256_shadows frame (256^3 terrain seed 7, per-voxel
+             RGB, 1024x1024, full + shadows + fog) through the batched
+             march (render/kernel_xla.py, plain tensor code) over the
+             distance field (cap 24) and over the 2-level pyramid: its
+             primary and shadow rays against K5's (hit flags agree on
+             >= 99.8%; where both hit, t within rtol 1e-4 / atol 1e-3,
+             voxel >= 99.8% and normal >= 99.5% equal), the frame against
+             the K5 pipeline frame (pixels beyond 1/255), median frame
+             time, mean steps a ray, chunks (host syncs) a march, device
+             kernels and busy time a frame (profiler), and the render
+             (both accelerations) and bench commands with --kernel xla;
+             (b) the occupancy-masked c4 fit: 512^3 truth (seed 7,
+             from_hard), one 256x256 target at S = 256, the warm state
+             (0.8 x the truth), its 128^3 mask (G = 4, tau 0.01, dilate
+             1), its distance field and compute_mask_bounds: the occupied
+             share, band over full segment, the bounds pass alone; the
+             bounds conservative on all 65,536 rays; S = 64 on the bands
+             against S = 256 on the whole segment (mean |d rgb| < 0.015);
+             one masked step through K3/K4 against their plain versions;
+             the masked step at S = 64 and the unmasked at S = 256 (ms,
+             peak memory, loss, K3/K4 launches); K3 and K4's scatter alone
+             at the masked shape with their bounds; five fit_soft steps
+             from zeros with the mask rebuilt at steps 2 and 4 (counted:
+             K3 and K4 once a step; losses finite and falling); and
+             train --field-kernel --occmask at c4's size.
 
 Phases 3 and 6 also hold K3/K4 against their plain versions: forward
 |d| <= 1e-6; both K4 variants' gradient tables within rtol 1e-5 / atol
@@ -98,10 +126,16 @@ steps, done, dist on every ray), march_sorted to single-round K1 exactly
 (hit, t, voxel, normal, steps), and K6's acc to its plain version bit for
 bit.
 
+Phase 10 holds the masked step's loss and gradient through K3/K4 to
+their plain versions with phase 6's limits, and the batched march to K5
+with the limits above.
+
 The line before the last is one JSON object with the kernels' counts,
 errors, times and bounds (the bounds of K1, K1' and K5 count the
 distinct table words their marches read, counted on the plain march;
-the bounds without them are kept as bound_rays_only_ms); the last line
+the bounds without them are kept as bound_rays_only_ms; K3's and K4's
+scatter also carry "masked": phase 10's launches and the kernel alone at
+the masked step's shape); the last line
 is {"ok": true, "device": {...}}.
 --save DIR writes the main-path frames there as PNGs. --k5-times runs
 phases 1 and 2, then K5 alone on its three ray sets as phase 8 times it
@@ -316,7 +350,8 @@ def phase_kernels(device, D=64, h=256, w=256) -> dict:
                 f"cotangents unequal" if m["ray_grads"] else
                 ", no ray outputs")
         print(f"phase 3 kernels: sample {name}: {m['active']} of {m['n']} "
-              f"rays cross the grid, S {m['S']}; forward max |d| "
+              f"rays sampled ({m['empty_bands']} cross the grid on an empty "
+              f"band), S {m['S']}; forward max |d| "
               f"{m['fwd_max_abs']:.3g}; backward (kRayGrads="
               f"{str(m['ray_grads']).lower()}) vs plain: max |d| "
               f"{m['bwd_max_abs']:.3g}, allclose excess "
@@ -1610,10 +1645,10 @@ def _render_target(truth, o, d, settings, S):
 
 
 def _grads(tab, plain, o, d, settings, S, lights=None, target=None,
-           cot=None, tc=None):
+           cot=None, tc=None, mask=None, bounds=None):
     """Loss (or colour) and the gradient to the Morton table's four
     channels (sigma, r, g, b) through the kernel path, or through the
-    kernels' plain versions."""
+    kernels' plain versions; ``mask`` and ``bounds``: the masked model."""
     import torch
 
     from vxtpu_torch import kernel_check as kc
@@ -1623,7 +1658,8 @@ def _grads(tab, plain, o, d, settings, S, lights=None, target=None,
 
     p = tab.detach().clone().requires_grad_(True)
     out = render_soft_rays_kernel(MortonSoftGrid(p), o, d, settings, S,
-                                  lights=lights, plain=plain)
+                                  lights=lights, plain=plain, mask=mask,
+                                  seg_bounds=bounds)
     if target is not None:
         loss = mse(out, target) + tv_prior_morton(p, tc.tv_sigma, tc.tv_rgb)
         g, = torch.autograd.grad(loss, [p])
@@ -2029,7 +2065,8 @@ def ray_sum_times(n, chunks, device, runs) -> dict:
     return out
 
 
-def library_yardstick(tab, o, d, t0, dt, S, D, cots, device, runs) -> dict:
+def library_yardstick(tab, o, d, t0, dt, S, D, cots, device, runs,
+                      prefix="phase 6 train") -> dict:
     """torch.nn.functional.grid_sample on the same samples: 5-D, bilinear
     (trilinear), align_corners=False, border padding, on a row-major
     [1, 4, D, D, D] volume; forward, its autograd backward to the volume
@@ -2073,7 +2110,7 @@ def library_yardstick(tab, o, d, t0, dt, S, D, cots, device, runs) -> dict:
         ms[key] = median_ms(lambda: torch.autograd.grad(
             res, wrt, cot, retain_graph=True), device, runs)
         del res
-    print(f"phase 6 train: grid_sample yardstick: agrees with K3 within "
+    print(f"{prefix}: grid_sample yardstick: agrees with K3 within "
           f"{same:.3g} inside [0.5, D - 0.5]^3; forward {fwd_ms:.3f} ms, "
           f"backward to the volume and the grid {ms['bwd_ms']:.3f} ms, to "
           f"the volume alone {ms['bwd_vol_ms']:.3f} ms")
@@ -2141,6 +2178,472 @@ def cross_train(device) -> dict:
     if worst > 1e-5:
         raise AssertionError(f"K3 checksums differ from JAX's by {worst}")
     return {"losses": losses, "rel": rel}
+
+
+def xla_agreement(rec, ref) -> dict:
+    """A batched-march HitRecord against K5's on the same rays, at
+    tests/test_distfield.py's limits: the share of rays whose hit flags
+    agree; on rays both hit, how many t differ beyond rtol 1e-4 / atol
+    1e-3 (all of them, and those that hit the same voxel), and the shares
+    of equal voxels and normals. A ray that grazes an edge may hit
+    another voxel, and then another t, in each march."""
+    both = rec.hit & ref.hit
+    nb = max(int(both.sum()), 1)
+    same = (rec.voxel == ref.voxel).all(-1) & both
+    t_bad = ((rec.t - ref.t).abs() > 1e-3 + 1e-4 * ref.t.abs()) & both
+    return dict(
+        hit_agree=float((rec.hit == ref.hit).float().mean()),
+        both=int(both.sum()), t_bad=int(t_bad.sum()),
+        t_bad_same_voxel=int((t_bad & same).sum()),
+        voxel=float(same.sum()) / nb,
+        normal=float((((rec.normal - ref.normal).abs() < 1e-6).all(-1)
+                      & both).sum()) / nb)
+
+
+def check_xla_agreement(m: dict, what: str) -> None:
+    if not (m["hit_agree"] >= 0.998 and m["t_bad_same_voxel"] == 0
+            and m["voxel"] >= 0.998 and m["normal"] >= 0.995
+            and m["both"] > 0):
+        raise AssertionError(f"{what}: the batched march disagrees with K5: "
+                             f"{m}")
+
+
+def _profile_launches(fn, device) -> dict:
+    """One profiled call of fn: the device kernels it launched, their
+    device time and the wall time (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    n, busy = 0, 0.0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith(("Optimizer.", "ProfilerStep"))):
+            continue
+        if _device_us(e):
+            n += e.count
+            busy += _device_us(e) / 1e3
+    return dict(launches=n, busy_ms=busy, wall_ms=wall)
+
+
+def phase_xla(device, D=256, h=1024, w=1024, runs=3, save=None,
+              cli_size=(), card="") -> dict:
+    """Phase 10 (a): the c3 frame through the batched march over the
+    distance field and over the 2-level pyramid, held against K5 on the
+    primary and shadow rays and as a frame; the render and bench
+    commands with --kernel xla. ``card``: the GPU's name and power limit,
+    printed beside the times."""
+    import math
+    import tempfile
+
+    import torch
+
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.app.run import build_scene
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render import kernel_packed as kp
+    from vxtpu_torch.render import kernel_sample as ks
+    from vxtpu_torch.render.dda import dda_step_mask
+    from vxtpu_torch.render.kernel_xla import make_march_xla
+    from vxtpu_torch.render.pipeline import render_image, shadow_ray_batch
+    from vxtpu_torch.utils import save_png
+    from vxtpu_torch.world import distfield
+    from vxtpu_torch.world.packed import build_packed
+    from vxtpu_torch.world.pyramid import build_pyramid
+
+    cfg = CONFIGS["c3_256_shadows"]
+    settings = cfg.settings
+    dims = (D,) * 3
+    t0 = time.perf_counter()
+    grid, _, cam, lights = build_scene(cfg, dims, "none", device)
+    accels = {"distfield": distfield.build(grid.occupancy, cap=24),
+              "pyramid": build_pyramid(grid.occupancy,
+                                       settings.pyramid_levels)}
+    packed = build_packed(grid.occupancy)
+    _sync(device)
+    print(f"phase 10 xla+mask: {cfg.name} at {D}^3: terrain, distance field "
+          f"(cap 24), {settings.pyramid_levels}-level pyramid and row-major "
+          f"table in {time.perf_counter() - t0:.2f} s")
+    occ_flat = grid.occupancy.reshape(-1)
+    ms = settings.resolve_max_steps(dims)
+    o, d = generate_rays(cam, h, w)
+    ref = kp.march_packed(o, d, packed, dims, ms)
+    sp, sd, stm = shadow_ray_batch(ref, o, d, lights.pos[0])
+    ref_s = kp.march_packed(sp, sd, packed, dims, ms, t_max=stm)
+    img_k5 = render_image(kp.make_march_packed, grid, cam, lights, settings,
+                          h, w, packed)
+    out = {"k5_mean_steps": float(ref.steps.float().mean())}
+    # the tie-break of a DDA step on [N, 3]: vxtpu's cumsum form against
+    # the port's argmin (the same mask)
+    tn = torch.floor(torch.rand(h * w, 3, generator=torch.Generator(
+    ).manual_seed(3)) * 4).to(device)
+
+    def cumsum_mask():
+        is_min = tn <= tn.amin(dim=-1, keepdim=True)
+        return is_min & (torch.cumsum(is_min.to(torch.int32), dim=-1) == 1)
+
+    if not torch.equal(cumsum_mask(), dda_step_mask(tn)):
+        raise AssertionError("dda_step_mask differs from the cumsum form")
+    out["tie_break_ms"] = {"cumsum": median_ms(cumsum_mask, device, runs),
+                           "argmin": median_ms(lambda: dda_step_mask(tn),
+                                               device, runs)}
+    tb = out["tie_break_ms"]
+    print(f"phase 10 xla+mask: a step's axis tie-break on [{h * w}, 3] "
+          f"[{card}] (events): vxtpu's cumsum form {tb['cumsum']:.3f} ms, "
+          f"argmin {tb['argmin']:.3f} ms (equal masks)")
+    for name, acc in accels.items():
+        march = make_march_xla(occ_flat, dims, settings, acc)
+        # the main path, counted: one frame (it runs no hand-written
+        # kernel)
+        for mod in (km, kp, ks):
+            mod.reset_launch_counts()
+        img = render_image(make_march_xla, grid, cam, lights, settings, h, w,
+                           acc)
+        _sync(device)
+        counts = {k: v for mod in (km, kp, ks) for k, v in
+                  mod.LAUNCHES.items() if v}
+        if img.shape != (h, w, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"xla {name} frame: not finite or misshapen")
+        rec = march(o, d)
+        srec = march(sp, sd, t_max=stm)
+        m = xla_agreement(rec, ref)
+        ms_ = xla_agreement(srec, ref_s)
+        px = float(((img - img_k5).abs() > 1.0 / 255).any(-1).float().mean())
+        chunks = [math.ceil(int(r.steps.max()) / settings.step_chunk)
+                  for r in (rec, srec)]
+        frame_ms = median_ms(lambda: render_image(
+            make_march_xla, grid, cam, lights, settings, h, w, acc), device,
+            runs)
+        march_ms = median_ms(lambda: march(o, d), device, runs)
+        prof = (_profile_launches(lambda: render_image(
+            make_march_xla, grid, cam, lights, settings, h, w, acc), device)
+            if device.type == "cuda" else {})
+        print(f"phase 10 xla+mask: c3 xla/{name} vs K5, primary rays: hit "
+              f"agree {m['hit_agree']:.6f}, both hit {m['both']}, t beyond "
+              f"tolerance {m['t_bad']} ({m['t_bad_same_voxel']} on the same "
+              f"voxel), voxel equal {m['voxel']:.6f}, normal "
+              f"equal {m['normal']:.6f}; shadow rays: hit agree "
+              f"{ms_['hit_agree']:.6f}, t beyond {ms_['t_bad']} "
+              f"({ms_['t_bad_same_voxel']} on the same voxel); frame vs "
+              f"the K5 pipeline frame: {px:.6f} of pixels beyond 1/255")
+        steps_p = float(rec.steps.float().mean())
+        steps_s = float(srec.steps.float().mean())
+        print(f"phase 10 xla+mask: c3 xla/{name} [{card}]: frame "
+              f"{frame_ms:.2f} ms "
+              f"(median of {runs}, events), primary march alone "
+              f"{march_ms:.2f} ms; mean steps a ray {steps_p:.3f} primary, "
+              f"{steps_s:.3f} shadow (K5 {out['k5_mean_steps']:.3f} "
+              f"iterations); chunks "
+              f"of {settings.step_chunk} steps: {chunks[0]} primary, "
+              f"{chunks[1]} shadow (a host sync each); hand-written kernel "
+              f"launches in a frame {counts or 0}"
+              + (f"; profiled frame: {prof['launches']} device kernels, "
+                 f"busy {prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms"
+                 if prof else ""))
+        check_xla_agreement(m, f"c3 xla/{name} primary rays")
+        check_xla_agreement(ms_, f"c3 xla/{name} shadow rays")
+        if counts:
+            raise AssertionError(f"the batched march launched a hand-written "
+                                 f"kernel: {counts}")
+        out[name] = dict(agree=m, shadow_agree=ms_, pixels_beyond=px,
+                         frame_ms=frame_ms, march_ms=march_ms,
+                         mean_steps=steps_p, shadow_mean_steps=steps_s,
+                         chunks=chunks, profile=prof)
+        if save:
+            Path(save).mkdir(parents=True, exist_ok=True)
+            save_png(str(Path(save) / f"c3_xla_{name}.png"), img)
+    del grid, accels, packed, img_k5
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in ([], ["--accel", "pyramid"]):
+            line = _run_cli(["render", "--config", cfg.name, "--kernel", "xla",
+                             *extra, "--device", device.type, "--out",
+                             str(Path(tmp) / "f.png"), *cli_size])[-1]
+            print(f"phase 10 xla+mask: render --kernel xla {' '.join(extra)}"
+                  f": {line}")
+    line = _run_cli(["bench", "--config", cfg.name, "--kernel", "xla",
+                     "--iters", "2", "--device", device.type, *cli_size])[-1]
+    print(f"phase 10 xla+mask: bench --kernel xla: {line}")
+    out["bench"] = json.loads(line)
+    return out
+
+
+def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
+               runs=RUNS, cli_size=None, card="") -> dict:
+    """Phase 10 (b): the occupancy-masked c4 fit through K3/K4 (see the
+    module docstring). ``card``: the GPU's name and power limit, printed
+    beside the times."""
+    import math
+    import tempfile
+
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.engine.sharding import (camera_frame_rays,
+                                             compute_mask_bounds)
+    from vxtpu_torch.render import kernel_sample as ks
+    from vxtpu_torch.render import occmask, soft
+    from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
+                                                _enter_dt_soft,
+                                                render_soft_rays_kernel)
+    from vxtpu_torch.train import loop
+    from vxtpu_torch.world import procgen
+
+    G = 4
+    cfg4 = CONFIGS["c4_512_diff"]
+    settings = cfg4.settings
+    dims = (D,) * 3
+    t0 = time.perf_counter()
+    truth = soft.SoftGrid.from_hard(procgen.terrain(
+        dims, seed=cfg4.seed, with_rgb=True, device=device))
+    cam = Camera.make(pos=(-0.7 * D, 0.5 * D, 1.1 * D),
+                      device=device).look_at((0.5 * D, 0.5 * D, 0.27 * D))
+    o, d = generate_rays(cam, h, w)
+    target = _render_target(truth, o, d, settings, S)
+    tflat = target.reshape(-1, 3)
+    # the warm state of tools/bench_train_masked.py: 0.8 x the truth
+    warm = MortonSoftGrid.from_soft(soft.SoftGrid(truth.sigma_raw * 0.8,
+                                                  truth.rgb_raw * 0.8))
+    del truth
+    mask = occmask.occupancy_mask_from_soft(warm, G, 0.01, 1)
+    mask_df = occmask.mask_distance_field(mask)
+    o_c, d_c = camera_frame_rays(cam, h, w)
+    bounds = compute_mask_bounds(mask, mask_df, cam, o_c, d_c, G)
+    _sync(device)
+    t_full, dt_full, valid = _enter_dt_soft(o, d, dims, 1, None)
+    t_band, dt_band, _ = _enter_dt_soft(o, d, dims, 1, bounds)
+    seg = valid & (dt_full > 0)
+    ratio = float((dt_band[seg] / dt_full[seg]).mean())
+    occ_frac = float(mask.float().mean())
+    bounds_ms = median_ms(lambda: compute_mask_bounds(mask, mask_df, cam, o_c,
+                                                      d_c, G), device, runs)
+    bprof = (_profile_launches(lambda: compute_mask_bounds(
+        mask, mask_df, cam, o_c, d_c, G), device)
+        if device.type == "cuda" else {})
+    print(f"phase 10 xla+mask: {D}^3 truth, {h}x{w} target at S = {S}, warm "
+          f"state and its {tuple(mask.shape)} mask in "
+          f"{time.perf_counter() - t0:.2f} s; mask occupied "
+          f"{occ_frac:.4f}; band / full segment {ratio:.4f} (mean over the "
+          f"{int(seg.sum())} rays that cross the grid; "
+          f"{int((seg & (dt_band == 0)).sum())} of them have no band); the "
+          f"bounds pass alone [{card}] {bounds_ms:.2f} ms (events)"
+          + (f", {bprof['launches']} device kernels, busy "
+             f"{bprof['busy_ms']:.2f} of {bprof['wall_ms']:.2f} ms"
+             if bprof else ""))
+
+    # (2) the bounds are conservative: every mask-occupied sample of the
+    # full segment lies in [t0, t1]
+    t_b0, t_b1 = bounds
+    viol = 0
+    for i in range(0, o.shape[0], CHUNK):
+        sl = slice(i, i + CHUNK)
+        ts = t_full[sl, None] + dt_full[sl, None] * (
+            (torch.arange(S, device=device) + 0.5) / S)[None, :]
+        p = o[sl, None, :] + ts[..., None] * d[sl, None, :]
+        occ = occmask.mask_at(mask, G, p) > 0
+        inside = (ts >= t_b0[sl, None] - 1e-3) & (ts <= t_b1[sl, None] + 1e-3)
+        viol += int((occ & ~inside & valid[sl, None]).sum())
+    print(f"phase 10 xla+mask: bounds conservative on {o.shape[0]} rays x "
+          f"{S} full-segment samples: {viol} occupied samples outside "
+          f"[t0, t1]")
+    if viol:
+        raise AssertionError(f"{viol} mask-occupied samples outside the bands")
+
+    # (3) quadrature: S_mask samples on the band against S on the whole
+    # segment, both masked
+    with torch.no_grad():
+        few = render_soft_rays_kernel(warm, o, d, settings, S_mask,
+                                      mask=mask, seg_bounds=bounds)
+        full = render_soft_rays_kernel(warm, o, d, settings, S, mask=mask)
+    quad = float((few - full).abs().mean())
+    del few, full
+    print(f"phase 10 xla+mask: quadrature: S = {S_mask} on the band vs S = "
+          f"{S} on the whole segment, mean |d rgb| {quad:.5f} (limit 0.015)")
+    if not quad < 0.015:
+        raise AssertionError(f"masked quadrature error {quad}")
+
+    # (1) one masked step through the kernels against their plain versions
+    tc_mask = loop.TrainConfig(field_kernel=True, occ_mask=True,
+                               num_samples=S_mask, ray_batch=0,
+                               seed=cfg4.seed)
+    tc_dense = loop.TrainConfig(field_kernel=True, num_samples=S,
+                                ray_batch=0, seed=cfg4.seed)
+    lk, gk = _grads(warm.tab, False, o, d, settings, S_mask, target=tflat,
+                    tc=tc_mask, mask=mask, bounds=bounds)
+    lp, gp = _grads(warm.tab, True, o, d, settings, S_mask, target=tflat,
+                    tc=tc_mask, mask=mask, bounds=bounds)
+    ex = kc.grads_excess(gk, gp)
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    err = {BWD[False]: max(float((a - b).abs().max())
+                           for a, b in zip(gk, gp))}
+    del gk, gp
+    print(f"phase 10 xla+mask: one masked step at S = {S_mask}, kernels vs "
+          f"plain versions: loss {float(lk):.8f} vs {float(lp):.8f} (rel "
+          f"{rel:.3g}); gradient allclose excess {ex:.3g}")
+    if rel > 1e-6 or ex > 1.0:
+        raise AssertionError("masked step: kernels and plain versions differ")
+
+    # the steps, timed at the warm state: masked at S_mask (alone, and with
+    # its bounds pass, as the trainer runs it), unmasked at S
+    step_rows = {}
+    for name, tc, masked in (("masked", tc_mask, True),
+                             ("dense", tc_dense, False)):
+        model = MortonSoftGrid(warm.tab.detach().clone().requires_grad_(True))
+        opt = loop.make_optimizer(tc, [model.tab])
+        last = {}
+
+        def step(with_bounds=False):
+            b = bounds
+            if with_bounds:
+                b = compute_mask_bounds(mask, mask_df, cam, o_c, d_c, G)
+            opt.zero_grad(set_to_none=True)
+            loss = loop._loss_fn(model, cam, o, d, tflat, (h, w), settings,
+                                 tc, mask if masked else None,
+                                 b if masked else None)
+            loss.backward()
+            opt.step()
+            last["loss"] = loss.detach()
+
+        ks.reset_launch_counts()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        step()
+        _sync(device)
+        counts = dict(ks.LAUNCHES)
+        peak = (torch.cuda.max_memory_allocated(device) / 2**30
+                if device.type == "cuda" else float("nan"))
+        row = dict(ms=median_ms(step, device, runs), peak_gib=peak,
+                   loss=float(last["loss"]), launches=counts)
+        if masked:
+            row["with_bounds_ms"] = median_ms(lambda: step(True), device,
+                                              runs)
+        step_rows[name] = row
+        print(f"phase 10 xla+mask: {name} step at S = {tc.num_samples} "
+              f"[{card}]: {row['ms']:.2f} ms"
+              + (f" ({row['with_bounds_ms']:.2f} ms with its bounds pass)"
+                 if masked else "")
+              + f", peak {peak:.2f} GiB, loss {row['loss']:.6f}, launches "
+                f"{counts}")
+        if device.type == "cuda" and not (
+                counts["sample_fwd_kernel"] == 1 and counts[BWD[False]] == 1):
+            raise AssertionError(f"{name} step: K3/K4 launches {counts}")
+        del model, opt
+
+    # K3 and K4's scatter alone at the masked step's shape
+    st, sdt, _ = _enter_dt_soft(o, d, dims, S_mask, bounds)
+    st, sdt = st.contiguous(), sdt.contiguous()
+    tab = warm.tab
+    got = ks.sample_fields_fwd(tab, o, d, st, sdt, S_mask, D)
+    want = ks.sample_fields_fwd_reference(tab, o, d, st, sdt, S_mask, D)
+    err["sample_fwd_kernel"] = max(float((a - b).abs().max())
+                                   for a, b in zip(got, want))
+    if err["sample_fwd_kernel"] > kc.FWD_ATOL:
+        raise AssertionError(f"K3 at the masked shape differs by "
+                             f"{err['sample_fwd_kernel']}")
+    del got, want
+    g = torch.Generator().manual_seed(0)
+    cots = tuple(torch.randn(S_mask, h * w, generator=g).to(device)
+                 for _ in range(4))
+    args = (tab, o, d, st, sdt, cots, D)
+    kb = ks.sample_grads(*args, ray_grads=False)
+    pb = ks.sample_fields_bwd_reference(*args, ray_grads=False)
+    tab_ex = kc.grads_excess(kc.channels(kb[0]), kc.channels(pb[0]))
+    err[BWD[False]] = max(err[BWD[False]], float((kb[0] - pb[0]).abs().max()))
+    del kb, pb
+    if tab_ex > 1.0:
+        raise AssertionError(f"K4 at the masked shape: excess {tab_ex}")
+    active = int((sdt > 0).sum()) * S_mask
+    touched = _touched_words(o, d, st, sdt, S_mask, D)
+    bnd = sample_bounds(h * w, S_mask, D, active, touched, ray_grads=False)
+    lib = library_yardstick(tab, o, d, st, sdt, S_mask, D, cots, device, runs,
+                            prefix="phase 10 xla+mask")
+    alone = {
+        "sample_fwd_kernel": dict(
+            ms=median_ms(lambda: ks.sample_fields_fwd(
+                tab, o, d, st, sdt, S_mask, D), device, runs),
+            plain_ms=median_ms(lambda: ks.sample_fields_fwd_reference(
+                tab, o, d, st, sdt, S_mask, D), device, 3),
+            library_ms=lib["fwd_ms"], bound_ms=bnd["fwd"]["bound_ms"],
+            bound_by=bnd["fwd"]["bound_by"]),
+        BWD[False]: dict(
+            ms=median_ms(lambda: ks.sample_grads(*args, ray_grads=False),
+                         device, runs),
+            plain_ms=median_ms(lambda: ks.sample_fields_bwd_reference(
+                *args, ray_grads=False), device, 3),
+            library_ms=lib["bwd_vol_ms"], bound_ms=bnd["bwd"]["bound_ms"],
+            bound_by=bnd["bwd"]["bound_by"])}
+    if device.type == "cuda":
+        from vxtpu_torch.render.probe import device_ms
+
+        alone["sample_fwd_kernel"]["device_ms"] = device_ms(
+            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S_mask, D), runs,
+            "sample_fwd_kernel")
+        alone[BWD[False]]["device_ms"] = device_ms(
+            lambda: ks.sample_grads(*args, ray_grads=False), runs,
+            "sample_bwd_kernel<false, false>")
+    for k, r in alone.items():
+        print(f"phase 10 xla+mask: {k} alone at N = {h * w}, S = {S_mask} on "
+              f"the bands [{card}]: {r['ms']:.3f} ms (events), device "
+              f"{r.get('device_ms', float('nan')):.4f} ms; plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.4f} ms; "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({touched} "
+              f"table words touched, {active} active samples)")
+    del args, cots, warm, tab
+
+    # (4) the path, counted: a short masked fit from zeros, the mask
+    # rebuilt twice
+    tc_fit = loop.TrainConfig(field_kernel=True, occ_mask=True,
+                              num_samples=S_mask, ray_batch=0, steps=steps,
+                              seed=cfg4.seed, mask_refresh=2)
+    timer = StepTimer(device)
+    ks.reset_launch_counts()
+    timer()
+    _, _, losses, _ = loop.fit_soft(
+        soft.SoftGrid.zeros(dims, device=device), cam, target.reshape(h, w, 3),
+        settings, tc_fit, step_hook=timer)
+    _sync(device)
+    launches = dict(ks.LAUNCHES)
+    fit_ms = timer.ms()
+    print(f"phase 10 xla+mask: masked fit, {steps} steps from zeros at S = "
+          f"{S_mask}, mask rebuilt at steps 2 and 4: launches {launches}; "
+          f"losses {losses}; step ms [{card}] "
+          f"{[round(x, 2) for x in fit_ms]}")
+    if device.type == "cuda" and not (
+            launches["sample_fwd_kernel"] == steps
+            and launches[BWD[False]] == steps):
+        raise AssertionError(f"the masked fit did not run K3 and K4 once a "
+                             f"step: {launches}")
+    _check_losses(losses)
+
+    # the command
+    if cli_size is None:
+        cli_size = ["--dims", "0", "--height", "0", "--width", "0"]
+    ks.reset_launch_counts()
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_fit_") as tmp:
+        t0 = time.perf_counter()
+        line = _run_cli(["train", "--field-kernel", "--occmask", "--samples",
+                         str(S_mask), "--steps", str(steps), "--device",
+                         device.type, "--out", tmp, *cli_size])[-1]
+    print(f"phase 10 xla+mask: train --field-kernel --occmask {' '.join(cli_size)}"
+          f" --samples {S_mask} --steps {steps}: {line} in "
+          f"{time.perf_counter() - t0:.1f} s; launches {dict(ks.LAUNCHES)}")
+    if not math.isfinite(json.loads(line)["value"]):
+        raise AssertionError(f"train --occmask: {line}")
+    return dict(occupied=occ_frac, band_ratio=ratio, bounds_ms=bounds_ms,
+                bounds_profile=bprof, quadrature=quad, loss_rel=rel,
+                steps=step_rows, alone=alone, err=err, launches=launches,
+                losses=losses, fit_ms=fit_ms)
 
 
 def k1_k2_bounds(times, h, w, n_lights=1) -> dict:
@@ -2223,6 +2726,8 @@ def main(argv=None) -> int:
     pipe = phase_pipeline(device, grid, save=args.save)
     resume = phase_resume(device, grid)
     del grid
+    phase_xla(device, save=args.save, card=smi)
+    mask = phase_mask(device, card=smi)
     cross_entry_frame(device)
     train = phase_train(device)
     cross_train(device)
@@ -2279,6 +2784,12 @@ def main(argv=None) -> int:
             "plain_ms": tt[k]["plain_ms"],
             "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
             "library_ms": tt[k]["library_ms"]})
+        if k in mask["alone"]:
+            # phase 10's masked fit: its launches, and the kernel alone at
+            # the masked step's shape (S = 64 on the occupied bands)
+            kernels[-1]["masked"] = {
+                "launches": mask["launches"][k],
+                "max_abs_err": mask["err"][k], **mask["alone"][k]}
     pt = pipe["times"]
     c3, c3s, big = pt["c3"], pt["c3_shadow"], pt["big"]["k5"]
     kernels.append({

@@ -334,3 +334,89 @@ def test_cuda_tensor_never_reaches_resume_or_probe_plain_versions(
     assert bool(rec.hit.any()) and all(bool(a.isfinite().all()) for a in accs)
     assert km.LAUNCHES["march_resume_kernel"] >= 2
     assert probe.LAUNCHES["march_probe_kernel"] == len(probe.VARIANTS)
+
+
+def _to(rec, device):
+    return type(rec)(*(getattr(rec, f).to(device) for f in
+                       ("hit", "t", "voxel", "normal", "steps")))
+
+
+@pytest.mark.parametrize("accel", ["distfield", "pyramid"])
+@pytest.mark.parametrize("cam", ["outside", "inside"])
+def test_xla_march_on_card_matches_cpu(cuda, accel, cam):
+    """The batched march (plain tensor code, no kernel of its own) on the
+    card against the same march on the CPU, at 64^3."""
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_xla
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.world import distfield
+    from vxtpu_torch.world.pyramid import build_pyramid
+
+    cpu = torch.device("cpu")
+    recs = []
+    for dev in (cuda, cpu):
+        grid = procgen.terrain((64,) * 3, seed=11, device=dev)
+        o, d = generate_rays(kc._cameras(64, dev)[cam], 128, 128)
+        s = RenderSettings(pyramid_levels=2)
+        acc = (distfield.build(grid.occupancy) if accel == "distfield"
+               else build_pyramid(grid.occupancy, 2))
+        march = kernel_xla.make_march_xla(grid.occupancy.reshape(-1),
+                                          (64,) * 3, s, acc)
+        recs.append(march(o, d))
+    m = kc.record_mismatch(_to(recs[0], cpu), recs[1])
+    kc.check_records(m, f"xla march {accel} {cam}")
+    assert bool(recs[0].hit.any())
+
+
+def test_mask_bounds_on_card_match_cpu(cuda):
+    """The occupancy mask read from a Morton table and the band bounds of
+    its rays, on the card against the CPU: the mask byte for byte, the
+    bounds within 1e-4 and the same empty bands."""
+    from vxtpu_torch.render.occmask import mask_segment_bounds
+
+    cpu = torch.device("cpu")
+    out = []
+    for dev in (cuda, cpu):
+        tab, mask, mask_df = kc.masked_sample_fields(64, dev)
+        o, d = kc.sample_rays("masked", 64, 16384, dev)
+        out.append((mask.cpu(), *(x.cpu() for x in mask_segment_bounds(
+            mask, 4, o, d, df_flat=mask_df))))
+    (mg, t0g, t1g), (mc, t0c, t1c) = out
+    assert torch.equal(mg, mc)
+    assert torch.equal(t0g == t1g, t0c == t1c) and bool((t0c < t1c).any())
+    assert float((t0g - t0c).abs().max()) <= 1e-4
+    assert float((t1g - t1c).abs().max()) <= 1e-4
+
+
+def test_masked_fit_runs_the_kernels(cuda):
+    """Three masked field-kernel steps at 32^3 (the mask rebuilt before
+    step 2) launch K3 and K4's scatter once a step, and their losses
+    equal the same fit's on the CPU (the kernels' plain versions) within
+    rel 1e-5."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.render import soft
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.train import loop
+
+    losses = []
+    for dev in (cuda, torch.device("cpu")):
+        truth = soft.SoftGrid.from_hard(procgen.terrain(
+            (32,) * 3, seed=7, with_rgb=True, device=dev))
+        cam = Camera.make(pos=(-22.4, 16.0, 35.2), device=dev).look_at(
+            (16.0, 16.0, 8.64))
+        with torch.no_grad():
+            target = soft.render_soft_image(truth, cam, RenderSettings(), 32,
+                                            32, 32)
+        ks.reset_launch_counts()
+        _, _, got, _ = loop.fit_soft(
+            soft.SoftGrid.zeros((32,) * 3, device=dev), cam, target,
+            RenderSettings(), loop.TrainConfig(
+                steps=3, num_samples=16, seed=7, occ_mask=True,
+                mask_refresh=2, field_kernel=True))
+        losses.append(got)
+        if dev.type == "cuda":
+            assert ks.LAUNCHES["sample_fwd_kernel"] == 3
+            assert ks.LAUNCHES["sample_bwd_kernel<kRayGrads=false>"] == 3
+    assert losses[0][-1] < losses[0][0]
+    for a, b in zip(*losses):
+        assert abs(a - b) <= 1e-5 * abs(b)

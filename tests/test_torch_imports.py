@@ -34,7 +34,9 @@ def test_scan_covers_the_package():
                 "camera/paths.py", "device.py", "convert.py",
                 "render/kernel_packed.py", "render/pipeline.py",
                 "world/atlas.py", "obs/log.py", "obs/metrics.py",
-                "native/framesink.py", "render/probe.py"):
+                "native/framesink.py", "render/probe.py",
+                "render/kernel_xla.py", "render/occmask.py",
+                "world/pyramid.py", "engine/sharding.py"):
         assert f"vxtpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
 

@@ -249,8 +249,9 @@ def test_configs_match_vxtpu():
         for f in ("name", "dims", "height", "width", "with_rgb", "soft",
                   "lights", "seed"):
             assert getattr(a, f) == getattr(b, f), (name, f)
-        for f in ("shading", "shadows", "fog", "ambient", "specular_exp",
-                  "specular_k", "fog_density", "sky_top", "sky_horizon"):
+        for f in ("shading", "shadows", "fog", "max_steps", "pyramid_levels",
+                  "step_chunk", "ambient", "specular_exp", "specular_k",
+                  "fog_density", "sky_top", "sky_horizon"):
             assert getattr(a.settings, f) == getattr(b.settings, f), (name, f)
 
 
@@ -289,11 +290,30 @@ def test_cli_animate_and_bench(tmp_path, capsys):
     assert rec["kernel"] == "pallas" and rec["device"] == "cpu"
 
 
+@pytest.mark.parametrize("accel", ["distfield", "pyramid"])
+def test_cli_render_xla(accel, tmp_path, capsys):
+    """vxtpu's default march, over either acceleration, at 8^3."""
+    out = tmp_path / "f.png"
+    assert run.main(["render", "--config", "c3_256_shadows", "--kernel",
+                     "xla", "--accel", accel, "--dims", "8", "--height", "8",
+                     "--width", "12", "--device", "cpu",
+                     "--out", str(out)]) == 0
+    img = load_png(str(out))
+    assert img.shape == (8, 12, 3) and img.std() > 0
+    assert "kernel=xla" in capsys.readouterr().out
+
+
+def test_cli_bench_xla(capsys):
+    assert run.main(["bench", "--config", "c3_256_shadows", "--kernel", "xla",
+                     "--dims", "8", "--height", "8", "--width", "8",
+                     "--iters", "1", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["kernel"] == "xla" and rec["value"] > 0
+
+
 @pytest.mark.parametrize("argv", [
-    ["render", "--kernel", "xla"], ["animate", "--kernel", "ref"],
-    ["bench", "--kernel", "wavefront"], ["render", "--kernel",
-                                         "pallas-interpret"],
-    ["render", "--kernel", "pallas", "--accel", "pyramid"]])
+    ["animate", "--kernel", "ref"], ["bench", "--kernel", "wavefront"],
+    ["render", "--kernel", "pallas-interpret"]])
 def test_cli_unported_raise(argv, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run.main([*argv, "--dims", "8", "--height", "4", "--width", "4",

@@ -282,10 +282,9 @@ def test_fit_soft_views_and_orbit():
 def test_unported_options_and_nan_guard():
     cam, tgt = _torch_scene(4, 4, 2)
     zeros = soft.SoftGrid.zeros(DIMS, device=CPU)
-    for kw in (dict(use_custom_vjp=True), dict(occ_mask=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loop.fit_soft(zeros, cam, tgt, RenderSettings(),
-                          loop.TrainConfig(steps=1, **kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        loop.fit_soft(zeros, cam, tgt, RenderSettings(),
+                      loop.TrainConfig(steps=1, use_custom_vjp=True))
     with pytest.raises(FloatingPointError):
         loop.fit_soft(zeros, cam, torch.full_like(tgt, float("nan")),
                       RenderSettings(), loop.TrainConfig(steps=1,
@@ -301,6 +300,18 @@ def test_train_command_on_cpu(tmp_path, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["metric"] == "final_loss" and last["steps"] == 2
     assert (out / "ckpt.npz").exists() and (out / "fit.png").exists()
+
+
+def test_train_command_occmask_on_cpu(tmp_path, capsys):
+    """train --occmask --field-kernel: the masked fit, its mask rebuilt
+    never in two steps (mask_refresh 50), the loss finite."""
+    out = tmp_path / "fit"
+    assert run.main(["train", "--device", "cpu", "--dims", "16", "--height",
+                     "8", "--width", "8", "--samples", "4", "--steps", "2",
+                     "--field-kernel", "--occmask", "--out", str(out)]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["steps"] == 2 and np.isfinite(last["value"])
+    assert (out / "ckpt.npz").exists()
 
 
 def test_entry_points_default_to_the_gpu():

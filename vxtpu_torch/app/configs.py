@@ -1,6 +1,4 @@
-"""The five capability configs (counterpart of ``vxtpu/app/configs.py``).
-Settings carry no pyramid levels: the fused path marches the Morton
-table, which replaces the pyramid."""
+"""The five capability configs (counterpart of ``vxtpu/app/configs.py``)."""
 
 from __future__ import annotations
 
@@ -36,10 +34,11 @@ CONFIGS: dict[str, SceneConfig] = {
         name="c2_128_lit", dims=(128, 128, 128), height=512, width=512,
         settings=RenderSettings(shading="lambert"), with_rgb=True,
     ),
-    # 256^3 grid, empty-space skipping, shadow rays, 1024x1024
+    # 256^3 grid, 2-level empty-space skipping, shadow rays, 1024x1024
     "c3_256_shadows": SceneConfig(
         name="c3_256_shadows", dims=(256, 256, 256), height=1024, width=1024,
-        settings=RenderSettings(shading="full", shadows=True, fog=True),
+        settings=RenderSettings(shading="full", shadows=True, fog=True,
+                                pyramid_levels=2),
         with_rgb=True,
     ),
     # 512^3 differentiable soft-voxel densities fitted to targets
@@ -51,7 +50,8 @@ CONFIGS: dict[str, SceneConfig] = {
     # descent on camera pose and voxels
     "c5_1080p_pod": SceneConfig(
         name="c5_1080p_pod", dims=(512, 512, 512), height=1080, width=1920,
-        settings=RenderSettings(shading="full", shadows=True, fog=True),
+        settings=RenderSettings(shading="full", shadows=True, fog=True,
+                                pyramid_levels=3),
         with_rgb=True, animated=True, sharded=True, soft=True,
     ),
 }

@@ -6,21 +6,28 @@ r"""Command line (counterpart of ``vxtpu/app/run.py``):
   bench    Mrays/s as a JSON line
 
 ``--kernel`` picks the march: ``fused`` (the default: march + shadows +
-shade in one CUDA kernel, ``render/fused.py``), ``pallas`` (the row-major
-march kernel in the composable pipeline, ``render/pipeline.py``) or
-``pallas2`` (the fused kernel in march-only mode in that pipeline).
-vxtpu's default, ``xla``, and its ``ref``, ``wavefront`` and
-``pallas-interpret`` have no counterpart yet and raise.
+shade in one CUDA kernel, ``render/fused.py``), or one of the composable
+pipeline's (``render/pipeline.py``): ``xla`` (vxtpu's default: the
+batched lock-step march in PyTorch tensor ops over ``--accel distfield``
+or ``pyramid``, ``render/kernel_xla.py``), ``pallas`` (the row-major
+march kernel) or ``pallas2`` (the fused kernel in march-only mode).
+vxtpu's ``ref``, ``wavefront`` and ``pallas-interpret`` have no
+counterpart and raise. ``train --occmask`` fits the occupancy-masked
+soft model (``render/occmask.py``).
 
   python -m vxtpu_torch render --config c3_256_shadows --kernel pallas \
       --out f.png
   python -m vxtpu_torch render --config c1_64_flat --kernel pallas \
       --device cpu --out f.png
+  python -m vxtpu_torch render --config c3_256_shadows --kernel xla \
+      --accel pyramid --out f.png
   python -m vxtpu_torch animate --config c1_64_flat --kernel pallas \
       --frames 24 --out anim
   python -m vxtpu_torch bench --config c3_256_shadows --kernel pallas
   python -m vxtpu_torch train --field-kernel --dims 0 --height 0 --width 0 \
       --samples 0 --steps 5 --out fit      # c4_512_diff at full size
+  python -m vxtpu_torch train --field-kernel --occmask --samples 64 \
+      --dims 0 --height 0 --width 0 --steps 5 --out fit
 """
 
 from __future__ import annotations
@@ -50,8 +57,6 @@ _SOFT_ONLY = ("c4_512_diff",)
 # vxtpu's --kernel choices without a counterpart here, and where
 # ROADMAP.md records them
 _NOT_PORTED = {
-    "xla": "ROADMAP.md queue 1 #19 (render/kernel_xla: march_xla, "
-           "march_xla_df)",
     "ref": "ROADMAP.md queue 1 #18 (render/kernel_ref is not ported)",
     "wavefront": "ROADMAP.md queue 1 #18 (render/kernel_wavefront is not "
                  "ported)",
@@ -66,19 +71,22 @@ KERNELS = ["xla", "wavefront", "ref", "pallas", "pallas2", "fused",
 def build_scene(cfg: SceneConfig, dims=None, accel_kind="none",
                 device=DEFAULT):
     """World, acceleration table, camera and light of a config (vxtpu's
-    ``_build_scene``). accel_kind: 'distfield' (capped distance field),
+    ``_build_scene``). accel_kind: 'distfield' (DistanceField, cap 24),
+    'pyramid' (OccupancyPyramid of the config's levels, at least 2),
     'packed' (row-major table), 'morton' (Morton table) or 'none'."""
     device = resolve(device)
     dims = dims or cfg.dims
     grid = procgen.terrain(dims, seed=cfg.seed, with_rgb=cfg.with_rgb,
                            device=device)
     if accel_kind == "distfield":
-        from vxtpu_torch.world.distfield import build_distance_field
+        from vxtpu_torch.world import distfield
 
-        accel = build_distance_field(grid.occupancy, cap=24)
+        accel = distfield.build(grid.occupancy, cap=24)
     elif accel_kind == "pyramid":
-        raise NotImplementedError("--accel pyramid: world/pyramid is not "
-                                  "ported yet (ROADMAP.md queue 1 #16)")
+        from vxtpu_torch.world.pyramid import build_pyramid
+
+        accel = build_pyramid(grid.occupancy,
+                              max(cfg.settings.pyramid_levels, 2))
     elif accel_kind == "packed":
         from vxtpu_torch.world.packed import build_packed
 
@@ -126,6 +134,10 @@ def kernel_factory(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(f"--kernel {name} has no counterpart in "
                                   f"vxtpu_torch yet: {_NOT_PORTED[name]}")
+    if name == "xla":
+        from vxtpu_torch.render.kernel_xla import make_march_xla
+
+        return make_march_xla
     if name == "pallas":
         from vxtpu_torch.render.kernel_packed import make_march_packed
 
@@ -367,9 +379,12 @@ def cmd_train(args) -> int:
             opt_state=opt_state)
 
     os.makedirs(args.out, exist_ok=True)
+    # zlib over the GBs of a 512^3 fit (grid and Adam moments) would take
+    # minutes: grids beyond 128^3 are saved uncompressed
     save_checkpoint(os.path.join(args.out, "ckpt.npz"), soft, cam_out,
                     step=start_step + tc.steps,
-                    extra={"losses": losses}, opt_state=opt_state)
+                    extra={"losses": losses}, opt_state=opt_state,
+                    compress=X * Y * Z <= 128 ** 3)
     with torch.no_grad():
         final = render_soft_image(soft, cam_out, settings, h, w, samples)
     save_png(os.path.join(args.out, "target.png"), target[0])
@@ -443,7 +458,9 @@ def main(argv=None) -> int:
     sp.add_argument("--views", type=int, default=1,
                     help=">1: multi-view orbit capture")
     sp.add_argument("--occmask", action="store_true",
-                    help="occupancy-mask sample skipping (not ported yet)")
+                    help="train the occupancy-masked soft model: samples "
+                         "only each ray's occupied band (cut --samples to "
+                         "match)")
     sp.add_argument("--custom-vjp", action="store_true",
                     help="vxtpu's custom-VJP scan (not ported)")
     sp.add_argument("--field-kernel", action="store_true",

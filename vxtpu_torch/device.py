@@ -10,6 +10,8 @@ used only when a caller asks for it (``device=torch.device("cpu")`` or
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DEFAULT = "cuda"
@@ -26,3 +28,13 @@ def resolve(device=DEFAULT) -> torch.device:
             "device=torch.device('cpu') (or --device cpu) to run the "
             "kernels' plain versions on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=64)
+def device_const(values: tuple, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """A small constant tensor on ``device``, made once and shared (never
+    write to it): a loop that reads one in every step copies it from the
+    host once, and a CUDA graph of that loop, which cannot copy from the
+    host, can read it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -41,11 +41,11 @@ from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.render import kernel_march as km
 from vxtpu_torch.render import kernel_packed as kp
 from vxtpu_torch.render import kernel_sample as ks
-from vxtpu_torch.render import probe
+from vxtpu_torch.render import occmask, probe
 from vxtpu_torch.render.fused import render_rays_fused
 from vxtpu_torch.render.pipeline import shadow_ray_batch
 from vxtpu_torch.render.settings import RenderSettings
-from vxtpu_torch.render.soft_kernel import _enter_dt_soft
+from vxtpu_torch.render.soft_kernel import MortonSoftGrid, _enter_dt_soft
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.lights import Lights
 from vxtpu_torch.world.packed import (build_material_morton, build_packed,
@@ -598,7 +598,7 @@ BWD_ATOL_REL = 1e-6
 # "<rays>-<lit>": the backward with the ray cotangents (kRayGrads);
 # "<rays>-<lit>-scatter": the pure scatter (the trainer's main path)
 SAMPLE_CASES = [f"{r}-{m}{v}" for v in ("", "-scatter")
-                for r in ("outside", "inside", "dt0", "random")
+                for r in ("outside", "inside", "dt0", "random", "masked")
                 for m in ("unlit", "lit")]
 
 
@@ -632,14 +632,28 @@ def sample_fields(D, device, seed=0):
                         for s in (2.0, 1.0, 1.0, 1.0)], dim=1).to(device)
 
 
+def masked_sample_fields(D, device, G=4):
+    """``sample_fields`` as a fitted masked scene holds it: densities high
+    in the D^3 terrain's (seed 11) solid voxels and low elsewhere; with its
+    occupancy mask (G = 4, tau 0.01, dilate 1, read from the table) and
+    the mask's distance field."""
+    tab = sample_fields(D, device)
+    solid = ks.build_field_morton(procgen.terrain(
+        (D,) * 3, seed=11, device=device).occupancy.to(torch.float32)) > 0
+    tab[:, 0] = torch.where(solid, tab[:, 0].abs() + 2.0, -8.0)
+    mask = occmask.occupancy_mask_from_soft(MortonSoftGrid(tab), G)
+    return tab, mask, occmask.mask_distance_field(mask)
+
+
 def sample_rays(kind, D, n, device, seed=1):
     """Rays for the sampling kernels: 'outside' an image-ordered camera
-    view from outside the grid; 'inside' one from inside; 'dt0' half the
-    rays missing the grid (dt == 0) and a quarter with dt forced to 0;
+    view from outside the grid ('masked' the same rays, sampled on their
+    occupied bands only); 'inside' one from inside; 'dt0' half the rays
+    missing the grid (dt == 0) and a quarter with dt forced to 0;
     'random' scattered origins and directions (incoherent)."""
     g = torch.Generator().manual_seed(seed)
     side = int(round(n ** 0.5))
-    if kind in ("outside", "inside", "dt0"):
+    if kind in ("outside", "inside", "dt0", "masked"):
         cam = _cameras(D, device)["inside" if kind == "inside"
                                   else "outside"]
         o, d = generate_rays(cam, side, n // side)
@@ -657,16 +671,23 @@ def sample_rays(kind, D, n, device, seed=1):
 def run_sample_case(name: str, device, D: int = 64, n: int = 16384,
                     S: int = 64) -> dict:
     """sample_fields_fwd / _bwd (the kernels) vs their plain versions on
-    one ray set, on the interleaved table of ``sample_fields``; the
+    one ray set, on the interleaved table of ``sample_fields`` (for
+    'masked' rays ``masked_sample_fields``, each ray sampled on its
+    occupied band: rays that cross no occupied cell get dt == 0); the
     backward also against a second kernel run. S = 64 is
     four chunks of the kRayGrads variant; its ray cotangents are held to
     the plain version bit for bit (``rays_unequal``)."""
     kind, mode, *variant = name.split("-")
     lit = mode == "lit"
     ray_grads = not variant
-    tab = sample_fields(D, device)
     o, d = sample_rays(kind, D, n, device)
-    t0, dt, _ = _enter_dt_soft(o, d, (D,) * 3, S, None)
+    bounds = None
+    if kind == "masked":
+        tab, mask, mask_df = masked_sample_fields(D, device)
+        bounds = occmask.mask_segment_bounds(mask, 4, o, d, df_flat=mask_df)
+    else:
+        tab = sample_fields(D, device)
+    t0, dt, valid = _enter_dt_soft(o, d, (D,) * 3, S, bounds)
     if kind == "dt0":
         dt = torch.where(torch.arange(n, device=device) % 4 == 1, 0.0, dt)
     t0, dt = t0.contiguous(), dt.contiguous()
@@ -703,6 +724,8 @@ def run_sample_case(name: str, device, D: int = 64, n: int = 16384,
         rerun_excess=grads_excess(flat2, flat),
         finite=all(bool(torch.isfinite(x).all()) for x in (*got, *flat)),
         zero_rays_clean=bool(all((x[:, dt == 0] == 0).all() for x in got)),
+        masked=bounds is not None,
+        empty_bands=int(((dt == 0) & valid).sum()),
     )
 
 
@@ -727,6 +750,9 @@ def check_sample_case(m: dict, what: str) -> None:
         raise AssertionError(f"{what}: a ray with dt == 0 sampled non-zero")
     if m["active"] == 0:
         raise AssertionError(f"{what}: no ray crosses the grid")
+    if m["masked"] and not m["empty_bands"]:
+        raise AssertionError(f"{what}: no ray that crosses the grid has an "
+                             f"empty band")
 
 
 def golden_sample_inputs(D: int = 16, n: int = 1024, S: int = 8,

@@ -1,8 +1,6 @@
 """Render configuration (counterpart of ``vxtpu/render/settings.py``).
 
-vxtpu's TPU tuning knobs (``MarchTuning``), the fields only its XLA
-marches read (``pyramid_levels``, ``step_chunk``) and the ``max_steps``
-override no caller sets have no counterpart here."""
+vxtpu's TPU tuning knobs (``MarchTuning``) have no counterpart here."""
 
 from __future__ import annotations
 
@@ -14,6 +12,14 @@ class RenderSettings:
     """shading:    'flat' | 'lambert' | 'full' (lambert + Blinn-Phong).
     shadows:     march a shadow ray toward each light from the hit point.
     fog:         exponential distance fog toward the sky colour.
+    max_steps:   DDA step budget; None -> derived from the grid dims
+                 (X + Y + Z + 2: a ray crosses at most that many cell
+                 boundaries).
+    pyramid_levels: coarse occupancy levels the batched march
+                 (``render/kernel_xla.py``) skips empty space with (0 =
+                 plain fine DDA; 2 in config 3).
+    step_chunk:  the batched march's steps between two checks of whether
+                 every ray is done (each check is a host sync).
     ambient, specular_exp, specular_k, fog_density, sky_top, sky_horizon:
                  shading constants.
     """
@@ -21,6 +27,9 @@ class RenderSettings:
     shading: str = "lambert"
     shadows: bool = False
     fog: bool = False
+    max_steps: int | None = None
+    pyramid_levels: int = 0
+    step_chunk: int = 32
     ambient: float = 0.15
     specular_exp: float = 32.0
     specular_k: float = 0.35
@@ -29,6 +38,7 @@ class RenderSettings:
     sky_horizon: tuple[float, float, float] = (0.80, 0.88, 0.95)
 
     def resolve_max_steps(self, dims: tuple[int, int, int]) -> int:
-        """The DDA step budget that sizes the march's iteration cap: a ray
-        crosses at most X + Y + Z cell boundaries."""
+        """The DDA step budget that sizes the march's iteration cap."""
+        if self.max_steps is not None:
+            return self.max_steps
         return dims[0] + dims[1] + dims[2] + 2

@@ -29,7 +29,8 @@ from vxtpu_torch.render import dda
 from vxtpu_torch.render import kernel_sample as ks
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.shade import sky_color
-from vxtpu_torch.render.soft import SoftGrid, softplus, warn_soft_scope
+from vxtpu_torch.render.soft import (SoftGrid, mask_at, softplus,
+                                     warn_soft_scope)
 
 _EPS = 1e-10
 
@@ -101,18 +102,6 @@ class SampleFields(torch.autograd.Function):
             tab, o, d, t0, dt, tuple(c.contiguous() for c in cots), ctx.dim,
             ctx.lit, ray_grads)
         return (None, None, None, None, grad, go, gd, gt0, gdt)
-
-
-def _mask_at_cm(mask, scale, px, py, pz):
-    """soft.mask_at on the [S, N] component planes."""
-    Xc, Yc, Zc = mask.shape
-
-    def cell(p, n):
-        return torch.clamp(torch.floor(p / scale), 0.0, float(n - 1)).to(
-            torch.int64)
-
-    idx = (cell(px, Xc) * Yc + cell(py, Yc)) * Zc + cell(pz, Zc)
-    return mask.reshape(-1)[idx].to(torch.float32)
 
 
 def _shade_samples_cm(rc, gc, bc, gx, gy, gz, px, py, pz, dx, dy, dz,
@@ -195,7 +184,8 @@ def render_soft_rays_kernel(msoft: MortonSoftGrid, o: torch.Tensor,
         py = o[None, :, 1] + t_s * d[None, :, 1]
         pz = o[None, :, 2] + t_s * d[None, :, 2]
     if mask is not None:
-        sigma = sigma * _mask_at_cm(mask, mask_scale, px, py, pz)
+        sigma = sigma * mask_at(mask, mask_scale,
+                                torch.stack([px, py, pz], dim=-1))
     if lit:
         rc, gc, bc = _shade_samples_cm(
             rc, gc, bc, vals[4], vals[5], vals[6], px, py, pz,

@@ -11,7 +11,10 @@ PyTorch runs eagerly, so a step is a plain loop body: loss, backward,
 trained in fine-voxel Morton layout through the sampling kernels
 (``render/soft_kernel.py``) with the Morton TV prior, and Adam sees one
 tensor, its [D^3, 4] table; otherwise through the plain soft renderer
-and autograd.
+and autograd. With ``occ_mask`` the fit trains the masked soft model
+(``render/occmask.py``): the mask starts all ones, is rebuilt from the
+current density every ``mask_refresh`` steps, and each step samples only
+its rays' occupied bands, found by a bounds pass before the step.
 
 The optimizer state handed in and out (``opt_state``) is a list of
 ``AdamGroupState`` in optax's order: one group (``soft``), or two
@@ -35,6 +38,7 @@ import torch
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.render import kernel_sample as ks
+from vxtpu_torch.render import occmask
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
 from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
@@ -49,7 +53,7 @@ CAM_FIELDS = ("pos", "yaw", "pitch", "fov_y")
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """vxtpu's TrainConfig without ``field_window`` (a TPU window size).
-    ``use_custom_vjp`` and ``occ_mask`` are not ported yet and raise."""
+    ``use_custom_vjp`` is not ported and raises."""
 
     lr: float = 5e-2
     steps: int = 200
@@ -62,10 +66,10 @@ class TrainConfig:
     seed: int = 0
     nan_check_every: int = 25       # pull the loss to the host every k
     use_custom_vjp: bool = False
-    occ_mask: bool = False
-    mask_scale: int = 4
-    mask_refresh: int = 50
-    mask_tau: float = 0.01
+    occ_mask: bool = False          # train the occupancy-masked soft model
+    mask_scale: int = 4             # G: mask cell side in voxels
+    mask_refresh: int = 50          # rebuild the mask every k steps
+    mask_tau: float = 0.01          # density threshold of an occupied cell
     field_kernel: bool = False      # train through the sampling kernels
 
 
@@ -80,21 +84,26 @@ class AdamGroupState:
 
 
 def _loss_fn(model, cam: Camera, o, d, target, hw,
-             settings: RenderSettings, cfg: TrainConfig):
+             settings: RenderSettings, cfg: TrainConfig, mask=None,
+             bounds=None):
     """target is flat [N, 3]. When the camera is optimised the rays come
     from the current pose (full image, hw = (H, W)), so the pose gets
-    gradients through ray generation."""
+    gradients through ray generation. ``mask`` and ``bounds`` (t0, t1):
+    the masked model's coarse mask and the rays' occupied bands
+    (cfg.occ_mask)."""
     if cfg.optimize_camera:
         o, d = generate_rays(cam, *hw)
+    masked = dict(mask=mask, mask_scale=cfg.mask_scale, seg_bounds=bounds)
     if cfg.field_kernel:
         pred = render_soft_rays_kernel(model, o, d, settings,
-                                       cfg.num_samples)
+                                       cfg.num_samples, **masked)
         loss = mse(pred, target)
         if cfg.tv_sigma or cfg.tv_rgb:
             loss = loss + tv_prior_morton(model.tab, cfg.tv_sigma,
                                           cfg.tv_rgb)
         return loss
-    pred, _ = render_soft_rays(model, o, d, settings, cfg.num_samples)
+    pred, _ = render_soft_rays(model, o, d, settings, cfg.num_samples,
+                               **masked)
     loss = mse(pred, target)
     if cfg.tv_sigma:
         loss = loss + cfg.tv_sigma * tv_loss(model.sigma_raw)
@@ -236,10 +245,6 @@ def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
             "use_custom_vjp: vxtpu's custom-VJP scan (render/vjp.py) is not "
             "ported; see ROADMAP.md queue 1 #13 (field_kernel=True is the "
             "port's fast path)")
-    if cfg.occ_mask:
-        raise NotImplementedError(
-            "occ_mask: the occupancy mask (render/occmask.py) is not ported "
-            "yet; see ROADMAP.md queue 1 #11")
     minibatched = bool(cfg.ray_batch) and cfg.ray_batch < o.shape[0]
     if cfg.optimize_camera and minibatched:
         raise ValueError("optimize_camera requires full-image steps "
@@ -255,19 +260,36 @@ def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
     if opt_state is not None:
         write_opt_state(opt, opt_state)
 
+    mask = mask_df = None
+    if cfg.occ_mask:
+        mask = occmask.mask_all_ones(soft.dims, cfg.mask_scale, o.device)
+        mask_df = occmask.mask_distance_field(mask)
     gen = torch.Generator().manual_seed(cfg.seed)
     n = o.shape[0]
     losses = []
     for i in range(cfg.steps):
+        if (cfg.occ_mask and cfg.mask_refresh and i
+                and i % cfg.mask_refresh == 0):
+            mask = occmask.occupancy_mask_from_soft(
+                model, cfg.mask_scale, tau=cfg.mask_tau, dilate=1)
+            mask_df = occmask.mask_distance_field(mask)
         if minibatched:
             idx = torch.randint(0, n, (cfg.ray_batch,), generator=gen)
             idx = idx.to(o.device)
             o_b, d_b, t_b = o[idx], d[idx], target[idx]
         else:
             o_b, d_b, t_b = o, d, target
+        bounds = None
+        if cfg.occ_mask:
+            # the bands of this step's rays, from the current pose
+            o_r, d_r = (generate_rays(Camera(*cam_params), *hw)
+                        if cfg.optimize_camera else (o_b, d_b))
+            bounds = occmask.mask_segment_bounds(
+                mask, cfg.mask_scale, o_r.detach(), d_r.detach(),
+                df_flat=mask_df)
         opt.zero_grad(set_to_none=True)
         loss = _loss_fn(model, Camera(*cam_params), o_b, d_b, t_b, hw,
-                        settings, cfg)
+                        settings, cfg, mask, bounds)
         loss.backward()
         opt.step()
         loss = loss.detach()

@@ -1,18 +1,36 @@
 """Capped Chebyshev distance field (counterpart of
-``vxtpu/world/distfield.py:build_distance_field``).
+``vxtpu/world/distfield.py``).
 
     dfield[v] = 0                                  if voxel v is solid
               = min(L_inf distance to nearest solid, cap)   otherwise
 
-Built by iterated separable 3-tap dilation: after k rounds ``covered`` is
-the set of voxels within L_inf distance k of a solid voxel, so the first
-round that covers a voxel assigns its exact distance. Cells shifted in
-from outside the grid are empty, not wrapped.
+One read of the field answers both march questions: a value of 0 is a
+hit, and every voxel within L_inf distance dfield[v] - 1 of v is empty, so
+the batched march (``render/kernel_xla.march_xla_df``) can jump to the
+exit of that box. Built by iterated separable 3-tap dilation: after k
+rounds ``covered`` is the set of voxels within L_inf distance k of a
+solid voxel, so the first round that covers a voxel assigns its exact
+distance. Cells shifted in from outside the grid are empty, not wrapped.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+from vxtpu_torch.world.grid import in_bounds, linear_index
+
+
+@dataclasses.dataclass(frozen=True)
+class DistanceField:
+    """The march's acceleration structure: the uint8 field [X, Y, Z]."""
+
+    field: torch.Tensor
+
+    @property
+    def dims(self) -> tuple[int, int, int]:
+        return tuple(self.field.shape)  # type: ignore[return-value]
 
 
 def _dilate1(x: torch.Tensor) -> torch.Tensor:
@@ -35,3 +53,18 @@ def build_distance_field(occupancy: torch.Tensor, cap: int = 24) -> torch.Tensor
         dist = torch.where(covered_k & ~covered, k, dist)
         covered = covered_k
     return dist
+
+
+def build(occupancy: torch.Tensor, cap: int = 24) -> DistanceField:
+    """The DistanceField of a grid's occupancy."""
+    return DistanceField(field=build_distance_field(occupancy, cap))
+
+
+def distfield_fetch(df_flat: torch.Tensor, v: torch.Tensor,
+                    dims) -> torch.Tensor:
+    """uint8 [N] field value at integer voxel coords v [N, 3] of the flat
+    field; out-of-bounds reads give 255 (empty: never a hit)."""
+    ok = in_bounds(v, dims)
+    idx = torch.where(ok, linear_index(v, dims), 0).to(torch.int64)
+    val = df_flat[idx]
+    return torch.where(ok, val, torch.full_like(val, 255))
