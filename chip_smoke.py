@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive vxtpu_torch's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--save DIR] [--k5-times | --k1-times] [--sass FILE]
+    python3 chip_smoke.py [--save DIR] [--k5-times | --k1-times |
+                           --scale-out] [--sass FILE]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.
 Phases, each printing what it found (any failure raises, exit code != 0):
@@ -111,6 +112,32 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              from zeros with the mask rebuilt at steps 2 and 4 (counted:
              K3 and K4 once a step; losses finite and falling); and
              train --field-kernel --occmask at c4's size.
+ 11. scale-out the platform checks and the sharded paths (run last, on a
+             1-rank NCCL process group of this process: NCCL cannot put
+             two ranks on one card). (a) validate_platform (sm_90, the
+             card's memory) and the info command; (b) config 5 through
+             run_config5 as c5_1080p_pod defines it (512^3 truth, seed 7,
+             per-voxel RGB; 1080x1920, S = 192, full shading with one
+             light, the custom backward of render/vjp.py), its first 3
+             of 24 frames x 2 steps: losses finite, yaw and pitch errors
+             below 0.03, frame ms, peak memory; then from its final
+             state the step's time (events), the forward and the
+             backward alone, a profiled step's device time by group and
+             the target render; and the custom backward against autograd
+             through the plain renderer on 4,096 of the frame's rays;
+             (c) phase 4's 512^3/1080p lambert and full + shadows + fog
+             frames through render_frame_fused_sharded, equal to
+             render_frame_fused on every pixel (K1 launches counted);
+             (d) the sharded field-kernel step (K3/K4) at c4's size from
+             zeros and the masked one (S = 64 on the bands) from the
+             warm state: loss and table gradient against the
+             single-device kernel path with phase 6's limits, then one
+             step each (launches counted); (e) at 64^3, 256x256: the
+             pipeline frame (K5), the fused frame (K1) and config 5's
+             step with 4 buckets on 2 gloo ranks that share the card
+             (engine/platform.run_local) against the 1-rank run (frames
+             on every pixel, the step's loss and gradients allclose),
+             dryrun_multichip(2), and scaling --kernel fused at world 1.
 
 Phases 3 and 6 also hold K3/K4 against their plain versions: forward
 |d| <= 1e-6; both K4 variants' gradient tables within rtol 1e-5 / atol
@@ -130,15 +157,24 @@ Phase 10 holds the masked step's loss and gradient through K3/K4 to
 their plain versions with phase 6's limits, and the batched march to K5
 with the limits above.
 
+Phase 11 holds the sharded frames to the unsharded ones on every pixel,
+the sharded K3/K4 steps to the single-device step with phase 6's limits,
+and the custom backward (to autograd) and 2 gloo ranks' config-5 step
+(to 1 rank's) within rtol 2e-4 / atol 2e-5 x max|g| (the loss within
+rel 1e-5): on CUDA index_add_ sums in a varying order.
+
 The line before the last is one JSON object with the kernels' counts,
 errors, times and bounds (the bounds of K1, K1' and K5 count the
 distinct table words their marches read, counted on the plain march;
 the bounds without them are kept as bound_rays_only_ms; K3's and K4's
 scatter also carry "masked": phase 10's launches and the kernel alone at
 the masked step's shape); the last line
-is {"ok": true, "device": {...}}.
---save DIR writes the main-path frames there as PNGs. --k5-times runs
-phases 1 and 2, then K5 alone on its three ray sets as phase 8 times it
+is {"ok": true, "device": {...}}. K1, K3 and K4 carry "sharded": their
+launches in phase 11.
+--save DIR writes the main-path frames there as PNGs. --scale-out runs
+phases 1 and 2, then phase 11 alone, and prints one JSON line.
+--k5-times runs phases 1 and 2, then K5 alone on its three ray sets as
+phase 8 times it
 (k5_rays, k5_times), and prints one JSON line; --k1-times runs phases 1
 and 2, then K1 alone in each launch mode and K1' round 0 on phase 4's
 512^3 rays as phase 8 times them (k1_world, k1_times), the registers and
@@ -156,6 +192,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -2646,6 +2683,523 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
                 losses=losses, fit_ms=fit_ms)
 
 
+# phase 11: scale-out. The sharded paths run on a 1-rank process group of
+# this process (NCCL on the card: it cannot put two ranks on one card)
+# and, at 64^3, on 2 gloo ranks that share the card (run_local).
+
+C5_FRAMES = 3           # config 5's first frames (of its 24-frame orbit)
+C5_SUBSET = 4096        # rays of the custom-backward-vs-autograd check
+# the custom backward against autograd (tests/test_vjp.py's tolerance)
+VJP_RTOL, VJP_ATOL_REL = 2e-4, 2e-5
+
+
+class _FrameClock:
+    """A MetricsSink for run_config5: the host time of each frame's
+    emission (after the frame's last synchronising read)."""
+
+    def __init__(self):
+        self.t = [time.perf_counter()]
+
+    def emit(self, **kv):
+        self.t.append(time.perf_counter())
+
+    def frame_ms(self) -> list:
+        return [(b - a) * 1e3 for a, b in zip(self.t, self.t[1:])]
+
+
+def _vjp_excess(got, want) -> float:
+    from vxtpu_torch import kernel_check as kc
+
+    return max(kc.allclose_excess(g, w, VJP_RTOL, VJP_ATOL_REL * max(
+        float(w.abs().max()), 1e-30)) for g, w in zip(got, want))
+
+
+def _subset_grads(fast, soft_grid, cam, o_c, d_c, target, settings, S,
+                  lights):
+    """Loss and the gradients to (sigma, rgb, cam pos, yaw, pitch) of the
+    mean squared error over rays (o_c, d_c) in camera frame: through the
+    custom backward (``fast``) or autograd through the plain renderer."""
+    import torch
+
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.engine.sharding import _world_rays
+    from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
+    from vxtpu_torch.render.vjp import render_soft_rays_fast
+
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (soft_grid.sigma_raw, soft_grid.rgb_raw, cam.pos,
+                        cam.yaw, cam.pitch)]
+    s = SoftGrid(leaves[0], leaves[1])
+    o_w, d_w = _world_rays(Camera(*leaves[2:], cam.fov_y), o_c, d_c)
+    if fast:
+        pred = render_soft_rays_fast(s, o_w, d_w, settings, S, lights)
+    else:
+        pred = render_soft_rays(s, o_w, d_w, settings, S, lights)[0]
+    loss = torch.sum((pred - target) ** 2) / (target.numel())
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
+                  subset=C5_SUBSET, card="") -> dict:
+    """(b) config 5 through run_config5 on the 1-rank group: its first
+    ``frames`` frames, the step's time and where it goes, and the custom
+    backward against autograd on a subset of the last frame's rays."""
+    import torch
+
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.camera import paths
+    from vxtpu_torch.engine import sharding
+    from vxtpu_torch.render.soft import SoftGrid
+    from vxtpu_torch.render.vjp import render_soft_rays_fast
+    from vxtpu_torch.train.config5 import Config5, run_config5
+    from vxtpu_torch.world import procgen
+    from vxtpu_torch.world.lights import Lights
+
+    cfg = Config5(dims=(D,) * 3, height=h, width=w, num_samples=S,
+                  ckpt_every=0)
+    settings = CONFIGS["c5_1080p_pod"].settings
+    mesh = sharding.make_mesh()
+    clock = _FrameClock()
+    marks = {}
+
+    def mark(name):
+        _sync(device)
+        marks[name] = time.perf_counter()
+
+    mark("start")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    res = run_config5(cfg, settings, mesh=mesh, sink=clock,
+                      end_frame=frames)
+    mark("run")
+    peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
+            if device.type == "cuda" else None)
+    frame_ms = clock.frame_ms()
+    print(f"phase 11 scale-out: config 5 at {D}^3, {h}x{w}, S = {S}, lit "
+          f"({settings.shading}), custom backward, {mesh.size} rank, first "
+          f"{frames} of {cfg.frames} frames x {cfg.steps_per_frame} steps: "
+          f"losses {res['losses']}; PSNR {res['psnrs']}; yaw error "
+          f"{res['yaw_err']:.5f}, pitch error {res['pitch_err']:.5f} (from "
+          f"{cfg.pose_error}, -{cfg.pose_error}); frame ms [{card}] (target "
+          f"render + steps + PSNR render; the first with first-use costs) "
+          f"{[round(x, 1) for x in frame_ms]}; peak "
+          f"{peak if peak is None else round(peak, 2)} GiB")
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise AssertionError(f"config 5: non-finite loss {res['losses']}")
+    if not (abs(res["yaw_err"]) < cfg.pose_error
+            and abs(res["pitch_err"]) < cfg.pose_error):
+        raise AssertionError("config 5: the pose error did not fall below "
+                             f"{cfg.pose_error}")
+
+    # the last frame again, for the times (not counted): its target, the
+    # step from the run's final state, forward and backward alone
+    dims = cfg.dims
+    X, Y, Z = dims
+    truth = SoftGrid.from_hard(procgen.terrain(
+        dims, seed=cfg.seed, with_rgb=True, device=device),
+        sigma_solid=cfg.sigma_solid)
+    lights = Lights.single((0.2 * X, -0.3 * Y, 1.4 * Z), intensity=2.0,
+                           device=device)
+    cam_true = paths.orbit(
+        center=(0.5 * X, 0.5 * Y, 0.3 * Z), radius=0.9 * X, height=1.1 * Z,
+        period=cfg.frames / cfg.fps, fov_y_deg=55.0, device=device)(
+            (frames - 1) / cfg.fps)
+    mark("truth")
+    ev = StepTimer(device)
+    ev()
+    target = sharding.render_soft_image_sharded(
+        truth, cam_true, settings, h, w, S, mesh, lights=lights).reshape(-1, 3)
+    ev()
+    target_ms = ev.ms()[0]
+    del truth
+    soft_f, cam_f = res["soft"], res["cam"]
+    init_fn, step_fn = sharding.make_sharded_train_step(
+        settings, S, mesh, lr=cfg.lr, cam_lr=cfg.cam_lr, optimize_camera=True,
+        grad_buckets=1, lights=lights, use_custom_vjp=True)
+    state = init_fn(soft_f, cam_f)
+    o_c, d_c = sharding.camera_frame_rays(cam_f, h, w)
+    timer = StepTimer(device)
+    timer()
+    s, c = soft_f, cam_f
+    for _ in range(2):
+        s, c, state, _ = step_fn(s, c, state, o_c, d_c, target)
+        timer()
+    step_ms = timer.ms()
+    mark("steps")
+
+    o_w, d_w = sharding._world_rays(cam_f, o_c, d_c)
+    sg = SoftGrid(soft_f.sigma_raw.detach().clone().requires_grad_(True),
+                  soft_f.rgb_raw.detach().clone().requires_grad_(True))
+    ev = StepTimer(device)
+    ev()
+    pred = render_soft_rays_fast(sg, o_w, d_w, settings, S, lights)
+    ev()
+    (torch.sum((pred - target) ** 2) / (pred.numel())).backward()
+    ev()
+    fwd_ms, bwd_ms = ev.ms()
+    del sg, pred
+    mark("alone")
+
+    def one_step():
+        nonlocal s, c, state
+        s, c, state, _ = step_fn(s, c, state, o_c, d_c, target)
+
+    groups, wall = {}, None
+    if device.type == "cuda":
+        kernels, wall = _kernel_times(one_step, device)
+        for name, ms in kernels.items():
+            key = next((g for g, subs in C5_GROUPS if any(
+                x in name for x in subs)), "other elementwise")
+            groups[key] = groups.get(key, 0.0) + ms
+        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+        print(f"phase 11 scale-out: config 5 step profiled [{card}]: wall "
+              f"{wall:.1f} ms, device ms by group "
+              f"{ {k: round(v, 2) for k, v in groups.items()} }; top kernels "
+              + "; ".join(f"{ms:.2f} {n[:60]}" for n, ms in top))
+    del state
+    mark("profile")
+    print(f"phase 11 scale-out: config 5 step ms [{card}] (events, from the "
+          f"run's final state, 1 bucket) {[round(x, 1) for x in step_ms]}; "
+          f"forward alone {fwd_ms:.1f}, backward alone {bwd_ms:.1f}; the "
+          f"target render {target_ms:.1f}")
+
+    # the custom backward against autograd through the plain renderer on a
+    # subset of the frame's rays (plain autograd cannot hold them all)
+    idx = torch.linspace(0, h * w - 1, subset, device=device).long()
+    got = _subset_grads(True, soft_f, cam_f, o_c[idx], d_c[idx], target[idx],
+                        settings, S, lights)
+    want = _subset_grads(False, soft_f, cam_f, o_c[idx], d_c[idx],
+                         target[idx], settings, S, lights)
+    rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    ex = _vjp_excess(got[1], want[1])
+    print(f"phase 11 scale-out: custom backward vs autograd on {subset} rays "
+          f"of the frame: loss rel {rel:.3g}; gradient (sigma, rgb, pos, "
+          f"yaw, pitch) allclose excess {ex:.3g} (rtol {VJP_RTOL}, atol "
+          f"{VJP_ATOL_REL} x max|g|); max |g| "
+          f"{[float(g.abs().max()) for g in want[1]]}")
+    if rel > 1e-5 or ex > 1.0:
+        raise AssertionError("config 5: the custom backward and autograd "
+                             "differ")
+    mark("subset")
+    names = list(marks)
+    parts = {b: round(marks[b] - marks[a], 1)
+             for a, b in zip(names, names[1:])}
+    print(f"phase 11 scale-out: config 5 part seconds {parts}")
+    return dict(losses=res["losses"], psnrs=res["psnrs"],
+                yaw_err=res["yaw_err"], pitch_err=res["pitch_err"],
+                frame_ms=frame_ms, step_ms=step_ms, fwd_ms=fwd_ms,
+                bwd_ms=bwd_ms, target_ms=target_ms, peak_gib=peak,
+                groups=groups, profiled_wall_ms=wall, vjp_excess=ex,
+                vjp_loss_rel=rel)
+
+
+def _kernel_times(fn, device):
+    """Device ms by kernel name of one call of ``fn`` (torch.profiler
+    without input shapes: a config-5 step is ~80,000 small kernels), and
+    the call's wall ms under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and _device_us(e)):
+            kernels[e.key] = kernels.get(e.key, 0.0) + _device_us(e) / 1e3
+    return kernels, wall
+
+
+# device-time groups of the profiled config-5 step (kernel-name parts)
+C5_GROUPS = (("index_add_", ("index_add", "indexFunc")),
+             ("Adam", ("multi_tensor", "adam", "Adam")),
+             ("gather", ("index_elementwise", "gather", "indexSelect",
+                         "index_kernel")),
+             ("copy and cat", ("CatArray", "copy", "Copy")),
+             ("fill", ("fill", "Fill")))
+
+
+def scale_fused(device, D=FULL, h=H, w=W) -> dict:
+    """(c) phase 4's lambert and full + shadows + fog frames through
+    render_frame_fused_sharded (K1 in the rank's block), equal to
+    render_frame_fused on every pixel."""
+    import torch
+
+    from vxtpu_torch.engine import sharding
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render.fused import render_frame_fused
+    from vxtpu_torch.world import procgen
+    from vxtpu_torch.world.packed import (build_material_morton,
+                                          build_packed_morton)
+
+    dims = (D,) * 3
+    grid = procgen.terrain(dims, seed=7, device=device)
+    accel = build_packed_morton(grid.occupancy, cap=64)
+    mats = build_material_morton(grid.occupancy)
+    del grid
+    light, requests = _main_scene(device, D)
+    picked = [r for r in requests if r[0] in ("lambert", "full_shadows_fog")]
+    mesh = sharding.make_mesh()
+    km.reset_launch_counts()
+    frames = {name: sharding.render_frame_fused_sharded(
+        accel, mats, dims, cam, light, st, h, w, mesh, inkernel_shadows=ink)
+        for name, cam, st, ink in picked}
+    _sync(device)
+    launches = dict(km.LAUNCHES)
+    out = {}
+    for name, cam, st, ink in picked:
+        ref = render_frame_fused(accel, mats, dims, cam, light, st, h, w,
+                                 inkernel_shadows=ink)
+        out[name] = int((frames[name] != ref).any(dim=-1).sum())
+    print(f"phase 11 scale-out: sharded fused frames at {D}^3 {h}x{w} on "
+          f"{mesh.size} rank: pixels unlike render_frame_fused {out}; K1 "
+          f"launches {launches['march_shade_kernel']}")
+    if any(out.values()):
+        raise AssertionError("sharded fused frames differ from the "
+                             "unsharded ones")
+    if device.type == "cuda" and launches["march_shade_kernel"] != len(picked):
+        raise AssertionError(f"the sharded fused frames did not run K1 once "
+                             f"each: {launches}")
+    return dict(launches=launches["march_shade_kernel"], mismatches=out)
+
+
+def scale_train(device, D=FULL, h=256, w=256, S=256, S_mask=64) -> dict:
+    """(d) the sharded field-kernel step (K3/K4 in the rank) at c4's size,
+    from zeros and, masked at S_mask on the bands, from the warm state
+    (0.8 x the truth): their loss and table gradient against the
+    single-device kernel path (fit_soft's loss without the TV prior, which
+    the sharded step does not have) with phase 6's limits; then one
+    step each (counted)."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.engine import sharding
+    from vxtpu_torch.render import kernel_sample as ks
+    from vxtpu_torch.render import occmask
+    from vxtpu_torch.render.soft import SoftGrid
+    from vxtpu_torch.render.soft_kernel import MortonSoftGrid
+    from vxtpu_torch.train import loop
+    from vxtpu_torch.world import procgen
+
+    cfg4 = CONFIGS["c4_512_diff"]
+    settings = cfg4.settings
+    dims = (D,) * 3
+    truth = SoftGrid.from_hard(procgen.terrain(
+        dims, seed=cfg4.seed, with_rgb=True, device=device))
+    cam = Camera.make(pos=(-0.7 * D, 0.5 * D, 1.1 * D),
+                      device=device).look_at((0.5 * D, 0.5 * D, 0.27 * D))
+    o, d = generate_rays(cam, h, w)
+    target = _render_target(truth, o, d, settings, S)
+    warm = MortonSoftGrid.from_soft(SoftGrid(truth.sigma_raw * 0.8,
+                                             truth.rgb_raw * 0.8))
+    del truth
+    zero = MortonSoftGrid.from_soft(SoftGrid.zeros(dims, device=device))
+    o_c, d_c = sharding.camera_frame_rays(cam, h, w)
+    o_w, d_w = sharding._world_rays(cam, o_c, d_c)
+    mask = occmask.occupancy_mask_from_soft(warm, 4, tau=0.01, dilate=1)
+    mdf = occmask.mask_distance_field(mask)
+    b0, b1 = sharding.compute_mask_bounds(mask, mdf, cam, o_c, d_c, 4)
+    tc0 = loop.TrainConfig(tv_sigma=0.0, tv_rgb=0.0)
+    mesh = sharding.make_mesh()
+    cases = [("field kernel", zero, S, ()),
+             ("masked", warm, S_mask, (mask, b0, b1))]
+    ks.reset_launch_counts()
+    got = {}
+    for name, model, s, margs in cases:
+        init_fn, step_fn = sharding.make_sharded_train_step(
+            settings, s, mesh, optimize_camera=False, field_kernel=True,
+            use_mask=bool(margs))
+        state = init_fn(model, cam)
+        loss, grads = step_fn.value_and_grad(model, cam, state, o_c, d_c,
+                                             target, *margs)
+        got[name] = (float(loss), kc.channels(grads[0].clone()))
+        del grads
+        # the step itself (Adam): its loss is the same forward's
+        _, _, _, loss2 = step_fn(model, cam, state, o_c, d_c, target, *margs)
+        if float(loss2) != got[name][0]:
+            raise AssertionError(f"sharded {name} step: loss {float(loss2)} "
+                                 f"against {got[name][0]} before it")
+        del state
+    _sync(device)
+    launches = dict(ks.LAUNCHES)
+    err = {}
+    for name, model, s, margs in cases:
+        bounds = (b0, b1) if margs else None
+        lp, gp = _grads(model.tab, False, o_w, d_w, settings, s,
+                        target=target, tc=tc0,
+                        mask=mask if margs else None, bounds=bounds)
+        ls, gs = got[name]
+        rel = abs(ls - float(lp)) / abs(float(lp))
+        ex = kc.grads_excess(gs, gp)
+        err[name] = dict(loss_rel=rel, excess=ex, loss=ls)
+        print(f"phase 11 scale-out: sharded {name} step at {D}^3 {h}x{w} S "
+              f"= {s} on {mesh.size} rank vs the single-device kernel path: "
+              f"loss {ls:.8f} vs {float(lp):.8f} (rel {rel:.3g}); gradient "
+              f"allclose excess {ex:.3g}")
+        if rel > 1e-6 or ex > 1.0:
+            raise AssertionError(f"sharded {name} step differs from the "
+                                 f"single-device step")
+    print(f"phase 11 scale-out: sharded steps' launches {launches}")
+    if device.type == "cuda" and not (
+            launches["sample_fwd_kernel"] == 2 * len(cases)
+            and launches[BWD[False]] == 2 * len(cases)):
+        raise AssertionError(f"the sharded steps did not run K3 and K4 "
+                             f"twice each: {launches}")
+    return dict(launches=launches, err=err)
+
+
+def _small_world(D, h, w, S, buckets) -> dict:
+    """(e)'s run on the process group's mesh at D^3: the pipeline frame
+    (K5) and the fused frame (K1) of phase 4's scene with shadows and fog,
+    and config 5's step (lit, custom backward, camera, ``buckets``
+    buckets) from zeros: loss and gradients. Numpy out (it crosses
+    processes)."""
+    import dataclasses
+
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.app.run import kernel_factory
+    from vxtpu_torch.camera import paths
+    from vxtpu_torch.engine import platform, sharding
+    from vxtpu_torch.render.soft import SoftGrid
+    from vxtpu_torch.world import procgen
+    from vxtpu_torch.world.lights import Lights
+    from vxtpu_torch.world.packed import (build_material_morton,
+                                          build_packed_morton)
+
+    device = platform.rank_device()
+    mesh = sharding.make_mesh()
+    dims = (D,) * 3
+    grid = procgen.terrain(dims, seed=7, with_rgb=True, device=device)
+    light, requests = _main_scene(device, D)
+    _, cam, full, _ = next(r for r in requests if r[0] == "full_shadows_fog")
+    frame = sharding.render_image_sharded(kernel_factory("pallas"), grid, cam,
+                                          light, full, h, w, mesh)
+    fused = sharding.render_frame_fused_sharded(
+        build_packed_morton(grid.occupancy, cap=64),
+        build_material_morton(grid.occupancy), dims, cam, light, full, h, w,
+        mesh)
+    settings = CONFIGS["c5_1080p_pod"].settings
+    X, Y, Z = dims
+    lights = Lights.single((0.2 * X, -0.3 * Y, 1.4 * Z), intensity=2.0,
+                           device=device)
+    truth = SoftGrid.from_hard(grid, sigma_solid=25.0)
+    cam5 = paths.orbit(center=(0.5 * X, 0.5 * Y, 0.3 * Z), radius=0.9 * X,
+                       height=1.1 * Z, period=1.0, fov_y_deg=55.0,
+                       device=device)(0.0)
+    target = sharding.render_soft_image_sharded(
+        truth, cam5, settings, h, w, S, mesh, lights=lights).reshape(-1, 3)
+    est = dataclasses.replace(cam5, yaw=cam5.yaw + 0.03)
+    init_fn, step_fn = sharding.make_sharded_train_step(
+        settings, S, mesh, cam_lr=2e-3, optimize_camera=True,
+        grad_buckets=buckets, lights=lights, use_custom_vjp=True)
+    zero = SoftGrid.zeros(dims, device=device)
+    o_c, d_c = sharding.camera_frame_rays(est, h, w)
+    loss, grads = step_fn.value_and_grad(zero, est, init_fn(zero, est), o_c,
+                                         d_c, target)
+    return dict(frame=frame.cpu().numpy(), fused=fused.cpu().numpy(),
+                loss=float(loss), grads=[g.cpu().numpy() for g in grads])
+
+
+def scale_gloo(device, D=64, h=256, w=256, S=64, buckets=4,
+               cli_size=None) -> dict:
+    """(e) 2 gloo ranks on the one card against this process's 1-rank
+    run; dryrun_multichip(2); the scaling command at world 1."""
+    import numpy as np
+    import torch
+
+    from vxtpu_torch.app.dryrun import dryrun_multichip
+    from vxtpu_torch.engine.platform import run_local
+    from vxtpu_torch.render import kernel_march as km
+
+    t0 = time.perf_counter()
+    ref = _small_world(D, h, w, S, buckets)
+    outs = run_local(2, _small_world, backend="gloo", device=device.type,
+                     timeout=600, args=(D, h, w, S, buckets))
+    worst = {}
+    for r, out in enumerate(outs):
+        for key in ("frame", "fused"):
+            n_bad = int((out[key] != ref[key]).any(axis=-1).sum())
+            worst[key] = max(worst.get(key, 0), n_bad)
+        rel = abs(out["loss"] - ref["loss"]) / abs(ref["loss"])
+        worst["loss_rel"] = max(worst.get("loss_rel", 0.0), rel)
+        worst["grad_excess"] = max(worst.get("grad_excess", 0.0), _vjp_excess(
+            [torch.from_numpy(g) for g in out["grads"]],
+            [torch.from_numpy(g) for g in ref["grads"]]))
+    print(f"phase 11 scale-out: 2 gloo ranks on the {device.type} at {D}^3 "
+          f"{h}x{w} vs 1 rank: pixels unlike (pipeline K5 frame, fused K1 "
+          f"frame) {worst['frame']}, {worst['fused']}; config 5 step (S = "
+          f"{S}, {buckets} buckets) loss rel {worst['loss_rel']:.3g}, "
+          f"gradient allclose excess {worst['grad_excess']:.3g}, in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if worst["frame"] or worst["fused"] or worst["loss_rel"] > 1e-5 \
+            or worst["grad_excess"] > 1.0:
+        raise AssertionError("2 gloo ranks differ from 1 rank")
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device=device)
+    dry_s = time.perf_counter() - t0
+    if cli_size is None:
+        cli_size = ["--dims", str(D), "--height", str(h), "--width", str(w)]
+    km.reset_launch_counts()
+    line = _run_cli(["scaling", "--kernel", "fused", "--config",
+                     "c3_256_shadows", "--iters", "3", "--device",
+                     device.type, *cli_size])[-1]
+    print(f"phase 11 scale-out: dryrun_multichip(2) in {dry_s:.1f} s; "
+          f"scaling --kernel fused {' '.join(cli_size)}: {line}; K1 "
+          f"launches {km.LAUNCHES['march_shade_kernel']}")
+    if json.loads(line)["devices"] != 1 or not np.isfinite(
+            json.loads(line)["mrays"]):
+        raise AssertionError(f"scaling: {line}")
+    return dict(worst=worst, dryrun=dry, scaling=json.loads(line))
+
+
+def phase_scale_out(device, card="", c5=None, fused=None, train=None,
+                    gloo=None) -> dict:
+    """Phase 11: the platform checks and the sharded paths (see the module
+    docstring). The keyword dicts pass sizes to the parts (a CPU
+    rehearsal runs them small)."""
+    from vxtpu_torch.engine import platform
+
+    t0 = time.perf_counter()
+    info = platform.init_multihost(device=device)
+    try:
+        rep = json.loads("\n".join(_run_cli(["info", "--device",
+                                             device.type])))
+        platform.validate_platform(mesh_devices=1, device=device)
+        print(f"phase 11 scale-out: platform {info}; validate_platform "
+              f"passed; info {json.dumps(rep)}")
+        if device.type == "cuda":
+            import torch
+
+            props = torch.cuda.get_device_properties(device)
+            if (tuple(rep["capability"]) != (9, 0)
+                    or rep["hbm_bytes"] != props.total_memory):
+                raise AssertionError(f"info: {rep}")
+        out = dict(platform=rep)
+        parts = (("config5", scale_config5, dict(card=card, **(c5 or {}))),
+                 ("fused", scale_fused, fused or {}),
+                 ("train", scale_train, train or {}),
+                 ("gloo", scale_gloo, gloo or {}))
+        for key, fn, kw in parts:
+            t1 = time.perf_counter()
+            out[key] = fn(device, **kw)
+            print(f"phase 11 scale-out: ({key}) {time.perf_counter() - t1:.1f} "
+                  f"s")
+    finally:
+        platform.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 scale-out: {out['seconds']:.1f} s")
+    return out
+
+
 def k1_k2_bounds(times, h, w, n_lights=1) -> dict:
     """Least times (ms) of K1 in the lambert frame (k1_bound; without its
     table words, ``bound_rays_only_ms``) and of K2, the shade kernel alone:
@@ -2683,6 +3237,10 @@ def main(argv=None) -> int:
                         "instantiation and a JSON line of the results; "
                         "copied into a checkout of another commit, it times "
                         "that commit's K1 the same way")
+    p.add_argument("--scale-out", action="store_true",
+                   help="phases 1 and 2, then phase 11 alone (the sharded "
+                        "paths, config 5 at full size) and a JSON line of "
+                        "its results")
     p.add_argument("--sass", default=None, metavar="FILE",
                    help="with --k5-times or --k1-times: write that kernel's "
                         "SASS listing to FILE and print its opcodes by "
@@ -2691,6 +3249,12 @@ def main(argv=None) -> int:
     _require_checkout()
     device, name, smi = phase_device()
     usage = phase_build()
+    if args.scale_out:
+        out = phase_scale_out(device, card=smi)
+        print(json.dumps({"scale_out": {k: v for k, v in out.items()
+                                        if k != "gloo"}, "gpu": smi},
+                         default=str))
+        return 0
     if args.k1_times:
         out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
                                      if "march_shade" in k},
@@ -2731,6 +3295,7 @@ def main(argv=None) -> int:
     cross_entry_frame(device)
     train = phase_train(device)
     cross_train(device)
+    scale = phase_scale_out(device, card=smi)
 
     import torch
 
@@ -2754,7 +3319,10 @@ def main(argv=None) -> int:
                                                "bound_ms", "bound_by",
                                                "share")}
                    for m in K1_MODES},
-         "occupancy": pipe["times"]["k1_occupancy"], "library_ms": None},
+         "occupancy": pipe["times"]["k1_occupancy"],
+         "sharded": {"launches": scale["fused"]["launches"],
+                     "mismatched_pixels": scale["fused"]["mismatches"]},
+         "library_ms": None},
         {"name": "shade_kernel", "route": "cuda",
          "source": "vxtpu_torch/csrc/march.cu",
          "replaces": "vxtpu/render/kernel_pallas_v2.py:1219",
@@ -2784,6 +3352,12 @@ def main(argv=None) -> int:
             "plain_ms": tt[k]["plain_ms"],
             "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
             "library_ms": tt[k]["library_ms"]})
+        if k in scale["train"]["launches"]:
+            # phase 11's sharded field-kernel and masked steps
+            kernels[-1]["sharded"] = {
+                "launches": scale["train"]["launches"][k],
+                "grad_excess": {n: e["excess"] for n, e in
+                                scale["train"]["err"].items()}}
         if k in mask["alone"]:
             # phase 10's masked fit: its launches, and the kernel alone at
             # the masked step's shape (S = 64 on the occupied bands)

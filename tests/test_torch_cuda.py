@@ -420,3 +420,123 @@ def test_masked_fit_runs_the_kernels(cuda):
     assert losses[0][-1] < losses[0][0]
     for a, b in zip(*losses):
         assert abs(a - b) <= 1e-5 * abs(b)
+
+
+def _vjp_grads(fast, sig, rgb, cam, o_c, d_c, target, settings, S, lights):
+    """Loss and the gradients to (sigma, rgb, cam pos, yaw, pitch) through
+    the custom backward (render/vjp.py) or autograd through the plain
+    soft renderer."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.engine.sharding import _world_rays
+    from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
+    from vxtpu_torch.render.vjp import render_soft_rays_fast
+
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (sig, rgb, cam.pos, cam.yaw, cam.pitch)]
+    s = SoftGrid(leaves[0], leaves[1])
+    o_w, d_w = _world_rays(Camera(*leaves[2:], cam.fov_y), o_c, d_c)
+    if fast:
+        pred = render_soft_rays_fast(s, o_w, d_w, settings, S, lights)
+    else:
+        pred = render_soft_rays(s, o_w, d_w, settings, S, lights)[0]
+    loss = torch.mean((pred - target) ** 2)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("shading", ["flat", "full"])
+def test_custom_vjp_matches_autograd_on_the_card(cuda, shading):
+    """The custom backward against autograd through the plain renderer at
+    64^3 on 4,096 rays (index_add_ on CUDA sums in a varying order: rtol
+    2e-4 / atol 2e-5 x max|g|, tests/test_vjp.py's tolerance)."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.engine.sharding import camera_frame_rays
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.world.lights import Lights
+
+    g = torch.Generator().manual_seed(3)
+    D = 64
+    sig = (torch.randn((D,) * 3, generator=g) * 2.0).to(cuda)
+    rgb = torch.randn((3,) + (D,) * 3, generator=g).to(cuda)
+    cam = Camera.make(pos=(-40.0, 30.0, 70.0), fov_y_deg=55.0,
+                      device=cuda).look_at((32.0, 32.0, 16.0))
+    o_c, d_c = camera_frame_rays(cam, 64, 64)
+    target = torch.rand((64 * 64, 3), generator=g).to(cuda)
+    lights = Lights.single((12.0, -20.0, 90.0), intensity=2.0, device=cuda)
+    st = RenderSettings(shading=shading)
+    lf, gf = _vjp_grads(True, sig, rgb, cam, o_c, d_c, target, st, 48,
+                        lights)
+    lp, gp = _vjp_grads(False, sig, rgb, cam, o_c, d_c, target, st, 48,
+                        lights)
+    assert abs(float(lf) - float(lp)) <= 1e-5 * abs(float(lp))
+    for a, b in zip(gf, gp):
+        atol = 2e-5 * max(float(b.abs().max()), 1e-30)
+        assert kc.allclose_excess(a, b, 2e-4, atol) <= 1.0
+
+
+@pytest.fixture
+def nccl_rank(cuda):
+    from vxtpu_torch.engine import platform
+
+    platform.init_multihost(device=cuda)
+    yield cuda
+    platform.shutdown()
+
+
+def test_one_rank_nccl_sharded_step_matches_fit_soft(nccl_rank):
+    """The sharded field-kernel step on a 1-rank NCCL group: its loss and
+    table gradient against the single-device kernel path (fit_soft's loss
+    without the TV prior) within phase 6's limits; then fit_soft's one
+    step (TV off) and the sharded step give the same loss."""
+    import torch.distributed as dist
+
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.engine import sharding
+    from vxtpu_torch.render import soft
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
+                                                render_soft_rays_kernel)
+    from vxtpu_torch.train import loop
+
+    dev = nccl_rank
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    truth = soft.SoftGrid.from_hard(procgen.terrain(
+        (32,) * 3, seed=7, with_rgb=True, device=dev))
+    cam = Camera.make(pos=(-22.4, 16.0, 35.2), device=dev).look_at(
+        (16.0, 16.0, 8.64))
+    st = RenderSettings()
+    with torch.no_grad():
+        target = soft.render_soft_image(truth, cam, st, 32, 32, 32)
+    o_c, d_c = sharding.camera_frame_rays(cam, 32, 32)
+    o_w, d_w = sharding._world_rays(cam, o_c, d_c)
+    model = MortonSoftGrid.from_soft(soft.SoftGrid.zeros((32,) * 3,
+                                                         device=dev))
+    init_fn, step_fn = sharding.make_sharded_train_step(
+        st, 16, sharding.make_mesh(), optimize_camera=False,
+        field_kernel=True)
+    state = init_fn(model, cam)
+    loss, grads = step_fn.value_and_grad(model, cam, state, o_c, d_c,
+                                         target.reshape(-1, 3))
+    p = model.tab.clone().requires_grad_(True)
+    want = torch.mean((render_soft_rays_kernel(
+        MortonSoftGrid(p), o_w, d_w, st, 16) - target.reshape(-1, 3)) ** 2)
+    gw, = torch.autograd.grad(want, [p])
+    assert abs(float(loss) - float(want)) <= 1e-6 * abs(float(want))
+    assert kc.grads_excess(kc.channels(grads[0]), kc.channels(gw)) <= 1.0
+    _, _, fit_losses, _ = loop.fit_soft(
+        soft.SoftGrid.zeros((32,) * 3, device=dev), cam, target, st,
+        loop.TrainConfig(steps=1, num_samples=16, tv_sigma=0.0, tv_rgb=0.0,
+                         field_kernel=True))
+    assert abs(fit_losses[0] - float(loss)) <= 1e-6 * abs(float(loss))
+
+
+def test_validate_platform_on_the_card(cuda):
+    from vxtpu_torch.engine import platform
+
+    info = platform.validate_platform(device=cuda)
+    props = torch.cuda.get_device_properties(cuda)
+    assert info.capability == (9, 0) and info.hbm_bytes == props.total_memory
+    assert platform.platform_report(cuda)["device_kind"] == props.name
+    with pytest.raises(RuntimeError, match="scene needs"):
+        platform.validate_platform(
+            {"grid": torch.empty(1, device=cuda)}, hbm_headroom=0.0,
+            device=cuda)

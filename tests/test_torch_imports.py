@@ -36,7 +36,9 @@ def test_scan_covers_the_package():
                 "world/atlas.py", "obs/log.py", "obs/metrics.py",
                 "native/framesink.py", "render/probe.py",
                 "render/kernel_xla.py", "render/occmask.py",
-                "world/pyramid.py", "engine/sharding.py"):
+                "world/pyramid.py", "engine/sharding.py",
+                "engine/platform.py", "render/vjp.py", "train/config5.py",
+                "app/schedule.py", "app/dryrun.py"):
         assert f"vxtpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
 

@@ -280,11 +280,15 @@ def test_fit_soft_views_and_orbit():
 
 
 def test_unported_options_and_nan_guard():
+    """Every TrainConfig option runs now: use_custom_vjp (render/vjp.py)
+    gives the autograd path's loss; a NaN target trips the guard."""
     cam, tgt = _torch_scene(4, 4, 2)
     zeros = soft.SoftGrid.zeros(DIMS, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.fit_soft(zeros, cam, tgt, RenderSettings(),
-                      loop.TrainConfig(steps=1, use_custom_vjp=True))
+    losses = [loop.fit_soft(zeros, cam, tgt, RenderSettings(),
+                            loop.TrainConfig(steps=2, num_samples=2,
+                                             use_custom_vjp=custom))[2]
+              for custom in (True, False)]
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-6)
     with pytest.raises(FloatingPointError):
         loop.fit_soft(zeros, cam, torch.full_like(tgt, float("nan")),
                       RenderSettings(), loop.TrainConfig(steps=1,
@@ -300,6 +304,16 @@ def test_train_command_on_cpu(tmp_path, capsys):
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last["metric"] == "final_loss" and last["steps"] == 2
     assert (out / "ckpt.npz").exists() and (out / "fit.png").exists()
+
+
+def test_train_command_custom_vjp_on_cpu(tmp_path, capsys):
+    out = tmp_path / "fit"
+    assert run.main(["train", "--device", "cpu", "--dims", "16", "--height",
+                     "8", "--width", "8", "--samples", "4", "--steps", "2",
+                     "--custom-vjp", "--out", str(out)]) == 0
+    last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert last["metric"] == "final_loss" and np.isfinite(last["value"])
+    assert (out / "ckpt.npz").exists()
 
 
 def test_train_command_occmask_on_cpu(tmp_path, capsys):

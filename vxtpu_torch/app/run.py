@@ -3,7 +3,10 @@ r"""Command line (counterpart of ``vxtpu/app/run.py``):
   render   one frame of a named config -> PNG
   animate  N frames along an orbit -> PNGs (+ an fps JSON line)
   train    the config-4 inverse-rendering fit
+  config5  the animated, sharded per-frame fit of config 5
   bench    Mrays/s as a JSON line
+  scaling  rays/s and parallel efficiency on 1, 2, 4, ... ranks
+  info     the platform report as JSON
 
 ``--kernel`` picks the march: ``fused`` (the default: march + shadows +
 shade in one CUDA kernel, ``render/fused.py``), or one of the composable
@@ -28,6 +31,14 @@ soft model (``render/occmask.py``).
       --samples 0 --steps 5 --out fit      # c4_512_diff at full size
   python -m vxtpu_torch train --field-kernel --occmask --samples 64 \
       --dims 0 --height 0 --width 0 --steps 5 --out fit
+  python -m vxtpu_torch config5 --frames 3 --out c5    # 512^3, 1080p
+  torchrun --nproc_per_node=N -m vxtpu_torch config5 --multihost
+  python -m vxtpu_torch scaling --config c3_256_shadows --kernel fused
+
+``config5``, ``scaling`` and ``info`` work in a ``torch.distributed``
+process group (``engine/platform.init_multihost``): started by
+``torchrun`` (NCCL, one card a rank), or, with no launcher, a group of
+this process alone.
 """
 
 from __future__ import annotations
@@ -395,6 +406,118 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_config5(args) -> int:
+    """Config 5: the animated scene, rays sharded over the process group,
+    camera-pose and voxel gradient descent every frame (vxtpu's
+    ``cmd_config5``: the same flags and final JSON line). Every rank runs
+    this same command; ``--multihost`` joins the group ``torchrun``
+    started (without it, or without a launcher, a 1-rank group)."""
+    from vxtpu_torch.engine.platform import init_multihost, validate_platform
+    from vxtpu_torch.engine.sharding import make_mesh
+    from vxtpu_torch.obs.metrics import MetricsSink
+    from vxtpu_torch.train.config5 import Config5, run_config5
+
+    device = resolve(args.device)
+    if not args.multihost and int(os.environ.get("WORLD_SIZE", 1)) > 1:
+        raise SystemExit("config5: launched as one of several ranks; pass "
+                         "--multihost (each rank alone would train its own "
+                         "copy)")
+    init_multihost(device=device)
+    cfg5 = Config5(
+        dims=(args.dims,) * 3 if args.dims else (512, 512, 512),
+        height=args.height or 1080, width=args.width or 1920,
+        num_samples=args.samples or 192, frames=args.frames,
+        steps_per_frame=args.steps_per_frame)
+    settings = CONFIGS["c5_1080p_pod"].settings
+    mesh = make_mesh()
+    validate_platform(mesh_devices=mesh.size, device=mesh.device)
+    sink = MetricsSink(path=os.path.join(args.out, "metrics.jsonl")
+                       if args.out else None)
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+    res = run_config5(cfg5, settings, mesh=mesh, out_dir=args.out,
+                      resume=args.resume, sink=sink,
+                      save_frames=args.save_frames)
+    if mesh.rank == 0:
+        print(json.dumps({
+            "metric": "config5_final_psnr", "value": res["psnrs"][-1],
+            "frames": cfg5.frames, "final_loss": res["losses"][-1],
+            "yaw_err": res["yaw_err"], "pitch_err": res["pitch_err"]}))
+    return 0
+
+
+def cmd_scaling(args) -> int:
+    """Rays/s on sub-groups of 1, 2, 4, ... ranks of the process group
+    (and the whole group) with the parallel efficiency against 1 rank,
+    one JSON line each (vxtpu's ``cmd_scaling``). Each sub-group renders
+    the config's frame with rays sharded over it; the other ranks wait.
+    One process alone measures 1 rank."""
+    import torch.distributed as dist
+
+    from vxtpu_torch.engine.platform import init_multihost, rank_device
+    from vxtpu_torch.engine.sharding import (make_mesh,
+                                             render_frame_fused_sharded,
+                                             render_image_sharded)
+    from vxtpu_torch.obs.metrics import MetricsSink, mrays_per_s
+
+    init_multihost(device=resolve(args.device))
+    device = rank_device()
+    cfg, dims, h, w, _ = _scene_args(args)
+    fused = args.kernel == "fused"
+    grid, accel, cam, lights = build_scene(
+        cfg, dims, "none" if fused else args.accel, device)
+    if fused:
+        acc, mats, rgb8 = _fused_tables(grid)
+
+        def frame(mesh):
+            return render_frame_fused_sharded(acc, mats, dims, cam, lights,
+                                              cfg.settings, h, w, mesh,
+                                              rgb8=rgb8)
+    else:
+        factory = kernel_factory(args.kernel)
+
+        def frame(mesh):
+            return render_image_sharded(factory, grid, cam, lights,
+                                        cfg.settings, h, w, mesh, accel)
+    world = dist.get_world_size()
+    counts = [n for n in (1, 2, 4, 8, 16, 32) if n <= world]
+    if counts[-1] != world:
+        counts.append(world)
+    sink = MetricsSink()
+    base = None
+    for n in counts:
+        mesh = make_mesh(n)
+        rate = torch.zeros(1, dtype=torch.float64, device=device)
+        if mesh.member:
+            frame(mesh)                     # first-use costs
+            _sync(device)
+            dist.barrier(group=mesh.group)
+            t0 = time.perf_counter()
+            for _ in range(args.iters):
+                frame(mesh)
+            _sync(device)
+            rate[0] = mrays_per_s(h, w, (time.perf_counter() - t0)
+                                  / args.iters)
+        # rank 0 is in every sub-group: its rate is the sub-group's
+        dist.broadcast(rate, src=0)
+        mrays = float(rate[0])
+        if base is None:
+            base = mrays
+        sink.emit(metric="scaling", devices=n, mrays=round(mrays, 3),
+                  efficiency=round(mrays / (base * n), 4),
+                  fps=round(mrays * 1e6 / (h * w), 2), kernel=args.kernel,
+                  res=[h, w])
+    return 0
+
+
+def cmd_info(args) -> int:
+    from vxtpu_torch.engine.platform import platform_report
+
+    print(json.dumps(platform_report(resolve(args.device)), indent=2,
+                     default=str))
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="vxtpu_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -462,7 +585,8 @@ def main(argv=None) -> int:
                          "only each ray's occupied band (cut --samples to "
                          "match)")
     sp.add_argument("--custom-vjp", action="store_true",
-                    help="vxtpu's custom-VJP scan (not ported)")
+                    help="render through the O(N+grid) custom backward "
+                         "(render/vjp.py)")
     sp.add_argument("--field-kernel", action="store_true",
                     help="train through the CUDA field-sampling kernels "
                          "(Morton scene layout)")
@@ -472,6 +596,34 @@ def main(argv=None) -> int:
                          "versions")
     sp.add_argument("--out", default="fit")
     sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("config5", help="animated sharded per-frame "
+                                        "optimisation (config 5)")
+    sp.add_argument("--dims", type=int, default=0,
+                    help="override grid side (0 = 512)")
+    sp.add_argument("--height", type=int, default=0)
+    sp.add_argument("--width", type=int, default=0)
+    sp.add_argument("--samples", type=int, default=0)
+    sp.add_argument("--frames", type=int, default=24)
+    sp.add_argument("--steps-per-frame", type=int, default=2)
+    sp.add_argument("--multihost", action="store_true",
+                    help="join the process group torchrun started "
+                         "(RANK, WORLD_SIZE, MASTER_ADDR, LOCAL_RANK)")
+    sp.add_argument("--resume", default=None, help="checkpoint .npz to resume")
+    sp.add_argument("--save-frames", action="store_true")
+    sp.add_argument("--out", default="c5")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_config5)
+
+    sp = sub.add_parser("scaling",
+                        help="rays/s at 1..N ranks + parallel efficiency")
+    common(sp)
+    sp.add_argument("--iters", type=int, default=4)
+    sp.set_defaults(fn=cmd_scaling)
+
+    sp = sub.add_parser("info", help="platform report")
+    device_arg(sp)
+    sp.set_defaults(fn=cmd_info)
     args = p.parse_args(argv)
     return args.fn(args)
 

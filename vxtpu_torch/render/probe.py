@@ -271,7 +271,10 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     some launches, and now and then records none for several windows in
     a row: such a window is noted on stderr and taken again after a pause
     that grows by 0.5 s with each empty one, _EMPTY_WINDOW_RETRIES
-    windows at most. Raises if none recorded one."""
+    windows at most. If none recorded one, it returns the CUDA events
+    time of the same calls (``_events_ms``: back-to-back launches, an
+    upper bound that includes the gaps between them) and says so on
+    stderr."""
     for k in range(_EMPTY_WINDOW_RETRIES):
         us = launch_us(fn, reps, kernel)
         if us:
@@ -279,8 +282,11 @@ def device_ms(fn, reps: int, kernel: str) -> float:
         print(f"device_ms: the profiler recorded no {kernel} in window "
               f"{k + 1} of {_EMPTY_WINDOW_RETRIES}", file=sys.stderr)
         time.sleep(0.5 * (k + 1))
-    raise RuntimeError(f"the profiler saw no {kernel} on the device in "
-                       f"{_EMPTY_WINDOW_RETRIES} windows")
+    ms = _events_ms(fn, reps)
+    print(f"device_ms: the profiler saw no {kernel} in "
+          f"{_EMPTY_WINDOW_RETRIES} windows; CUDA events over {reps} "
+          f"back-to-back calls instead: {ms:.4f} ms", file=sys.stderr)
+    return ms
 
 
 def cost_probe(o: torch.Tensor, d: torch.Tensor, tables: dict, dims,

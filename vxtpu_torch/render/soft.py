@@ -136,15 +136,33 @@ def trilinear(values: torch.Tensor, p: torch.Tensor, dims):
         per = [_gather8(fl, i0, i1, dims) for fl in flats]
         c = [torch.stack([per[ch][k] for ch in range(len(flats))], dim=-1)
              for k in range(8)]
-    fx, fy, fz = f[..., 0:1], f[..., 1:2], f[..., 2:3]
+    out = lerp8(c, f[..., 0:1], f[..., 1:2], f[..., 2:3])
+    return out[..., 0] if values.dim() == 3 else out
+
+
+def lerp8(c, fx, fy, fz):
+    """The trilinear ladder over the 8 corner values c000..c111 (a
+    sequence), z first, then y, then x."""
     c00 = c[0] * (1 - fz) + c[1] * fz
     c01 = c[2] * (1 - fz) + c[3] * fz
     c10 = c[4] * (1 - fz) + c[5] * fz
     c11 = c[6] * (1 - fz) + c[7] * fz
     c0 = c00 * (1 - fy) + c01 * fy
     c1 = c10 * (1 - fy) + c11 * fy
-    out = c0 * (1 - fx) + c1 * fx
-    return out[..., 0] if values.dim() == 3 else out
+    return c0 * (1 - fx) + c1 * fx
+
+
+def grad8(c, fx, fy, fz):
+    """(gx, gy, gz): the analytic derivative of the trilinear basis over
+    the 8 corner values c000..c111 (piecewise constant per cell)."""
+    c000, c001, c010, c011, c100, c101, c110, c111 = c
+    gx = (((c100 - c000) * (1 - fy) + (c110 - c010) * fy) * (1 - fz)
+          + ((c101 - c001) * (1 - fy) + (c111 - c011) * fy) * fz)
+    gy = (((c010 - c000) * (1 - fx) + (c110 - c100) * fx) * (1 - fz)
+          + ((c011 - c001) * (1 - fx) + (c111 - c101) * fx) * fz)
+    gz = (((c001 - c000) * (1 - fx) + (c101 - c100) * fx) * (1 - fy)
+          + ((c011 - c010) * (1 - fx) + (c111 - c110) * fx) * fy)
+    return gx, gy, gz
 
 
 def trilinear_grad(values: torch.Tensor, p: torch.Tensor, dims):
@@ -152,16 +170,8 @@ def trilinear_grad(values: torch.Tensor, p: torch.Tensor, dims):
     ([X,Y,Z]) at p: the analytic derivative of the interpolation basis,
     from the same 8 corners (piecewise constant per cell)."""
     i0, i1, f = _corners(p, dims)
-    c000, c001, c010, c011, c100, c101, c110, c111 = _gather8(
-        values.reshape(-1), i0, i1, dims)
-    fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
-    gx = (((c100 - c000) * (1 - fy) + (c110 - c010) * fy) * (1 - fz)
-          + ((c101 - c001) * (1 - fy) + (c111 - c011) * fy) * fz)
-    gy = (((c010 - c000) * (1 - fx) + (c110 - c100) * fx) * (1 - fz)
-          + ((c011 - c001) * (1 - fx) + (c111 - c101) * fx) * fz)
-    gz = (((c001 - c000) * (1 - fx) + (c101 - c100) * fx) * (1 - fy)
-          + ((c011 - c010) * (1 - fx) + (c111 - c110) * fx) * fy)
-    return torch.stack([gx, gy, gz], dim=-1)
+    c = _gather8(values.reshape(-1), i0, i1, dims)
+    return torch.stack(grad8(c, f[..., 0], f[..., 1], f[..., 2]), dim=-1)
 
 
 def shade_samples(c_raw, grad_raw, p, view_dir, lights,
@@ -178,7 +188,9 @@ def shade_samples(c_raw, grad_raw, p, view_dir, lights,
     lvec = lights.pos - p[..., None, :]                          # [...,L,3]
     dist2 = torch.sum(lvec * lvec, dim=-1)                       # [...,L]
     ldir = lvec * torch.rsqrt(torch.clamp(dist2, min=1e-12))[..., None]
-    ndotl = torch.clamp(torch.sum(n[..., None, :] * ldir, dim=-1), min=0.0)
+    # max(x, 0) with jnp.maximum's gradient at x == 0 (half), as vxtpu: an
+    # untouched grid has zero density gradients, so every sample sits there
+    ndotl = dda.relu_like_jax(torch.sum(n[..., None, :] * ldir, dim=-1))
     atten = lights.intensity / (1.0 + 0.002 * dist2)
     diff = ndotl * atten
     out = c_raw * (acc_l + torch.sum(diff[..., None] * lights.rgb, dim=-2))
@@ -186,7 +198,7 @@ def shade_samples(c_raw, grad_raw, p, view_dir, lights,
         h = ldir - view_dir[..., None, :]
         h = h * torch.rsqrt(torch.clamp(torch.sum(h * h, dim=-1),
                                         min=1e-12))[..., None]
-        ndoth = torch.clamp(torch.sum(n[..., None, :] * h, dim=-1), min=0.0)
+        ndoth = dda.relu_like_jax(torch.sum(n[..., None, :] * h, dim=-1))
         spec = settings.specular_k * torch.pow(ndoth, settings.specular_exp)
         spec = spec * (ndotl > 0.0) * atten
         out = out + torch.sum(spec[..., None] * lights.rgb, dim=-2)

@@ -120,7 +120,8 @@ def _shade_samples_cm(rc, gc, bc, gx, gy, gz, px, py, pz, dx, dy, dz,
         dist2 = lx * lx + ly * ly + lz * lz
         linv = torch.rsqrt(torch.clamp(dist2, min=1e-12))
         ldx, ldy, ldz = lx * linv, ly * linv, lz * linv
-        ndotl = torch.clamp(nx * ldx + ny * ldy + nz * ldz, min=0.0)
+        # jnp.maximum's gradient at 0, as soft.shade_samples
+        ndotl = dda.relu_like_jax(nx * ldx + ny * ldy + nz * ldz)
         atten = lights.intensity[li] / (1.0 + 0.002 * dist2)
         diff = ndotl * atten
         outr = outr + rc * diff * lights.rgb[li, 0]
@@ -130,7 +131,7 @@ def _shade_samples_cm(rc, gc, bc, gx, gy, gz, px, py, pz, dx, dy, dz,
             hx, hy, hz = ldx - dx, ldy - dy, ldz - dz
             hn = torch.rsqrt(torch.clamp(hx * hx + hy * hy + hz * hz,
                                          min=1e-12))
-            ndoth = torch.clamp((nx * hx + ny * hy + nz * hz) * hn, min=0.0)
+            ndoth = dda.relu_like_jax((nx * hx + ny * hy + nz * hz) * hn)
             spec = (settings.specular_k
                     * torch.pow(ndoth, settings.specular_exp)
                     * (ndotl > 0.0) * atten)

@@ -20,6 +20,7 @@ import torch
 
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.device import DEFAULT, resolve
+from vxtpu_torch.obs.log import process_rank
 from vxtpu_torch.render.soft import SoftGrid
 from vxtpu_torch.train.loop import AdamGroupState
 from vxtpu_torch.world.packed import LANES
@@ -99,10 +100,14 @@ def _migrate_rgb_layout(rgb: np.ndarray) -> np.ndarray:
 def save_checkpoint(path: str, soft: SoftGrid, cam: Camera, step: int,
                     extra: dict | None = None, opt_state=None,
                     compress: bool = True) -> None:
-    """Atomic save (write to a temporary file, then rename). ``opt_state``
+    """Atomic save (write to a temporary file, then rename) by rank 0 of
+    the process group only: every rank holds the same replicated state,
+    and every rank loads it on resume. ``opt_state``
     (the fit's optimizer state) is saved leaf by leaf so a resumed run
     continues Adam's trajectory; restore it with load_opt_state().
     compress=False suits big grids (zlib over GBs costs minutes)."""
+    if process_rank() != 0:
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
 

@@ -43,6 +43,7 @@ from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
 from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                             render_soft_rays_kernel)
+from vxtpu_torch.render.vjp import render_soft_rays_fast
 from vxtpu_torch.train.loss import mse, tv_loss, tv_prior_morton
 
 BETAS = (0.9, 0.999)
@@ -53,7 +54,8 @@ CAM_FIELDS = ("pos", "yaw", "pitch", "fov_y")
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """vxtpu's TrainConfig without ``field_window`` (a TPU window size).
-    ``use_custom_vjp`` is not ported and raises."""
+    ``use_custom_vjp`` renders through ``render/vjp.py``'s O(N_rays +
+    grid) backward; ``field_kernel`` takes precedence over it."""
 
     lr: float = 5e-2
     steps: int = 200
@@ -102,8 +104,12 @@ def _loss_fn(model, cam: Camera, o, d, target, hw,
             loss = loss + tv_prior_morton(model.tab, cfg.tv_sigma,
                                           cfg.tv_rgb)
         return loss
-    pred, _ = render_soft_rays(model, o, d, settings, cfg.num_samples,
-                               **masked)
+    if cfg.use_custom_vjp:
+        pred = render_soft_rays_fast(model, o, d, settings, cfg.num_samples,
+                                     **masked)
+    else:
+        pred, _ = render_soft_rays(model, o, d, settings, cfg.num_samples,
+                                   **masked)
     loss = mse(pred, target)
     if cfg.tv_sigma:
         loss = loss + cfg.tv_sigma * tv_loss(model.sigma_raw)
@@ -240,11 +246,6 @@ def _fit_rays(soft: SoftGrid, cam: Camera, o, d, target, hw,
     """The loop. Minibatch indices come from a torch.Generator seeded
     with cfg.seed: the same seed draws other rays than vxtpu's
     jax.random, so minibatched runs of the two packages differ."""
-    if cfg.use_custom_vjp:
-        raise NotImplementedError(
-            "use_custom_vjp: vxtpu's custom-VJP scan (render/vjp.py) is not "
-            "ported; see ROADMAP.md queue 1 #13 (field_kernel=True is the "
-            "port's fast path)")
     minibatched = bool(cfg.ray_batch) and cfg.ray_batch < o.shape[0]
     if cfg.optimize_camera and minibatched:
         raise ValueError("optimize_camera requires full-image steps "
