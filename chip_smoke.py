@@ -2,7 +2,7 @@
 """Drive vxtpu_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--save DIR] [--k5-times | --k1-times |
-                           --scale-out] [--sass FILE]
+                           --scale-out | --bench] [--sass FILE]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.
 Phases, each printing what it found (any failure raises, exit code != 0):
@@ -138,6 +138,32 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              (engine/platform.run_local) against the 1-rank run (frames
              on every pixel, the step's loss and gradients allclose),
              dryrun_multichip(2), and scaling --kernel fused at world 1.
+ 12. bench   the reference march, the wavefront march and the bench (run
+             after phase 7, before phase 11). (a) at 64^3, 256x256, from
+             phase 4's outside camera and its camera in the air: the
+             per-ray reference march (render/kernel_ref.py) against
+             march_xla_df and K1 march-only (phase 10's limits), the
+             native C++ oracle (native/oracle.py) against it (hit,
+             voxel, normal and steps equal on every ray, t within rel
+             1e-5); (b) the
+             bench's forward section at full size (512^3 seed 7, cap-96
+             distance field, 1080x1920 outside camera): the wavefront
+             march (render/kernel_wavefront.py) against march_xla_df on
+             every ray (hit flags equal; t within rtol 1e-5 / atol 1e-4,
+             voxel and normal equal on hits) and K1 march-only (phase
+             10's limits); its counters and host syncs, march and frame
+             times, the frame's device kernels and busy time; (c) the
+             bench's field-kernel train step at its sizes (128^3, 256x256
+             lit rays, S = 64, the camera refined: the lit K3, K4
+             kRayGrads and the ray sum), from zeros and from 0.8 x the
+             truth, against the same step through the kernels' plain
+             versions: loss, table and camera gradients, the rays'
+             cotangents, with phase 6's limits; (d) python
+             -m vxtpu_torch.bench as a subprocess (its two JSON lines:
+             every section, a clock beside every time, K1 launched in
+             each mode and K3/K4 in the field-kernel step), then render
+             and bench --kernel wavefront (c3_256_shadows at its size)
+             and --kernel ref (--dims 64).
 
 Phases 3 and 6 also hold K3/K4 against their plain versions: forward
 |d| <= 1e-6; both K4 variants' gradient tables within rtol 1e-5 / atol
@@ -170,9 +196,12 @@ the bounds without them are kept as bound_rays_only_ms; K3's and K4's
 scatter also carry "masked": phase 10's launches and the kernel alone at
 the masked step's shape); the last line
 is {"ok": true, "device": {...}}. K1, K3 and K4 carry "sharded": their
-launches in phase 11.
+launches in phase 11, and "bench": their launches in the bench's fused
+and field-kernel sections (phase 12, counted by the bench); every time
+has its clock beside it ("events", "profiler-device").
 --save DIR writes the main-path frames there as PNGs. --scale-out runs
-phases 1 and 2, then phase 11 alone, and prints one JSON line.
+phases 1 and 2, then phase 11 alone, and prints one JSON line; --bench
+runs phases 1 and 2, then phase 12 alone, and prints one JSON line.
 --k5-times runs phases 1 and 2, then K5 alone on its three ray sets as
 phase 8 times it
 (k5_rays, k5_times), and prints one JSON line; --k1-times runs phases 1
@@ -191,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import re
@@ -274,6 +304,21 @@ def median_ms(fn, device, runs=RUNS) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_rounds(row: dict, fn, reps: int, kernel: str, rounds: int) -> str:
+    """device_time over ``rounds`` profiler windows: row["device_ms"] their
+    median, row["device_ms_rounds"] each one, row["device_ms_clock"] the
+    clocks behind them; returns their text for the phase's line."""
+    from vxtpu_torch.render import probe
+
+    got = [probe.device_ms(fn, reps, kernel) for _ in range(rounds)]
+    row["device_ms_rounds"] = [ms for ms, _ in got]
+    row["device_ms"] = statistics.median(row["device_ms_rounds"])
+    row["device_ms_clock"] = "+".join(sorted({c for _, c in got}))
+    return (f"{row['device_ms']:.5f} ms per launch ({row['device_ms_clock']}"
+            f", windows of {reps}: "
+            + ", ".join(f"{t:.5f}" for t in row["device_ms_rounds"]) + ")")
 
 
 def phase_device():
@@ -480,6 +525,7 @@ def _logged_fetch(module, words):
 def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
     import torch
 
+    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.render import kernel_march as km
@@ -599,12 +645,9 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
             times[name]["kernel_ms"] = t_kern
             line += f"; kernel alone {t_kern:.3f} ms (events)"
             if device.type == "cuda":
-                from vxtpu_torch.render.probe import device_ms
-
-                times[name]["kernel_device_ms"] = device_ms(
-                    kfn, 20, "march_shade_kernel")
-                line += (f", {times[name]['kernel_device_ms']:.4f} ms device "
-                         f"(profiler, 20 launches)")
+                line += ", device " + bench.device_time(
+                    times[name], "kernel_device_ms", kfn, device, 20,
+                    "march_shade_kernel") + " over 20 launches"
             # the composed frame's plain version is this same function
             t_p = median_ms(lambda c=cam, f=plain: f(*generate_rays(c, h, w)),
                             device, runs)
@@ -631,16 +674,15 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
             t_sp = median_ms(lambda: km.shade_reference(
                 rec, o, d, vis, mats, lights_arr, vspec), device, runs)
             times["shade_kernel"] = {"ms": t_s, "plain_ms": t_sp}
+            dev = "not measured"
             if device.type == "cuda":
-                from vxtpu_torch.render.probe import device_ms
-
-                times["shade_kernel"]["device_ms"] = device_ms(
+                dev = bench.device_time(
+                    times["shade_kernel"], "device_ms",
                     lambda: km.shade(rec, o, d, vis, mats, lights_arr, vspec),
-                    runs, "shade_kernel")
+                    device, runs, "shade_kernel")
             print(f"phase 4 main: shade kernel alone at {h}x{w}: {t_s:.3f} "
-                  f"ms (events), device "
-                  f"{times['shade_kernel'].get('device_ms', float('nan')):.4f}"
-                  f" ms; plain {t_sp:.3f} ms; rgb beyond {kc.RGB_ATOL} on "
+                  f"ms (events), device {dev}; plain {t_sp:.3f} ms "
+                  f"(events); rgb beyond {kc.RGB_ATOL} on "
                   f"{sm['rgb']} px (max {sm['max_abs']:.3g})")
     return {"launches": launches, "variant_launches": variants, "err": err,
             "times": times, "grid": grid, "accel": accel}
@@ -868,16 +910,11 @@ def k5_times(rays: dict, device, reps=20, rounds=3, record=False,
         line = ""
         if device.type == "cuda":
             fn = lambda: kp.march_packed(o, d, acc, dims, ms, t_max=tm)
-            row["device_ms_rounds"] = [
-                probe.device_ms(fn, reps, "march_packed_kernel")
-                for _ in range(rounds)]
-            row["device_ms"] = statistics.median(row["device_ms_rounds"])
+            line = "; device " + device_rounds(row, fn, reps,
+                                               "march_packed_kernel", rounds)
             row["graph_ms"] = graph_ms(fn, reps)
-            line = (f"; device {row['device_ms']:.5f} ms per launch "
-                    f"(profiler windows of {reps}: "
-                    + ", ".join(f"{t:.5f}" for t in row["device_ms_rounds"])
-                    + f"), CUDA graph {row['graph_ms']:.5f}; bound / time "
-                    f"{row['bound_ms'] / row['device_ms']:.3f}")
+            line += (f", CUDA graph {row['graph_ms']:.5f} (events); bound / "
+                     f"time {row['bound_ms'] / row['device_ms']:.3f}")
             if record:
                 row["launch_us"] = probe.launch_us(fn, reps,
                                                    "march_packed_kernel")
@@ -1023,8 +1060,8 @@ def k1_times(world: dict, device, reps=20, rounds=3, record=False,
                              spec is not None, hits, shadow_rays)
             row = dict(n=n, steps=steps, hits=hits, shadow_rays=shadow_rays,
                        shadow_steps=shadow_steps, table_words=log.count(),
-                       coherence=warp_coherence(*phases),
-                       shadow_coherence=warp_coherence(*phases[1:])
+                       coherence=probe.warp_coherence(*phases),
+                       shadow_coherence=probe.warp_coherence(*phases[1:])
                        if shadow_rays else None,
                        t_rel=rm["t_rel"],
                        rgb_max_abs=im["max_abs"] if im else None,
@@ -1038,16 +1075,12 @@ def k1_times(world: dict, device, reps=20, rounds=3, record=False,
                        if shadow_rays else ""))
         line = ""
         if device.type == "cuda":
-            row["device_ms_rounds"] = [probe.device_ms(fn, reps, kernel)
-                                       for _ in range(rounds)]
-            row["device_ms"] = statistics.median(row["device_ms_rounds"])
+            line = "; device " + device_rounds(row, fn, reps, kernel,
+                                               rounds)
             row["graph_ms"] = graph_ms(fn, reps)
             row["share"] = row["bound_ms"] / row["device_ms"]
-            line = (f"; device {row['device_ms']:.5f} ms per launch "
-                    f"(profiler windows of {reps}: "
-                    + ", ".join(f"{t:.5f}" for t in row["device_ms_rounds"])
-                    + f"), CUDA graph {row['graph_ms']:.5f}; bound / time "
-                    f"{row['share']:.3f}")
+            line += (f", CUDA graph {row['graph_ms']:.5f} (events); bound / "
+                     f"time {row['share']:.3f}")
             if record:
                 row["launch_us"] = probe.launch_us(fn, reps, kernel)
                 line += (f"; one more window, {len(row['launch_us'])} of "
@@ -1355,23 +1388,6 @@ def probe_bound(n, n_iters, variant, table_bytes) -> dict:
                 bound_by="bytes" if tb >= tf else "operations")
 
 
-def warp_coherence(*phases) -> float:
-    """Sum of steps over the sum, over consecutive 32-ray groups in launch
-    order, of 32 x the group's largest steps in each phase (a warp runs
-    its phases, such as the primary march and then each shadow march,
-    one after another, each as long as its longest lane): the share of a
-    warp's iterations that its rays use (1 = no divergence tail)."""
-    import torch
-
-    used = lanes = 0
-    for steps in phases:
-        s = steps.to(torch.int64)
-        s = torch.cat([s, s.new_zeros((-s.numel()) % 32)]).view(-1, 32)
-        used += int(s.sum())
-        lanes += 32 * int(s.amax(1).sum())
-    return used / lanes if lanes else 1.0
-
-
 def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
                  budgets=None, runs=RUNS, reps=10, drain_r0=8,
                  drain_frac=256, threads=None) -> dict:
@@ -1379,6 +1395,7 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
     4's world."""
     import torch
 
+    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.render import kernel_march as km
@@ -1514,11 +1531,11 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
         st = stats[k]
         live0 = ~st["round0_done"]
         coh[k] = dict(
-            single=warp_coherence(single[k].steps),
+            single=probe.warp_coherence(single[k].steps),
             survivors=st["survivors"],
-            unsorted=warp_coherence(
+            unsorted=probe.warp_coherence(
                 (srec[k].steps - st["round0_steps"])[live0]),
-            sorted=warp_coherence(st["resume_steps"][0])
+            sorted=probe.warp_coherence(st["resume_steps"][0])
             if st["resume_steps"] else 1.0)
         print(f"phase 9 resume: warp coherence {k} (steps / 32 x warp max): "
               f"single round in launch order {coh[k]['single']:.4f}; the "
@@ -1571,20 +1588,25 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
             bufs[tag] = (o[sel], d[sel], (v[sel], e0k["dist"][sel],
                                           r0k.steps[sel]))
         t = dict(
-            round0_ms=probe.device_ms(round0, reps, "march_resume_kernel"),
             round0_events_ms=median_ms(round0, device, runs),
-            resume_all_ms=probe.device_ms(resume_all, reps,
-                                          "march_resume_kernel"),
-            k1_ms=probe.device_ms(lambda: km.march(o, d, accel, dims, ms),
-                                  reps, "march_shade_kernel"),
             round0_plain_ms=median_ms(lambda: km.march_reference(
                 o, d, accel, dims, ms, iter_budget=24, extended=True),
                 device, 3))
+        dev = {"round0_ms": bench.device_time(
+                   t, "round0_ms", round0, device, reps,
+                   "march_resume_kernel"),
+               "resume_all_ms": bench.device_time(
+                   t, "resume_all_ms", resume_all, device, reps,
+                   "march_resume_kernel"),
+               "k1_ms": bench.device_time(t, "k1_ms", lambda: km.march(
+                   o, d, accel, dims, ms), device, reps,
+                   "march_shade_kernel")}
         for tag, (bo, bd, bs) in bufs.items():
-            t[f"survivors_{tag.split()[0]}_ms"] = probe.device_ms(
-                lambda bo=bo, bd=bd, bs=bs: km.march(
+            key = f"survivors_{tag.split()[0]}_ms"
+            dev[key] = bench.device_time(
+                t, key, lambda bo=bo, bd=bd, bs=bs: km.march(
                     bo, bd, accel, dims, ms, resume_state=bs, extended=True),
-                reps, "march_resume_kernel")
+                device, reps, "march_resume_kernel")
         t["resume_launch_us"] = probe.launch_us(resume_all, reps,
                                                 "march_resume_kernel")
         print(f"phase 9 resume: K1' resume of all rays, one more profiler "
@@ -1595,19 +1617,19 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
         times.update(t)
         times["bound1"] = b1
         print(f"phase 9 resume: device time per launch at {D}^3 {h}x{w} "
-              f"(profiler, {reps} launches): K1' round 0 (budget 24) "
-              f"{t['round0_ms']:.4f} ms (events {t['round0_events_ms']:.3f} "
+              f"({reps} launches): K1' round 0 (budget 24) "
+              f"{dev['round0_ms']} (events {t['round0_events_ms']:.3f} "
               f"ms; bound {times['bound0']['bound_ms']:.4f} ms by "
               f"{times['bound0']['bound_by']} with the {words0} table words "
               f"its plain march reads, {times['bound0_rays_only_ms']:.4f} ms "
               f"without; plain "
               f"{t['round0_plain_ms']:.1f} ms); K1' resume of all rays "
-              f"{t['resume_all_ms']:.4f} ms (bound {b1['bound_ms']:.4f} ms by "
+              f"{dev['resume_all_ms']} (bound {b1['bound_ms']:.4f} ms by "
               f"{b1['bound_by']} with {words1} table words); the "
               f"{ids.numel()} survivors alone in "
-              f"launch order {t['survivors_launch_ms']:.4f} ms, in Morton "
-              f"order {t['survivors_Morton_ms']:.4f} ms; K1 march-only "
-              f"{t['k1_ms']:.4f} ms; round-0 steps {steps0}, resume steps "
+              f"launch order {dev['survivors_launch_ms']}, in Morton "
+              f"order {dev['survivors_Morton_ms']}; K1 march-only "
+              f"{dev['k1_ms']}; round-0 steps {steps0}, resume steps "
               f"{steps1}")
         sp = probe.sorted_probe(o, d, accel, dims, ms, reps=runs)
         times["sorted_probe"] = sp
@@ -1615,7 +1637,7 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
               f"{runs} calls): argsort of {sp['n']} keys "
               f"{sp['argsort_ms']:.3f} ms; single-round K1 march-only "
               f"{sp['single_ms']:.3f} ms ({sp['single_device_ms']:.4f} ms "
-              f"device); march_sorted "
+              f"device, {sp['single_device_clock']}); march_sorted "
               + "; ".join(f"round0_iters {r0}: {x['ms']:.3f} ms, "
                           f"{x['survivors']} survivors, {x['rounds']} "
                           f"round(s)" for r0, x in sp["sorted"].items()))
@@ -1626,8 +1648,9 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
                 * tables[row["layout"]].element_size())
             print(f"phase 9 resume: K6 {row['variant']:8s} "
                   f"{row['layout']:10s} {row['threads']:3d} threads: "
-                  f"{row['ms']:.4f} ms device ({row['events_ms']:.4f} ms "
-                  f"events), {row['ns_per_ray_iter']:.6f} ns per "
+                  f"{row['ms']:.4f} ms device ({row['clock']}; "
+                  f"{row['events_ms']:.4f} ms events), "
+                  f"{row['ns_per_ray_iter']:.6f} ns per "
                   f"ray-iteration; bound {row['bound']['bound_ms']:.4f} ms "
                   f"by {row['bound']['bound_by']}")
         times["probe_plain_ms"] = median_ms(
@@ -1835,6 +1858,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     """Phase 6: the c4_512_diff fit through the sampling kernels."""
     import torch
 
+    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.app.configs import CONFIGS
     from vxtpu_torch.camera.camera import Camera
@@ -2016,16 +2040,20 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     chunks = -(-S // ks.RAY_CHUNK)
     times["sample_ray_sum_kernel"] = ray_sum_times(h * w, chunks, device,
                                                    runs)
+    dev = {k: "not measured" for k in times}
     if device.type == "cuda":
-        from vxtpu_torch.render.probe import device_ms
-
-        times["sample_fwd_kernel"]["device_ms"] = device_ms(
-            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S, D), runs,
-            "sample_fwd_kernel")
+        dev["sample_fwd_kernel"] = bench.device_time(
+            times["sample_fwd_kernel"], "device_ms",
+            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S, D), device,
+            runs, "sample_fwd_kernel")
         for rg in (False, True):
-            times[BWD[rg]]["device_ms"] = device_ms(
-                lambda: ks.sample_grads(*args, ray_grads=rg), runs,
+            dev[BWD[rg]] = bench.device_time(
+                times[BWD[rg]], "device_ms",
+                lambda: ks.sample_grads(*args, ray_grads=rg), device, runs,
                 f"sample_bwd_kernel<{str(rg).lower()}, false>")
+        dev["sample_ray_sum_kernel"] = (
+            f"{times['sample_ray_sum_kernel']['device_ms']:.4f} ms "
+            f"({times['sample_ray_sum_kernel']['device_ms_clock']})")
     for k, b in (("sample_fwd_kernel", bounds["fwd"]),
                  (BWD[False], bounds_scatter["bwd"]),
                  (BWD[True], bounds["bwd"]),
@@ -2034,7 +2062,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
         lib_ms = times[k]["library_ms"]
         print(f"phase 6 train: {k} alone at N = {h * w}, S = {S}: "
               f"{times[k]['ms']:.3f} ms (events, the wrapper), device "
-              f"{times[k].get('device_ms', float('nan')):.4f} ms; plain "
+              f"{dev[k]}; plain "
               f"{times[k]['plain_ms']:.3f} ms, library "
               f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms; bound "
               f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']:.4g} "
@@ -2081,6 +2109,7 @@ def ray_sum_times(n, chunks, device, runs) -> dict:
     yardstick); the kernel must equal the plain version bit for bit."""
     import torch
 
+    from vxtpu_torch import bench
     from vxtpu_torch.render import kernel_sample as ks
 
     g = torch.Generator().manual_seed(4)
@@ -2095,10 +2124,8 @@ def ray_sum_times(n, chunks, device, runs) -> dict:
                library_ms=median_ms(lambda: torch.sum(part, dim=0), device,
                                     runs))
     if device.type == "cuda":
-        from vxtpu_torch.render.probe import device_ms
-
-        out["device_ms"] = device_ms(lambda: ks.ray_sums(part), runs,
-                                     "sample_ray_sum_kernel")
+        bench.device_time(out, "device_ms", lambda: ks.ray_sums(part),
+                          device, runs, "sample_ray_sum_kernel")
     return out
 
 
@@ -2237,11 +2264,11 @@ def xla_agreement(rec, ref) -> dict:
                       & both).sum()) / nb)
 
 
-def check_xla_agreement(m: dict, what: str) -> None:
+def check_xla_agreement(m: dict, what: str, against: str = "K5") -> None:
     if not (m["hit_agree"] >= 0.998 and m["t_bad_same_voxel"] == 0
             and m["voxel"] >= 0.998 and m["normal"] >= 0.995
             and m["both"] > 0):
-        raise AssertionError(f"{what}: the batched march disagrees with K5: "
+        raise AssertionError(f"{what}: the march disagrees with {against}: "
                              f"{m}")
 
 
@@ -2423,6 +2450,7 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
 
     import torch
 
+    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.app.configs import CONFIGS
     from vxtpu_torch.camera.camera import Camera
@@ -2620,19 +2648,20 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
                 *args, ray_grads=False), device, 3),
             library_ms=lib["bwd_vol_ms"], bound_ms=bnd["bwd"]["bound_ms"],
             bound_by=bnd["bwd"]["bound_by"])}
+    dev = {k: "not measured" for k in alone}
     if device.type == "cuda":
-        from vxtpu_torch.render.probe import device_ms
-
-        alone["sample_fwd_kernel"]["device_ms"] = device_ms(
-            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S_mask, D), runs,
-            "sample_fwd_kernel")
-        alone[BWD[False]]["device_ms"] = device_ms(
-            lambda: ks.sample_grads(*args, ray_grads=False), runs,
+        dev["sample_fwd_kernel"] = bench.device_time(
+            alone["sample_fwd_kernel"], "device_ms",
+            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S_mask, D),
+            device, runs, "sample_fwd_kernel")
+        dev[BWD[False]] = bench.device_time(
+            alone[BWD[False]], "device_ms",
+            lambda: ks.sample_grads(*args, ray_grads=False), device, runs,
             "sample_bwd_kernel<false, false>")
     for k, r in alone.items():
         print(f"phase 10 xla+mask: {k} alone at N = {h * w}, S = {S_mask} on "
               f"the bands [{card}]: {r['ms']:.3f} ms (events), device "
-              f"{r.get('device_ms', float('nan')):.4f} ms; plain "
+              f"{dev[k]}; plain "
               f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.4f} ms; "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({touched} "
               f"table words touched, {active} active samples)")
@@ -2681,6 +2710,395 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
                 bounds_profile=bprof, quadrature=quad, loss_rel=rel,
                 steps=step_rows, alone=alone, err=err, launches=launches,
                 losses=losses, fit_ms=fit_ms)
+
+
+# phase 12: bench. The per-ray reference march and the native oracle at
+# 64^3, the wavefront march at the bench's full size, the bench's field
+# step against the kernels' plain versions, and the commands.
+
+
+def hit_agreement(rec, ref) -> dict:
+    """Rays whose hit flags or steps differ; on rays both hit, those whose
+    t differs beyond rtol 1e-5 / atol 1e-4 (tests/test_wavefront.py's
+    limits) or whose voxel or normal differs. A miss's voxel is where the
+    march stopped, which the wavefront march packs in 10 bits an axis (a
+    step to -1 reads 1023), so misses are not compared there."""
+    both = rec.hit & ref.hit
+    t_bad = (rec.t - ref.t).abs() > 1e-4 + 1e-5 * ref.t.abs()
+    return dict(
+        n=int(rec.hit.numel()), hits=int(ref.hit.sum()),
+        hit=int((rec.hit != ref.hit).sum()), t=int((t_bad & both).sum()),
+        voxel=int(((rec.voxel != ref.voxel).any(-1) & both).sum()),
+        normal=int(((rec.normal != ref.normal).any(-1) & both).sum()),
+        steps=int((rec.steps != ref.steps).sum()))
+
+
+def _native_record(nat: dict, device):
+    import torch
+
+    from vxtpu_torch.render.types import HitRecord
+
+    return HitRecord(**{k: torch.from_numpy(v).to(device)
+                        for k, v in nat.items()})
+
+
+def bench_ref(device, D=64, h=256, w=256) -> dict:
+    """(a) The reference march against the batched distance-field march
+    and K1 march-only (phase 10's limits), the native oracle against the
+    reference march (both the textbook DDA: hit, voxel, normal and steps
+    equal on every ray, t within rel 1e-5: kernel_check.check_exact), at
+    D^3 from the bench's outside camera and a camera in the air inside
+    the grid."""
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.native.oracle import march_native
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render.kernel_ref import march_ref
+    from vxtpu_torch.render.kernel_xla import march_xla_df
+    from vxtpu_torch.world import distfield, procgen
+    from vxtpu_torch.world.packed import build_packed_morton
+
+    grid = procgen.terrain((D,) * 3, seed=7, device=device)
+    dims = grid.dims
+    occ_flat = grid.occupancy.reshape(-1)
+    df_flat = distfield.build(grid.occupancy, cap=24).field.reshape(-1)
+    accel = build_packed_morton(grid.occupancy, cap=64)
+    ms = sum(dims) + 2
+    _, scenes = _main_scene(device, D)
+    cams = {name: cam for name, cam, _, _ in scenes
+            if name in ("lambert", "inside_air_lambert")}
+    out = {}
+    for name, cam in cams.items():
+        o, d = generate_rays(cam, h, w)
+        t0 = time.perf_counter()
+        ref = march_ref(o, d, occ_flat, dims, ms)
+        _sync(device)
+        ref_s = time.perf_counter() - t0
+        rows = dict(
+            xla_df=xla_agreement(march_xla_df(o, d, df_flat, dims, ms), ref),
+            k1=xla_agreement(km.march(o, d, accel, dims, ms), ref))
+        nat = kc.record_mismatch(_native_record(
+            march_native(o, d, grid.occupancy, dims, ms), device), ref)
+        rows["native"] = nat
+        print(f"phase 12 bench: march_ref at {D}^3 {h}x{w} {name}: "
+              f"{int(ref.hit.sum())} hits, {int(ref.steps.sum())} steps in "
+              f"{ref_s:.2f} s (wall+sync); vs march_xla_df: hit agree "
+              f"{rows['xla_df']['hit_agree']:.6f}, t beyond "
+              f"{rows['xla_df']['t_bad']}, voxel {rows['xla_df']['voxel']:.6f}"
+              f", normal {rows['xla_df']['normal']:.6f}; vs K1 march-only: "
+              f"hit agree {rows['k1']['hit_agree']:.6f}, t beyond "
+              f"{rows['k1']['t_bad']}, voxel {rows['k1']['voxel']:.6f}, "
+              f"normal {rows['k1']['normal']:.6f}; native oracle vs "
+              f"march_ref: rays unlike in hit {nat['hit']}, voxel "
+              f"{nat['voxel']}, normal {nat['normal']}, steps "
+              f"{nat['steps']} of {nat['n']}, t rel {nat['t_rel']:.3g}")
+        for key, what in (("xla_df", "march_xla_df"), ("k1", "K1")):
+            check_xla_agreement(rows[key], f"march_ref {name} vs {what}",
+                                what)
+        kc.check_exact(nat, None, f"the native oracle vs march_ref ({name})")
+        out[name] = rows
+    return out
+
+
+def bench_wavefront(device, D=FULL, h=H, w=W, runs=3) -> dict:
+    """(b) The wavefront march on every primary ray of the bench's
+    forward section (D^3 terrain seed 7, cap-96 distance field, the
+    outside camera) against march_xla_df over the same field (hit flags
+    and steps equal on every ray; t, voxel and normal on hits:
+    hit_agreement), against itself with a forced drain (every field on
+    every ray: kernel_check.check_exact) and against K1 march-only (phase
+    10's limits); its counters, host syncs, times and the frame's device
+    kernels and busy time."""
+    import torch
+
+    from vxtpu_torch import bench
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render import kernel_wavefront as kw
+    from vxtpu_torch.render.kernel_xla import march_xla_df
+    from vxtpu_torch.render.pipeline import render_image
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.world import distfield, procgen
+    from vxtpu_torch.world.lights import Lights
+    from vxtpu_torch.world.packed import build_packed_morton
+
+    t0 = time.perf_counter()
+    grid = procgen.terrain((D,) * 3, seed=7, device=device)
+    _sync(device)
+    t1 = time.perf_counter()
+    df = distfield.build(grid.occupancy, cap=96)
+    _sync(device)
+    t2 = time.perf_counter()
+    dims = grid.dims
+    df_flat = df.field.reshape(-1)
+    settings = RenderSettings(shading="lambert", step_chunk=8)
+    ms = settings.resolve_max_steps(dims)
+    scale = D / FULL
+    cam = bench.camera(bench.OUTSIDE, device, scale)
+    lights = Lights.single(bench.scaled(bench.LIGHT, scale), intensity=2.0,
+                           device=device)
+    o, d = generate_rays(cam, h, w)
+    vc = kw.count_valid_rays(o, d, dims)
+    print(f"phase 12 bench: {D}^3 terrain in {t1 - t0:.2f} s, its cap-96 "
+          f"distance field (95 dilation passes) in {t2 - t1:.2f} s "
+          f"(wall+sync, set-up); {vc} of {h * w} rays meet the grid")
+    rec, st = kw.march_wavefront(o, d, df_flat, dims, ms, valid_count=vc,
+                                 stats=True)
+    ref = march_xla_df(o, d, df_flat, dims, ms)
+    eq = hit_agreement(rec, ref)
+    k1 = xla_agreement(rec, km.march(o, d, build_packed_morton(
+        grid.occupancy, cap=64), dims, ms))
+    print(f"phase 12 bench: wavefront vs march_xla_df on all {eq['n']} "
+          f"rays: hit flags unlike on {eq['hit']}, steps on {eq['steps']}; "
+          f"of the {eq['hits']} hits t beyond rtol 1e-5 / atol 1e-4 on "
+          f"{eq['t']}, voxel unlike on {eq['voxel']}, normal on "
+          f"{eq['normal']}; vs K1 "
+          f"march-only: hit agree {k1['hit_agree']:.6f}, t beyond "
+          f"{k1['t_bad']} ({k1['t_bad_same_voxel']} on the same voxel), "
+          f"voxel {k1['voxel']:.6f}, normal {k1['normal']:.6f}")
+    if any(eq[k] for k in ("hit", "t", "voxel", "normal", "steps")):
+        raise AssertionError(f"the wavefront march differs from "
+                             f"march_xla_df: {eq}")
+    check_xla_agreement(k1, "the wavefront march vs K1", "K1")
+    # a forced drain: after one full-width round, rounds of 65,536 slots,
+    # each replaying the one step captured for that size
+    rec_d, st_d = kw.march_wavefront(o, d, df_flat, dims, ms,
+                                     schedule=((h * w, 8),),
+                                     drain_buf=min(65536, h * w),
+                                     drain_steps=8, stats=True)
+    same = kc.record_mismatch(rec_d, rec)
+    print(f"phase 12 bench: wavefront with a forced drain "
+          f"({st_d['drain_rounds']} rounds of {st_d['drain_buf']} slots, "
+          f"{st_d['host_syncs']} host "
+          f"syncs) vs the default schedule: rays unlike in hit {same['hit']},"
+          f" voxel {same['voxel']}, normal {same['normal']}, steps "
+          f"{same['steps']}; t rel {same['t_rel']:.3g}")
+    kc.check_exact(same, None, "the wavefront march with a forced drain")
+    counters = dict(valid=int(st["valid"]), schedule=st["schedule"],
+                    round_counts=[int(c) for c in st["round_counts"]],
+                    round_steps=st["round_steps"],
+                    drain_buf=st["drain_buf"],
+                    drain_rounds=st["drain_rounds"],
+                    drain_steps_total=st["drain_steps_total"],
+                    gathered_lanes=st["gathered_lanes"],
+                    host_syncs=st["host_syncs"],
+                    steps=int(rec.steps.sum()))
+    print(f"phase 12 bench: wavefront counters {json.dumps(counters)}")
+    march = functools.partial(kw.march_wavefront, o, d, df_flat, dims, ms,
+                              valid_count=vc)
+    factory = functools.partial(kw.make_march_wavefront, valid_count=vc)
+    frame = functools.partial(render_image, factory, grid, cam, lights,
+                              settings, h, w, df)
+    # the frame, counted: it launches no hand-written kernel
+    km.reset_launch_counts()
+    img = frame()
+    _sync(device)
+    counts = {k: v for k, v in km.LAUNCHES.items() if v}
+    if img.shape != (h, w, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("wavefront frame: not finite or misshapen")
+    times = dict(march_ms=median_ms(march, device, runs),
+                 frame_ms=median_ms(frame, device, runs),
+                 df_march_ms=median_ms(lambda: march_xla_df(
+                     o, d, df_flat, dims, ms, step_chunk=8), device, runs))
+    prof = (_profile_launches(frame, device) if device.type == "cuda"
+            else {})
+    print(f"phase 12 bench: wavefront at {D}^3 {h}x{w} lambert: march "
+          f"{times['march_ms']:.2f} ms, frame {times['frame_ms']:.2f} ms, "
+          f"march_xla_df (step_chunk 8) {times['df_march_ms']:.2f} ms "
+          f"(median of {runs}, events); {st['host_syncs']} host syncs a "
+          f"march; hand-written kernel launches in a frame {counts or 0}"
+          + (f"; profiled frame: {prof['launches']} device kernels, busy "
+             f"{prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} ms "
+             f"(profiler-device of wall+sync, "
+             f"{prof['busy_ms'] / prof['wall_ms']:.4f})" if prof else ""))
+    if counts:
+        raise AssertionError(f"the wavefront march launched a hand-written "
+                             f"kernel: {counts}")
+    return dict(agree=eq, k1=k1, counters=counters, times=times,
+                profile=prof)
+
+
+def bench_field_step(device, D=128, h=256, w=256, S=64) -> dict:
+    """(c) The bench's field-kernel train step at the bench's sizes (D^3
+    truth, h x w lit rays, S samples, the camera refined: the lit K3, K4
+    with ray cotangents and the ray sum) against the same step through
+    the kernels' plain versions, from the bench's zeros and from 0.8 x the
+    truth: the loss of make_sharded_train_step(field_kernel=True) on a
+    1-rank group within rel 1e-6, its gradients to the table and to the
+    camera, and the world rays' cotangents, with phase 6's limits
+    (kernel_check.grads_excess)."""
+    import torch
+    import torch.distributed as dist
+
+    from vxtpu_torch import bench
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.engine import platform, sharding
+    from vxtpu_torch.render import kernel_sample as ks
+    from vxtpu_torch.render.soft import SoftGrid
+    from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
+                                                render_soft_rays_kernel)
+
+    joined = not dist.is_initialized()
+    platform.init_multihost(device=device)
+    try:
+        mesh = sharding.make_mesh(1)
+        sc = bench.train_scene(device, mesh, D, h, w, S)
+        truth, cam, o_c, d_c, target = (sc.pop(k) for k in (
+            "truth", "cam", "o_c", "d_c", "target"))
+        init_fn, step_fn = sharding.make_sharded_train_step(
+            sc["settings"], S, mesh, optimize_camera=True, grad_buckets=1,
+            lights=sc["lights"], field_kernel=True)
+        models = {
+            "zeros": MortonSoftGrid.from_soft(SoftGrid.zeros(
+                sc["dims"], device=device)),
+            "0.8 x truth": MortonSoftGrid.from_soft(SoftGrid(
+                truth.sigma_raw * 0.8, truth.rgb_raw * 0.8))}
+        del truth
+
+        def direct(model, plain):
+            """The step's loss through the kernels (or their plain
+            versions) and its gradients to the table, the camera's fields
+            and the world rays."""
+            st = init_fn(model, cam)
+            o_w, d_w = sharding._world_rays(st.camera(), o_c, d_c)
+            pred = render_soft_rays_kernel(st.model(), o_w, d_w,
+                                           sc["settings"], S,
+                                           lights=sc["lights"], plain=plain)
+            loss = torch.sum((pred - target) ** 2) / (target.numel())
+            grads = torch.autograd.grad(
+                loss, [*st.params, *st.cam_params, o_w, d_w],
+                allow_unused=True, materialize_grads=True)
+            return float(loss.detach()), grads
+
+        out = {}
+        for name, model in models.items():
+            ks.reset_launch_counts()
+            loss, grads = step_fn.value_and_grad(model, cam, init_fn(
+                model, cam), o_c, d_c, target)
+            _sync(device)
+            launches = {k: v for k, v in ks.LAUNCHES.items() if v}
+            _, gk = direct(model, False)
+            lp, gp = direct(model, True)
+            row = dict(
+                loss=float(loss), loss_plain=lp,
+                loss_rel=abs(float(loss) - lp) / abs(lp),
+                table=kc.grads_excess(kc.channels(grads[0]),
+                                      kc.channels(gp[0])),
+                camera=kc.grads_excess(grads[1:], gp[1:-2]),
+                rays=kc.grads_excess(gk[-2:], gp[-2:]),
+                camera_max_abs=max(float(g.abs().max()) for g in gp[1:-2]),
+                launches=launches)
+            del grads, gk, gp
+            print(f"phase 12 bench: the bench's field step at {D}^3 {h}x{w} "
+                  f"S = {S} lit, camera refined, from {name}: kernels vs "
+                  f"plain versions: loss {row['loss']:.8f} vs {lp:.8f} (rel "
+                  f"{row['loss_rel']:.3g}); allclose excess of the table "
+                  f"gradient {row['table']:.3g}, the camera's "
+                  f"{row['camera']:.3g} (its max |g| "
+                  f"{row['camera_max_abs']:.3g}), the rays' cotangents "
+                  f"{row['rays']:.3g}; launches {launches}")
+            if row["loss_rel"] > 1e-6 or max(row[k] for k in (
+                    "table", "camera", "rays")) > 1.0:
+                raise AssertionError(f"the bench's field step from {name}: "
+                                     f"kernels and plain versions differ")
+            if device.type == "cuda" and launches != {
+                    "sample_fwd_kernel": 1, BWD[True]: 1,
+                    "sample_ray_sum_kernel": 1}:
+                raise AssertionError(f"the bench's field step did not run "
+                                     f"K3, K4 kRayGrads and the ray sum "
+                                     f"once each: {launches}")
+            out[name] = row
+        return out
+    finally:
+        if joined:
+            platform.shutdown()
+
+
+def bench_commands(device, card="", bench_sizes=None, cli_size=None,
+                   ref_size=None) -> dict:
+    """(d) python -m vxtpu_torch.bench as a subprocess (at its full
+    size; ``bench_sizes`` runs its sections small in this process
+    instead, for a rehearsal on the CPU), its two JSON lines checked;
+    render and bench --kernel wavefront (c3_256_shadows at its own size)
+    and --kernel ref (--dims 64)."""
+    import tempfile
+
+    from vxtpu_torch import bench
+
+    t0 = time.perf_counter()
+    if bench_sizes is None:
+        out = subprocess.run([sys.executable, "-m", "vxtpu_torch.bench"],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        lines = out.stdout.strip().splitlines()
+        if out.returncode != 0 or len(lines) < 2:
+            raise AssertionError(f"vxtpu_torch.bench exited "
+                                 f"{out.returncode}: {out.stderr[-2000:]}")
+        details, line = json.loads(lines[-2]), json.loads(lines[-1])
+    else:
+        details, line = bench.run(device, sizes=bench_sizes)
+    secs = time.perf_counter() - t0
+    print(f"phase 12 bench: python -m vxtpu_torch.bench in {secs:.1f} s "
+          f"[{card}]: {json.dumps(line)}")
+    print(f"phase 12 bench: its details: {json.dumps(details)}")
+    lf, lt = details["launches_fused"], details["launches_train_field"]
+    missing = (bench.times_without_clock(details)
+               + bench.times_without_clock(line))
+    if missing:
+        raise AssertionError(f"bench times without a clock: {missing}")
+    for key in ("value", "wavefront_mrays", "pallas2_mrays", "train_step_ms",
+                "train_step_masked_ms", "train_step_field_ms"):
+        if not math.isfinite(line[key]) or line[key] <= 0:
+            raise AssertionError(f"bench {key}: {line.get(key)}")
+    if device.type == "cuda" and not (
+            all(lf["variants"][v] for v in ("march", "lambert",
+                                            "full_shadows"))
+            and lt["sample_fwd_kernel"] and lt[BWD[True]]
+            and lt["sample_ray_sum_kernel"]):
+        raise AssertionError(f"the bench did not launch K1 in each mode and "
+                             f"K3/K4: {lf}, {lt}")
+    cli = {}
+    cli_size = cli_size or []
+    ref_size = ref_size or ["--dims", "64"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for kernel, size in (("wavefront", cli_size), ("ref", ref_size)):
+            r = _run_cli(["render", "--config", "c3_256_shadows", "--kernel",
+                          kernel, "--device", device.type, "--out",
+                          str(Path(tmp) / f"{kernel}.png"), *size])[-1]
+            b = _run_cli(["bench", "--config", "c3_256_shadows", "--kernel",
+                          kernel, "--iters", "2", "--device", device.type,
+                          *size])[-1]
+            print(f"phase 12 bench: render --kernel {kernel} "
+                  f"{' '.join(size)}: {r}")
+            print(f"phase 12 bench: bench --kernel {kernel} "
+                  f"{' '.join(size)} [{card}] (wall+sync): {b}")
+            cli[kernel] = json.loads(b)
+            if not math.isfinite(cli[kernel]["value"]):
+                raise AssertionError(f"bench --kernel {kernel}: {b}")
+    return dict(details=details, line=line, seconds=secs, cli=cli,
+                launches={**lf, **lt})
+
+
+def phase_bench(device, card="", wavefront=None, ref=None, field=None,
+                commands=None) -> dict:
+    """Phase 12: the reference march, the wavefront march and the bench
+    (see the module docstring). The keyword dicts pass sizes to the parts
+    (a CPU rehearsal runs them small)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = {"ref": bench_ref(device, **(ref or {}))}
+    out["wavefront"] = bench_wavefront(device, **(wavefront or {}))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["field_step"] = bench_field_step(device, **(field or {}))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    out["commands"] = bench_commands(device, card, **(commands or {}))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 bench: {out['seconds']:.1f} s")
+    return out
 
 
 # phase 11: scale-out. The sharded paths run on a 1-rank process group of
@@ -3241,6 +3659,10 @@ def main(argv=None) -> int:
                    help="phases 1 and 2, then phase 11 alone (the sharded "
                         "paths, config 5 at full size) and a JSON line of "
                         "its results")
+    p.add_argument("--bench", action="store_true",
+                   help="phases 1 and 2, then phase 12 alone (the reference "
+                        "and wavefront marches and the bench) and a JSON "
+                        "line of its results")
     p.add_argument("--sass", default=None, metavar="FILE",
                    help="with --k5-times or --k1-times: write that kernel's "
                         "SASS listing to FILE and print its opcodes by "
@@ -3254,6 +3676,10 @@ def main(argv=None) -> int:
         print(json.dumps({"scale_out": {k: v for k, v in out.items()
                                         if k != "gloo"}, "gpu": smi},
                          default=str))
+        return 0
+    if args.bench:
+        out = phase_bench(device, card=smi)
+        print(json.dumps({"bench": out, "gpu": smi}, default=str))
         return 0
     if args.k1_times:
         out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
@@ -3295,12 +3721,16 @@ def main(argv=None) -> int:
     cross_entry_frame(device)
     train = phase_train(device)
     cross_train(device)
+    bench_run = phase_bench(device, card=smi)
     scale = phase_scale_out(device, card=smi)
 
     import torch
 
     times = main_run["times"]
     tt = train["times"]
+    # the launches of the bench's fused and field-kernel train sections;
+    # its field step against the kernels' plain versions (allclose excess)
+    bench_launches = bench_run["commands"]["launches"]
     bounds = k1_k2_bounds(times, H, W)
     k1 = pipe["times"]["k1"]
     kernels = [
@@ -3311,8 +3741,9 @@ def main(argv=None) -> int:
          "variant_launches": main_run["variant_launches"],
          "max_abs_err": max(err3["march_shade_kernel"],
                             main_run["err"]["march_shade_kernel"]),
-         "ms": times["lambert"]["kernel_ms"],
+         "ms": times["lambert"]["kernel_ms"], "ms_clock": "events",
          "device_ms": times["lambert"].get("kernel_device_ms"),
+         "device_ms_clock": times["lambert"].get("kernel_device_ms_clock"),
          "plain_ms": times["lambert"]["plain_ms"],
          **bounds["march_shade_kernel"],
          "modes": {m: {k: k1[m][k] for k in ("device_ms", "graph_ms",
@@ -3322,6 +3753,8 @@ def main(argv=None) -> int:
          "occupancy": pipe["times"]["k1_occupancy"],
          "sharded": {"launches": scale["fused"]["launches"],
                      "mismatched_pixels": scale["fused"]["mismatches"]},
+         "bench": {"launches": bench_launches["march_shade_kernel"],
+                   "variant_launches": bench_launches["variants"]},
          "library_ms": None},
         {"name": "shade_kernel", "route": "cuda",
          "source": "vxtpu_torch/csrc/march.cu",
@@ -3329,8 +3762,9 @@ def main(argv=None) -> int:
          "launches": main_run["launches"]["shade_kernel"],
          "max_abs_err": max(err3["shade_kernel"],
                             main_run["err"]["shade_kernel"]),
-         "ms": times["shade_kernel"]["ms"],
+         "ms": times["shade_kernel"]["ms"], "ms_clock": "events",
          "device_ms": times["shade_kernel"].get("device_ms"),
+         "device_ms_clock": times["shade_kernel"].get("device_ms_clock"),
          "plain_ms": times["shade_kernel"]["plain_ms"],
          **bounds["shade_kernel"], "library_ms": None},
     ]
@@ -3348,7 +3782,12 @@ def main(argv=None) -> int:
             "replaces": f"vxtpu/render/kernel_sample.py:{line}",
             "launches": run[k],
             "max_abs_err": max(err3.get(k, 0.0), train["err"][k]),
-            "ms": tt[k]["ms"], "device_ms": tt[k]["device_ms"],
+            "ms": tt[k]["ms"], "ms_clock": "events",
+            "device_ms": tt[k]["device_ms"],
+            "device_ms_clock": tt[k]["device_ms_clock"],
+            "bench": {"launches": bench_launches[k], "field_step_vs_plain": {
+                n: {e: r[e] for e in ("loss_rel", "table", "camera", "rays")}
+                for n, r in bench_run["field_step"].items()}},
             "plain_ms": tt[k]["plain_ms"],
             "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
             "library_ms": tt[k]["library_ms"]})
@@ -3371,8 +3810,10 @@ def main(argv=None) -> int:
         "source": "vxtpu_torch/csrc/march_packed.cu",
         "replaces": "vxtpu/render/kernel_pallas.py:85",
         "launches": pipe["launches"]["march_packed_kernel"],
-        "max_abs_err": pipe["err"], "ms": pt["ms"],
-        "device_ms": c3.get("device_ms"), "graph_ms": c3.get("graph_ms"),
+        "max_abs_err": pipe["err"], "ms": pt["ms"], "ms_clock": "events",
+        "device_ms": c3.get("device_ms"),
+        "device_ms_clock": c3.get("device_ms_clock"),
+        "graph_ms": c3.get("graph_ms"), "graph_ms_clock": "events",
         "plain_ms": pt["plain_ms"], "bound_ms": c3["bound_ms"],
         "bound_by": c3["bound_by"], "bound_int32_ms": c3["bound_int32_ms"],
         "bound_rays_only_ms": c3["bound_rays_only_ms"],
@@ -3390,7 +3831,8 @@ def main(argv=None) -> int:
                     "and :1105 (march_pallas_v2_sorted)",
         "launches": rt["launches"]["march_resume_kernel"],
         "max_abs_err": resume["err"]["march_resume_kernel"],
-        "ms": rt["round0_ms"], "plain_ms": rt["round0_plain_ms"],
+        "ms": rt["round0_ms"], "ms_clock": rt["round0_ms_clock"],
+        "plain_ms": rt["round0_plain_ms"],
         "bound_ms": rt["bound0"]["bound_ms"],
         "bound_by": rt["bound0"]["bound_by"],
         "bound_rays_only_ms": rt["bound0_rays_only_ms"],
@@ -3410,7 +3852,8 @@ def main(argv=None) -> int:
             "probe_r4_matfetch.py:102")),
         "launches": rt["probe_launches"],
         "max_abs_err": resume["err"]["march_probe_kernel"],
-        "ms": full["ms"], "plain_ms": rt["probe_plain_ms"],
+        "ms": full["ms"], "ms_clock": full["clock"],
+        "plain_ms": rt["probe_plain_ms"],
         "bound_ms": full["bound"]["bound_ms"],
         "bound_by": full["bound"]["bound_by"], "library_ms": None})
     print(json.dumps({"kernels": kernels, "gpu": smi}))

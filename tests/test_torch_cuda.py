@@ -368,6 +368,57 @@ def test_xla_march_on_card_matches_cpu(cuda, accel, cam):
     assert bool(recs[0].hit.any())
 
 
+@pytest.mark.parametrize("schedule", ["default", "rounds", "drain"])
+@pytest.mark.parametrize("cam", ["outside", "inside"])
+def test_wavefront_march_on_card_matches_cpu(cuda, schedule, cam):
+    """The wavefront march on the card (each buffer size's step captured
+    as a CUDA graph and replayed; drain rounds of one size reuse it)
+    against the same march on the CPU at 64^3: records and counters."""
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_wavefront as kw
+    from vxtpu_torch.world import distfield
+
+    kwargs = {"default": {},
+              "rounds": dict(schedule=((4096, 3), (2048, 5)),
+                             drain_buf=1024, drain_steps=4),
+              "drain": dict(schedule=(), drain_buf=2048, drain_steps=8)}
+    cpu = torch.device("cpu")
+    out = []
+    for dev in (cuda, cpu):
+        grid = procgen.terrain((64,) * 3, seed=11, device=dev)
+        o, d = generate_rays(kc._cameras(64, dev)[cam], 128, 128)
+        df = distfield.build(grid.occupancy, cap=24).field.reshape(-1)
+        out.append(kw.march_wavefront(o, d, df, (64,) * 3, 194, stats=True,
+                                      **kwargs[schedule]))
+    (rec, st), (want, wst) = out
+    kc.check_exact(kc.record_mismatch(_to(rec, cpu), want), None,
+                   f"wavefront march {schedule} {cam}")
+    assert bool(rec.hit.any())
+    for k in ("round_steps", "drain_rounds", "drain_steps_total",
+              "gathered_lanes", "host_syncs"):
+        assert st[k] == wst[k], k
+    assert [int(c) for c in st["round_counts"]] == [
+        int(c) for c in wst["round_counts"]]
+    if schedule != "default":
+        assert st["drain_rounds"] > 1     # the drain replays its graph
+
+
+def test_ref_march_on_card_matches_cpu(cuda):
+    """The per-ray reference march on the card against the CPU at 64^3."""
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render.kernel_ref import march_ref
+
+    cpu = torch.device("cpu")
+    recs = []
+    for dev in (cuda, cpu):
+        grid = procgen.terrain((64,) * 3, seed=11, device=dev)
+        o, d = generate_rays(kc._cameras(64, dev)["outside"], 128, 128)
+        recs.append(march_ref(o, d, grid.occupancy.reshape(-1), (64,) * 3,
+                              194))
+    kc.check_exact(kc.record_mismatch(_to(recs[0], cpu), recs[1]), None,
+                   "reference march")
+
+
 def test_mask_bounds_on_card_match_cpu(cuda):
     """The occupancy mask read from a Morton table and the band bounds of
     its rays, on the card against the CPU: the mask byte for byte, the

@@ -38,7 +38,9 @@ def test_scan_covers_the_package():
                 "render/kernel_xla.py", "render/occmask.py",
                 "world/pyramid.py", "engine/sharding.py",
                 "engine/platform.py", "render/vjp.py", "train/config5.py",
-                "app/schedule.py", "app/dryrun.py"):
+                "app/schedule.py", "app/dryrun.py", "render/kernel_ref.py",
+                "render/kernel_wavefront.py", "native/oracle.py",
+                "bench.py"):
         assert f"vxtpu_torch/{mod}" in names, mod
     assert "chip_smoke.py" in names and (ROOT / "chip_smoke.py").exists()
 
@@ -48,3 +50,27 @@ def test_scan_covers_the_package():
 def test_no_jax_or_vxtpu_import(path):
     bad = sorted(set(_imported_roots(path)) & set(BANNED))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("recorded", [[10.0, 30.0], []],
+                         ids=["profiler", "none_recorded"])
+def test_device_ms_names_its_clock(monkeypatch, recorded):
+    """render/probe.py:device_ms returns the clock behind its time: the
+    profiler's device time where it recorded launches, CUDA events where
+    it recorded none in any window (a fallback it does not hide)."""
+    from vxtpu_torch.render import probe
+
+    windows = []
+    monkeypatch.setattr(probe, "launch_us",
+                        lambda fn, reps, kernel: windows.append(1)
+                        or list(recorded))
+    monkeypatch.setattr(probe, "_events_ms", lambda fn, reps: 1.5)
+    monkeypatch.setattr(probe.time, "sleep", lambda s: None)
+    ms, clock = probe.device_ms(lambda: None, 4, "k")
+    if recorded:
+        assert (ms, clock) == (0.02, probe.CLOCK_DEVICE) and windows == [1]
+        assert probe.device_ms(lambda: None, 4, "k", per_call=True) == (
+            0.01, probe.CLOCK_DEVICE)
+    else:
+        assert (ms, clock) == (1.5, probe.CLOCK_EVENTS)
+        assert len(windows) == probe._EMPTY_WINDOW_RETRIES

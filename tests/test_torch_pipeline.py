@@ -312,10 +312,14 @@ def test_cli_bench_xla(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["animate", "--kernel", "ref"], ["bench", "--kernel", "wavefront"],
+    ["animate", "--kernel", "pallas-interpret"],
+    ["bench", "--kernel", "pallas-interpret"],
     ["render", "--kernel", "pallas-interpret"]])
 def test_cli_unported_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """vxtpu's TPU interpreter is the one --kernel without a counterpart
+    (--kernel ref and wavefront run: tests/test_torch_ref.py and
+    tests/test_torch_wavefront.py)."""
+    with pytest.raises(NotImplementedError, match="interpreter"):
         run.main([*argv, "--dims", "8", "--height", "4", "--width", "4",
                   "--device", "cpu", "--out", str(tmp_path / "x")]
                  if argv[0] != "bench" else

@@ -236,7 +236,8 @@ def test_cost_and_sorted_probe_control_flow(monkeypatch):
 
     monkeypatch.setattr(probe, "_require_cuda", lambda device: None)
     monkeypatch.setattr(probe, "_events_ms", timer)
-    monkeypatch.setattr(probe, "device_ms", timer)
+    monkeypatch.setattr(probe, "device_ms",
+                        lambda *a: (timer(*a), probe.CLOCK_DEVICE))
     tables = {"morton16": acc.words,
               "rowmajor32": probe.identity_table("rowmajor32", DIMS, CPU)}
     rows = probe.cost_probe(o, d, tables, DIMS, n_iters=4,
@@ -245,7 +246,9 @@ def test_cost_and_sorted_probe_control_flow(monkeypatch):
         (v, lay, th) for lay in tables for v in ("empty", "full")
         for th in (128, 512)]
     assert rows[0]["ns_per_ray_iter"] == pytest.approx(2.0e6 / (1024 * 4))
+    assert {r["clock"] for r in rows} == {probe.CLOCK_DEVICE}
     out = probe.sorted_probe(o, d, acc, DIMS, 98, round0_iters=(2, 6),
                              survivor_frac=8)
     assert set(out["sorted"]) == {2, 6} and out["n"] == 1024
+    assert out["single_device_clock"] == probe.CLOCK_DEVICE
     assert out["sorted"][2]["survivors"] >= out["sorted"][6]["survivors"]

@@ -12,11 +12,15 @@ r"""Command line (counterpart of ``vxtpu/app/run.py``):
 shade in one CUDA kernel, ``render/fused.py``), or one of the composable
 pipeline's (``render/pipeline.py``): ``xla`` (vxtpu's default: the
 batched lock-step march in PyTorch tensor ops over ``--accel distfield``
-or ``pyramid``, ``render/kernel_xla.py``), ``pallas`` (the row-major
-march kernel) or ``pallas2`` (the fused kernel in march-only mode).
-vxtpu's ``ref``, ``wavefront`` and ``pallas-interpret`` have no
-counterpart and raise. ``train --occmask`` fits the occupancy-masked
-soft model (``render/occmask.py``).
+or ``pyramid``, ``render/kernel_xla.py``), ``wavefront`` (the distance-
+field march with compaction rounds, ``render/kernel_wavefront.py``; a
+cap-96 field is built when ``--accel`` is not ``distfield``), ``ref``
+(the per-ray reference march, ``render/kernel_ref.py``), ``pallas`` (the
+row-major march kernel) or ``pallas2`` (the fused kernel in march-only
+mode). vxtpu's ``pallas-interpret`` (the TPU kernel interpreter) has no
+counterpart and raises: ``--kernel pallas --device cpu`` runs the plain
+version of the row-major march. ``train --occmask`` fits the
+occupancy-masked soft model (``render/occmask.py``).
 
   python -m vxtpu_torch render --config c3_256_shadows --kernel pallas \
       --out f.png
@@ -24,6 +28,9 @@ soft model (``render/occmask.py``).
       --device cpu --out f.png
   python -m vxtpu_torch render --config c3_256_shadows --kernel xla \
       --accel pyramid --out f.png
+  python -m vxtpu_torch render --config c3_256_shadows --kernel wavefront \
+      --out f.png
+  python -m vxtpu_torch render --config c1_64_flat --kernel ref --out f.png
   python -m vxtpu_torch animate --config c1_64_flat --kernel pallas \
       --frames 24 --out anim
   python -m vxtpu_torch bench --config c3_256_shadows --kernel pallas
@@ -65,15 +72,11 @@ from vxtpu_torch.world.packed import (build_material_morton,
 # configs whose frame is the soft differentiable renderer's
 _SOFT_ONLY = ("c4_512_diff",)
 
-# vxtpu's --kernel choices without a counterpart here, and where
-# ROADMAP.md records them
+# vxtpu's --kernel choices without a counterpart here, and why
 _NOT_PORTED = {
-    "ref": "ROADMAP.md queue 1 #18 (render/kernel_ref is not ported)",
-    "wavefront": "ROADMAP.md queue 1 #18 (render/kernel_wavefront is not "
-                 "ported)",
-    "pallas-interpret": "ROADMAP.md queue 1 #18 (a TPU interpreter; "
-                        "--kernel pallas --device cpu runs the plain "
-                        "version)",
+    "pallas-interpret": "it runs vxtpu's TPU kernel in the Pallas "
+                        "interpreter; --kernel pallas --device cpu runs the "
+                        "plain version of the row-major march",
 }
 KERNELS = ["xla", "wavefront", "ref", "pallas", "pallas2", "fused",
            "pallas-interpret"]
@@ -144,11 +147,19 @@ def kernel_factory(name: str):
     """The pipeline's march factory for a --kernel name."""
     if name in _NOT_PORTED:
         raise NotImplementedError(f"--kernel {name} has no counterpart in "
-                                  f"vxtpu_torch yet: {_NOT_PORTED[name]}")
+                                  f"vxtpu_torch: {_NOT_PORTED[name]}")
     if name == "xla":
         from vxtpu_torch.render.kernel_xla import make_march_xla
 
         return make_march_xla
+    if name == "wavefront":
+        from vxtpu_torch.render.kernel_wavefront import make_march_wavefront
+
+        return make_march_wavefront
+    if name == "ref":
+        from vxtpu_torch.render.kernel_ref import make_march_ref
+
+        return make_march_ref
     if name == "pallas":
         from vxtpu_torch.render.kernel_packed import make_march_packed
 

@@ -108,13 +108,13 @@ def _run_chunks(one_step, s, max_steps, step_chunk):
         for _ in range(step_chunk):
             step()
             if not captured:
-                step = _capture_step(one_step, s).replay
+                step = capture_step(one_step, s).replay
                 captured = True
     return HitRecord(hit=s["hit"], t=s["t_hit"], voxel=s["v"],
                      normal=s["normal"], steps=s["steps"])
 
 
-def _capture_step(one_step, s):
+def capture_step(one_step, s):
     """A CUDA graph of one step that reads the state tensors of s and
     writes the new state back into them (the same ops as the eager step;
     nothing runs until it is replayed). Captured on a side stream

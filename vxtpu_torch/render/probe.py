@@ -262,31 +262,50 @@ def launch_us(fn, reps: int, kernel: str) -> list:
 
 # profiler windows device_ms takes at most before it gives up
 _EMPTY_WINDOW_RETRIES = 6
+# the clocks behind a time: the profiler's device time of the kernels, CUDA
+# events around the calls, or the host's clock after a device sync
+CLOCK_DEVICE = "profiler-device"
+CLOCK_EVENTS = "events"
+CLOCK_WALL = "wall+sync"
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Device time (ms) per launch of the kernels whose name holds
-    ``kernel``, from torch.profiler over ``reps`` calls after a warm-up:
-    their summed device time over the launches it recorded. It can drop
-    some launches, and now and then records none for several windows in
-    a row: such a window is noted on stderr and taken again after a pause
-    that grows by 0.5 s with each empty one, _EMPTY_WINDOW_RETRIES
-    windows at most. If none recorded one, it returns the CUDA events
-    time of the same calls (``_events_ms``: back-to-back launches, an
-    upper bound that includes the gaps between them) and says so on
-    stderr."""
+def device_ms(fn, reps: int, kernel: str,
+              per_call: bool = False) -> tuple[float, str]:
+    """(ms, clock): the device time per launch of the kernels whose name
+    holds ``kernel`` ("" takes every kernel), from torch.profiler over
+    ``reps`` calls after a warm-up (their summed device time over the
+    launches it recorded; with ``per_call``, over ``reps``: all the
+    device work of a call), and CLOCK_DEVICE. It can drop some launches,
+    and now and then records none for several windows in a row: such a
+    window is noted on stderr and taken again after a pause that grows by
+    0.5 s with each empty one, _EMPTY_WINDOW_RETRIES windows at most. If
+    none recorded one, the time is the CUDA events time of the same calls
+    (``_events_ms``: back-to-back launches, an upper bound that includes
+    the gaps between them) and the clock CLOCK_EVENTS."""
     for k in range(_EMPTY_WINDOW_RETRIES):
         us = launch_us(fn, reps, kernel)
         if us:
-            return sum(us) / len(us) / 1e3
+            return sum(us) / (reps if per_call else len(us)) / 1e3, \
+                CLOCK_DEVICE
         print(f"device_ms: the profiler recorded no {kernel} in window "
               f"{k + 1} of {_EMPTY_WINDOW_RETRIES}", file=sys.stderr)
         time.sleep(0.5 * (k + 1))
-    ms = _events_ms(fn, reps)
-    print(f"device_ms: the profiler saw no {kernel} in "
-          f"{_EMPTY_WINDOW_RETRIES} windows; CUDA events over {reps} "
-          f"back-to-back calls instead: {ms:.4f} ms", file=sys.stderr)
-    return ms
+    return _events_ms(fn, reps), CLOCK_EVENTS
+
+
+def warp_coherence(*phases) -> float:
+    """Sum of steps over the sum, over consecutive 32-ray groups in launch
+    order, of 32 x the group's largest steps in each phase (a warp runs
+    its phases, such as the primary march and then each shadow march,
+    one after another, each as long as its longest lane): the share of a
+    warp's iterations that its rays use (1 = no divergence tail)."""
+    used = lanes = 0
+    for steps in phases:
+        s = steps.to(torch.int64)
+        s = torch.cat([s, s.new_zeros((-s.numel()) % 32)]).view(-1, 32)
+        used += int(s.sum())
+        lanes += 32 * int(s.amax(1).sum())
+    return used / lanes if lanes else 1.0
 
 
 def cost_probe(o: torch.Tensor, d: torch.Tensor, tables: dict, dims,
@@ -295,7 +314,8 @@ def cost_probe(o: torch.Tensor, d: torch.Tensor, tables: dict, dims,
     """Cost of a march iteration on the GPU, split into loop, target math
     and table read: for each layout (``tables``: layout -> table) x
     variant x block size, ``march_probe_kernel``'s device time per launch
-    (``ms``, torch.profiler), the time by CUDA events around ``reps``
+    (``ms``, ``device_ms``; its clock ``clock``), the time by CUDA events
+    around ``reps``
     launches (``events_ms``, which includes the wrapper) and
     ``ns_per_ray_iter`` = ms / (N * n_iters)."""
     _require_cuda(o.device)
@@ -306,9 +326,10 @@ def cost_probe(o: torch.Tensor, d: torch.Tensor, tables: dict, dims,
             for th in threads:
                 fn = functools.partial(march_probe, o, d, table, dims,
                                        n_iters, variant, layout, th)
-                ms = device_ms(fn, reps, "march_probe_kernel")
+                ms, clock = device_ms(fn, reps, "march_probe_kernel")
                 rows.append(dict(
                     variant=variant, layout=layout, threads=th, ms=ms,
+                    clock=clock,
                     events_ms=_events_ms(fn, reps),
                     ns_per_ray_iter=ms * 1e6 / max(n * n_iters, 1)))
     return rows
@@ -321,7 +342,8 @@ def sorted_probe(o: torch.Tensor, d: torch.Tensor, accel, dims,
     """Does a Morton-sorted resume round pay on the GPU? CUDA-event times
     (ms per call, ``reps`` calls after a warm-up) of a stable argsort of N
     random int32 keys in [0, 2^17) alone, of the single-round march-only
-    march (``single_ms``; ``single_device_ms`` its kernel's device time)
+    march (``single_ms``; ``single_device_ms`` its kernel's device time,
+    ``single_device_clock`` that time's clock)
     and of ``march_sorted`` at each ``round0_iters`` (with its rounds and
     survivors)."""
     _require_cuda(o.device)
@@ -330,11 +352,12 @@ def sorted_probe(o: torch.Tensor, d: torch.Tensor, accel, dims,
     key = torch.randint(0, 1 << 17, (n,), generator=g,
                         dtype=torch.int32).to(o.device)
     single = functools.partial(km.march, o, d, accel, dims, max_steps)
+    single_device = device_ms(single, reps, "march_shade_kernel")
     out = dict(n=n, argsort_ms=_events_ms(
         lambda: torch.argsort(key, stable=True), reps),
         single_ms=_events_ms(single, reps),
-        single_device_ms=device_ms(single, reps, "march_shade_kernel"),
-        sorted={})
+        single_device_ms=single_device[0],
+        single_device_clock=single_device[1], sorted={})
     for r0 in round0_iters:
         stats = {}
         run = functools.partial(km.march_sorted, o, d, accel, dims,
