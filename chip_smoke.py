@@ -39,9 +39,12 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              their plain versions and torch's grid_sample (the library
              yardstick, used nowhere in the port), and a profiled step's
              device time by group (K3, K4, Adam, the TV prior, the other
-             dense-table glue, the [S, N] math). The scene is one
-             channel-interleaved [D^3, 4] Morton table that K3 reads and
-             K4 scatters into;
+             dense-table glue, the [S, N] math); the ray sum alone warm
+             and with the L2 flushed before each launch, and K4's
+             wrapper's zero-fill of the dense gradient on its own line
+             (K4's bound counts only the rows its samples touch). The
+             scene is one channel-interleaved [D^3, 4] Morton table that
+             K3 reads and K4 scatters into;
   7. cross   the fit at 32^3 against the JAX package's loss trajectory and
              K3's outputs against its checksums (vxtpu_torch/data);
   8. pipeline the composable render pipeline (render / animate / bench
@@ -72,18 +75,27 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              against its plain version at 64^3 (budgets 0, 1, 3, 24, and
              the resume from the plain round 0) and on all 1080x1920
              lambert rays (budget 24, then a resume); the march-cost probe
-             K6 (march_probe_kernel) against its plain version for every
-             variant and layout at 64^3 (with the identity-table words)
-             and on the 1080x1920 rays at 48 iterations; the sorted
+             K6 (march_probe_kernel, k6_probe) against its plain version
+             for every variant and layout (morton16, rowmajor32,
+             bricked16) at 64^3, also in the 4x8 block ray order and in
+             the TPU probe's float step (with the identity-table words),
+             and on the 1080x1920 rays at 48 iterations for every variant
+             x layout x ray order (scanline, block32x32, block4x8) and
+             both steps, the two steps' plain versions equal; the sorted
              multi-round march march_sorted on the lambert and the
              inside_air_lambert rays against single-round K1 march-only,
              with a forced drain; the warp coherence of the single round,
              of the survivors in launch order and of the sorted resume
              round; the times: K1' round 0 and resume rounds beside K1
              march-only (profiler device times), the sorted march and
-             an argsort alone (sorted_probe), K6's ns per ray-iteration
-             for each variant x layout x {128, 256, 512} threads
-             (cost_probe), each one's plain time and bound;
+             an argsort alone (sorted_probe), K6's device ms and ns per
+             ray-iteration for each ray order x variant x layout x {128,
+             256, 512} threads (cost_probe, K1's step) with its reads per
+             ray-iteration and bound (the distinct table words its plain
+             version reads), the float step (the form first ported) on
+             full/morton16/256/scanline beside it, each K6
+             instantiation's registers and blocks of 256 threads an SM,
+             and the instructions of full's SASS loops (cuobjdump);
  10. xla+mask the CLI's default march and the masked trainer (run after
              phase 9; neither uses phase 4's world: the c3 frame is 256^3
              with per-voxel RGB, the masked fit's truth 512^3 with RGB).
@@ -177,7 +189,7 @@ steps equal on every ray, |t difference| <= 1e-6.
 Phase 9 holds K1' to its plain version exactly (hit, t, voxel, normal,
 steps, done, dist on every ray), march_sorted to single-round K1 exactly
 (hit, t, voxel, normal, steps), and K6's acc to its plain version bit for
-bit.
+bit (in every ray order, put back in pixel order, and in both steps).
 
 Phase 10 holds the masked step's loss and gradient through K3/K4 to
 their plain versions with phase 6's limits, and the batched march to K5
@@ -202,6 +214,8 @@ has its clock beside it ("events", "profiler-device").
 --save DIR writes the main-path frames there as PNGs. --scale-out runs
 phases 1 and 2, then phase 11 alone, and prints one JSON line; --bench
 runs phases 1 and 2, then phase 12 alone, and prints one JSON line.
+--k6-times runs phases 1 and 2, then phase 9's K6 part alone
+(k6_probe) on phase 4's 512^3 world, and prints one JSON line.
 --k5-times runs phases 1 and 2, then K5 alone on its three ray sets as
 phase 8 times it
 (k5_rays, k5_times), and prints one JSON line; --k1-times runs phases 1
@@ -259,13 +273,18 @@ BWD = {False: "sample_bwd_kernel<kRayGrads=false>",
 # directions, slab clip, entry voxel) and per iteration (three axis exits,
 # their minimum, the next voxel's position, floor and clamps, the tests)
 K5_OPS_RAY, K5_OPS_STEP = 40, 45
-# float32 operations of K6 (csrc/probe.cu) per ray (inverse directions,
-# start voxel) and per iteration by variant: the DDA / empty-box target
-# (three axis exits 33, their minimum and tests 5, the target's position 9,
-# floor and clamps 9) and the acc add (1; nofetch converts and scales x: 2)
-PROBE_OPS_RAY = 15
-PROBE_OPS_ITER = {"empty": 1, "nofetch": 59, "nomath": 1, "full": 57,
-                  "static": 57}
+# float32 operations the K6 work needs (csrc/probe.cu, the K1 step), per
+# ray: inverse directions (an |d| test, a divide and a select an axis: 9)
+# and the start voxel (clamp and truncate: 9); per iteration by variant:
+# the DDA / empty-box target (three integer faces converted, less o, times
+# 1/d: 9; their minimum and the axis tests 5; the target's position 9;
+# clamp and truncate 9) and the acc add (1; nofetch converts and scales x:
+# 2). The integer work (faces, cell index, child bit) is not counted. The
+# TPU probe's float step does more for the same work (57 an iteration
+# counted before: each face rebuilt in float, a floor)
+PROBE_OPS_RAY = 18
+PROBE_OPS_ITER = {"empty": 1, "nofetch": 34, "nomath": 1, "full": 33,
+                  "static": 33}
 
 
 def _require_checkout() -> None:
@@ -803,35 +822,52 @@ def graph_ms(fn, reps=20, windows=5) -> float:
     return statistics.median(times)
 
 
-def sass_functions(kernel: str, listing: Path) -> dict:
-    """Function -> {opcode: count} in the SASS of every function whose
-    name holds ``kernel`` (``cuobjdump -sass`` of the built library, the
-    toolkit's cuobjdump beside nvcc; a template's instantiations apart),
-    whose lines are written to ``listing``."""
+def sass_listing(kernel: str) -> dict | None:
+    """Function -> its SASS lines as (line, address, opcode, operands),
+    for every function whose name holds ``kernel``, from ``cuobjdump
+    -sass`` of the built library (the toolkit's cuobjdump beside nvcc; a
+    template's instantiations apart); None where cuobjdump is missing."""
     from vxtpu_torch import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
     out = subprocess.run([str(tool), "-sass", str(_build.library_path())],
                          capture_output=True, text=True, check=True,
                          timeout=300).stdout
-    funcs, ops, lines = {}, None, []
+    funcs, ins = {}, None
     for line in out.splitlines():
         if "Function :" in line:
             fname = line.split("Function :", 1)[1].strip()
-            ops = None
-            if kernel in fname:
-                ops = funcs.setdefault(_kernel_name(fname), {})
-                lines.append(f"// {_kernel_name(fname)}")
-        elif ops is not None:
-            m = re.match(r"\s+/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9_]*)", line)
+            ins = funcs.setdefault(_kernel_name(fname), []) \
+                if kernel in fname else None
+        elif ins is not None:
+            m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)(\S*)\s*(.*)", line)
             if m:
-                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
-                lines.append(line)
+                ins.append((line, int(m.group(1), 16), m.group(2),
+                            m.group(4)))
+    return funcs
+
+
+def sass_functions(kernel: str, listing: Path) -> dict:
+    """Function -> {opcode: count} in sass_listing(kernel), whose lines
+    are written to ``listing``."""
+    funcs = sass_listing(kernel)
+    if funcs is None:
+        raise FileNotFoundError("cuobjdump not found beside nvcc")
+    lines = []
+    for fn, seq in funcs.items():
+        lines += [f"// {fn}"] + [x[0] for x in seq]
     listing.parent.mkdir(parents=True, exist_ok=True)
     listing.write_text("\n".join(lines) + "\n")
+    out = {}
+    for fn, seq in funcs.items():
+        ops = out.setdefault(fn, {})
+        for _, _, op, _ in seq:
+            ops[op] = ops.get(op, 0) + 1
     return {f: dict(sorted(o.items(), key=lambda kv: -kv[1]))
-            for f, o in funcs.items()}
+            for f, o in out.items()}
 
 
 def sass_opcodes(kernel: str, listing: Path) -> dict:
@@ -1373,11 +1409,13 @@ def k1r_bound(n, steps, resumed, with_tmax, table_words=0) -> dict:
 
 
 def probe_bound(n, n_iters, variant, table_bytes) -> dict:
-    """Least time (ms) of one K6 launch: 28 B of ray I/O per ray (o, d
-    read, acc written; empty's acc depends on no input, so 4 B) plus, for
-    the variants that read it, the table read once, over the HBM rate;
-    PROBE_OPS_RAY (not for empty) + n_iters x PROBE_OPS_ITER[variant]
-    float32 operations per ray over the float32 peak."""
+    """Least time (ms) of one K6 launch over n rays: 28 B of ray I/O per
+    ray (o, d read, acc written; empty's acc depends on no input, so 4 B)
+    plus, for the variants that read it, ``table_bytes``: the distinct
+    table words the run's rays read (counted on the plain version), once,
+    over the HBM rate; PROBE_OPS_RAY (not for empty) + n_iters x
+    PROBE_OPS_ITER[variant] float32 operations per ray over the float32
+    peak."""
     empty = variant == "empty"
     reads = variant in ("nomath", "full", "static")
     b = n * (4 if empty else 28) + (table_bytes if reads else 0)
@@ -1388,9 +1426,250 @@ def probe_bound(n, n_iters, variant, table_bytes) -> dict:
                 bound_by="bytes" if tb >= tf else "operations")
 
 
+def sass_loops(kernel: str) -> dict | None:
+    """Function -> its loops in sass_listing(kernel): for each backward
+    branch, the instructions from its target to it (``size``) and the
+    float-to-int conversions among them (``f2i``: three an iteration of
+    the probe's step, so ``size`` x 3 / ``f2i`` is an iteration's
+    instructions where the compiler unrolled the loop). None where
+    cuobjdump is missing."""
+    funcs = sass_listing(kernel)
+    if funcs is None:
+        return None
+    loops = {}
+    for fn, seq in funcs.items():
+        found = []
+        for _, addr, op, rest in seq:
+            t = re.search(r"0x([0-9a-f]+)", rest.split(";")[0])
+            # a backward branch; the one to itself after EXIT is no loop
+            if op == "BRA" and t and int(t.group(1), 16) < addr:
+                body = [o for _, a, o, _ in seq
+                        if int(t.group(1), 16) <= a <= addr]
+                found.append(dict(size=len(body),
+                                  f2i=body.count("F2I")))
+        loops[fn] = found
+    return loops
+
+
+def k6_occupancy(dims) -> dict:
+    """(variant, layout, step) -> registers (ptxas) and blocks of 256
+    threads an SM (the CUDA occupancy API) of each K6 instantiation."""
+    from vxtpu_torch.render import probe
+
+    usage = ptxas_usage()
+    out = {}
+    for si, step in enumerate(probe.STEPS):
+        for li, layout in enumerate(probe.LAYOUTS):
+            for vi, v in enumerate(probe.VARIANTS):
+                u = usage.get(f"march_probe_kernel<{vi}, {li}, {si}>", {})
+                out[f"{v}/{layout}/{step}"] = dict(
+                    registers=u.get("registers"),
+                    blocks_per_sm=probe.blocks_per_sm(v, layout, step, 256,
+                                                      dims))
+    return out
+
+
+def k6_probe(device, grid, h=H, w=W, case_d=64, case_hw=256, reps=10,
+             threads=None, orders=None) -> dict:
+    """Phase 9's K6 part: the probe against its plain version at
+    ``case_d``^3 (kernel_check.PROBE_CASES); on ``grid`` (phase 4's world)
+    and phase 4's outside h x w rays, the cost probe (counted: K1's step
+    over the three layouts in each ray order and block size, then the TPU
+    probe's float step, the form first ported, on the Morton table in
+    scanline order at 256 threads), then, not counted, both steps against
+    their plain versions on every ray in every order, the reads and words
+    each variant's rays read, each row's bound, each instantiation's
+    registers and blocks an SM and the SASS loops of full."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import probe
+    from vxtpu_torch.render.dda import ray_grid_clip
+    from vxtpu_torch.world.packed import build_packed, build_packed_morton
+
+    err = 0.0
+    for name in kc.PROBE_CASES:
+        m = kc.run_probe_case(name, device, case_d, case_hw, case_hw)
+        print(f"phase 9 resume: K6 {name}: acc differs on {m['acc']} of "
+              f"{m['n']} rays (max {m['max_abs']:.3g}), sum "
+              f"{m['acc_sum']:.6g}"
+              + (f"; identity words wrong on {m['expected']}"
+                 if "expected" in m else ""))
+        kc.check_probe_case(m, f"K6 {name}")
+        err = max(err, m["max_abs"])
+
+    dims = grid.dims
+    D = dims[0]
+    packed = build_packed(grid.occupancy)
+    tables = {"morton16": build_packed_morton(grid.occupancy, cap=64).words,
+              "rowmajor32": packed.words, "bricked16": packed.bricks}
+    del packed
+    _, requests = _main_scene(device, D)
+    cam = next(c for name, c, _, _ in requests if name == "lambert")
+    o, d = generate_rays(cam, h, w)
+    n = o.shape[0]
+    orders = tuple(probe.ORDERS) if orders is None else tuple(orders)
+    threads = tuple(threads or probe.THREADS)
+    parent = ("tpu", "scanline", "morton16", 256)
+    # the same rays started where they enter the grid (a miss keeps its
+    # origin): the outside rays all start at one voxel, the camera's
+    # clipped floor, so only these spread a warp's rays over the grid as
+    # K1's primary rays are spread, and can show what a ray order does
+    # to the reads
+    t_in, _, hits = ray_grid_clip(o, d, dims)
+    eo = torch.where(hits[:, None], o + (t_in + 1e-3)[:, None] * d, o)
+    entry_tables = {k: tables[k] for k in ("morton16", "bricked16")}
+
+    # the main path, counted: the cost probe
+    probe.reset_launch_counts()
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        cost = probe.cost_probe(o, d, tables, dims, reps=reps,
+                                threads=threads, orders=orders,
+                                image_shape=(h, w))
+        cost += probe.cost_probe(o, d, {"morton16": tables["morton16"]},
+                                 dims, reps=reps, threads=(256,),
+                                 steps=("tpu",))
+        entry = probe.cost_probe(eo, d, entry_tables, dims, reps=reps,
+                                 variants=("nofetch", "full"),
+                                 threads=(256,), orders=orders,
+                                 image_shape=(h, w))
+    else:
+        entry = []
+        for layout, table in entry_tables.items():
+            probe.march_probe(eo, d, table, dims, probe.N_ITERS, "full",
+                              layout)
+        cost = []
+        for order in orders:
+            po, pd, _ = probe.ordered_rays(o, d, (h, w), order)
+            for layout, table in tables.items():
+                for v in probe.VARIANTS:
+                    probe.march_probe(po, pd, table, dims, probe.N_ITERS, v,
+                                      layout)
+    _sync(device)
+    cost_s = time.perf_counter() - t0
+    launches = probe.LAUNCHES["march_probe_kernel"]
+    print(f"phase 9 resume: launches during the cost probe ({len(orders)} "
+          f"orders x {len(tables)} layouts x {len(probe.VARIANTS)} variants"
+          + (f" x {len(threads)} block sizes, the TPU float step"
+             if cost else "") + f", the rays from their grid entry, "
+          f"{cost_s:.1f} s): march_probe_kernel {launches}")
+    if device.type == "cuda" and launches == 0:
+        raise AssertionError("the cost probe did not launch "
+                             "march_probe_kernel")
+
+    # both steps against their plain versions on every ray, in every order
+    # (a block order's acc put back in pixel order); the reads and the
+    # words each variant's rays read (not counted)
+    ordered = {k: probe.ordered_rays(o, d, (h, w), k) for k in orders}
+    work, acc_sum = {}, {}
+    for layout, table in tables.items():
+        for v in probe.VARIANTS:
+            runs = {}
+            for step in probe.STEPS:
+                stats = {}
+                want = probe.march_probe_reference(
+                    o, d, table, dims, probe.N_ITERS, v, layout, step, stats)
+                runs[step] = want
+                work[(step, layout, v)] = dict(
+                    reads=int(stats["reads"].sum(dtype=torch.int64)),
+                    words=int(stats["touched"].sum()))
+                for order in (orders if step == "k1" else ("scanline",)):
+                    po, pd, inv = ordered.get(order) or (o, d, None)
+                    got = probe.march_probe(po, pd, table, dims,
+                                            probe.N_ITERS, v, layout,
+                                            step=step)
+                    got = got if inv is None else got[inv]
+                    bad = int((got != want).sum())
+                    err = max(err, float((got - want).abs().max()))
+                    if bad:
+                        raise AssertionError(
+                            f"K6 {v} {layout} {step} {order} at {D}^3: acc "
+                            f"differs from the plain version on {bad} rays")
+            if not torch.equal(runs["k1"], runs["tpu"]):
+                raise AssertionError(f"K6 {v} {layout}: the K1 step's plain "
+                                     f"acc differs from the float step's")
+            acc_sum[(v, layout)] = float(runs["k1"].double().sum())
+    for layout, table in entry_tables.items():
+        stats = {}
+        want = probe.march_probe_reference(eo, d, table, dims, probe.N_ITERS,
+                                           "full", layout, "k1", stats)
+        bad = int((probe.march_probe(eo, d, table, dims, probe.N_ITERS,
+                                     "full", layout) != want).sum())
+        if bad:
+            raise AssertionError(f"K6 full {layout} from the grid entry: acc "
+                                 f"differs from the plain version on {bad} "
+                                 f"rays")
+        work[("entry", layout, "full")] = dict(
+            reads=int(stats["reads"].sum(dtype=torch.int64)),
+            words=int(stats["touched"].sum()))
+        work[("entry", layout, "nofetch")] = dict(reads=0, words=0)
+    print(f"phase 9 resume: K6 on all {n} rays at {D}^3, {probe.N_ITERS} "
+          f"iterations: acc equal to the plain version bit for bit for "
+          f"every variant x layout x order (K1 step) and every variant x "
+          f"layout (float step), and the two steps' plain versions equal; "
+          f"acc sums "
+          + ", ".join(f"{v}/{lay} {x:.6g}" for (v, lay), x in acc_sum.items()))
+    for (step, layout, v), wk in work.items():
+        if v in ("nomath", "full", "static"):
+            print(f"phase 9 resume: K6 {v} {layout} {step}: "
+                  f"{wk['reads'] / (n * probe.N_ITERS):.6f} reads per "
+                  f"ray-iteration, {wk['words']} distinct table words")
+
+    out = dict(err=err, launches=launches, work={
+        "/".join(k): x for k, x in work.items()})
+    if device.type != "cuda":
+        return out
+    for row in entry:
+        row["rays"] = "entry"
+    for row in cost + entry:
+        wk = work[(row.get("rays", row["step"]), row["layout"],
+                   row["variant"])]
+        row["reads_per_ray_iter"] = wk["reads"] / (n * probe.N_ITERS)
+        row["bound"] = probe_bound(
+            n, probe.N_ITERS, row["variant"],
+            wk["words"] * tables[row["layout"]].element_size())
+        row["share"] = row["bound"]["bound_ms"] / row["ms"]
+        print(f"phase 9 resume: K6 {row.get('rays', 'camera'):6s} "
+              f"{row['step']:3s} {row['order']:10s} "
+              f"{row['variant']:7s} {row['layout']:10s} "
+              f"{row['threads']:3d} threads: {row['ms']:.4f} ms device "
+              f"({row['clock']}; {row['events_ms']:.4f} ms events), "
+              f"{row['ns_per_ray_iter']:.6f} ns per ray-iteration, "
+              f"{row['reads_per_ray_iter']:.4f} reads per ray-iteration; "
+              f"bound {row['bound']['bound_ms']:.4f} ms by "
+              f"{row['bound']['bound_by']} (share {row['share']:.3f})")
+    key = lambda r: (r["step"], r["order"], r["layout"], r["threads"])
+    full = {key(r): r for r in cost if r["variant"] == "full"}
+    new, old = full[("k1", "scanline", "morton16", 256)], full[parent]
+    out.update(cost=cost, entry=entry, full_ms=new["ms"],
+               full_clock=new["clock"],
+               parent_ms=old["ms"], parent_clock=old["clock"],
+               bound=new["bound"],
+               reads_per_ray_iter=new["reads_per_ray_iter"],
+               plain_ms=median_ms(lambda: probe.march_probe_reference(
+                   o, d, tables["morton16"], dims), device, 3),
+               occupancy=k6_occupancy(dims), sass_loops=sass_loops(
+                   "march_probe_kernel"))
+    print(f"phase 9 resume: K6 full/morton16/256/scanline: K1 step "
+          f"{new['ms']:.4f} ms ({new['clock']}), the float step (the form "
+          f"first ported) {old['ms']:.4f} ms ({old['clock']}) in the same "
+          f"run; plain version {out['plain_ms']:.1f} ms")
+    for name, x in out["occupancy"].items():
+        print(f"phase 9 resume: K6 {name}: {x['registers']} registers, "
+              f"{x['blocks_per_sm']} blocks of 256 threads an SM")
+    if out["sass_loops"] is None:
+        print("phase 9 resume: K6 SASS: cuobjdump not found beside nvcc")
+    for fn, loops in (out["sass_loops"] or {}).items():
+        print(f"phase 9 resume: K6 SASS {fn}: loops (instructions, F2I) "
+              + ", ".join(f"({x['size']}, {x['f2i']})" for x in loops))
+    return out
+
+
 def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
                  budgets=None, runs=RUNS, reps=10, drain_r0=8,
-                 drain_frac=256, threads=None) -> dict:
+                 drain_frac=256, threads=None, orders=None) -> dict:
     """Phase 9: K1' and K6 (see the module docstring). big_grid: phase
     4's world."""
     import torch
@@ -1400,12 +1679,11 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
     from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.render import kernel_march as km
     from vxtpu_torch.render import probe
-    from vxtpu_torch.world.packed import (build_packed, build_packed_morton,
-                                          morton3)
+    from vxtpu_torch.world.packed import build_packed_morton, morton3
 
     t_phase = time.perf_counter()
     budgets = kc.RESUME_BUDGETS if budgets is None else budgets
-    err = {"march_resume_kernel": 0.0, "march_probe_kernel": 0.0}
+    err = {"march_resume_kernel": 0.0}
     for name in kc.MARCH_CASES:
         m = kc.run_resume_case(name, device, case_d, case_hw, case_hw,
                                budgets)
@@ -1413,22 +1691,10 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
               f"{m['survivors']}; mismatches {m['mismatch']}; merged rounds "
               f"vs the single round differ on {m['merged']} of {m['n']}")
         kc.check_resume_case(m, f"K1' {name}")
-    for name in kc.PROBE_CASES:
-        m = kc.run_probe_case(name, device, case_d, case_hw, case_hw)
-        print(f"phase 9 resume: K6 {name}: acc differs on {m['acc']} of "
-              f"{m['n']} rays (max {m['max_abs']:.3g}), sum "
-              f"{m['acc_sum']:.6g}"
-              + (f"; identity words wrong on {m['expected']}"
-                 if "expected" in m else ""))
-        kc.check_probe_case(m, f"K6 {name}")
-        err["march_probe_kernel"] = max(err["march_probe_kernel"],
-                                        m["max_abs"])
 
     dims = big_grid.dims
     D = dims[0]
     accel = build_packed_morton(big_grid.occupancy, cap=64)
-    packed = build_packed(big_grid.occupancy)
-    tables = {"morton16": accel.words, "rowmajor32": packed.words}
     _, requests = _main_scene(device, D)
     cams = {name: (cam, st) for name, cam, st, _ in requests}
     ms = cams["lambert"][1].resolve_max_steps(dims)
@@ -1437,8 +1703,8 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
     o, d = rays["lambert"]
     n = o.shape[0]
 
-    # the main path, counted: the sorted march of both ray sets, then the
-    # cost probe over both tables
+    # the main path, counted: the sorted march of both ray sets (K6's
+    # cost probe is counted in k6_probe)
     km.reset_launch_counts()
     stats = {k: {} for k in sets}
     srec = {k: km.march_sorted(*rays[k], accel, dims, ms, stats=stats[k])
@@ -1450,27 +1716,6 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
     if device.type == "cuda" and launches["march_resume_kernel"] == 0:
         raise AssertionError("march_sorted did not launch "
                              "march_resume_kernel")
-    probe.reset_launch_counts()
-    t0 = time.perf_counter()
-    if device.type == "cuda":
-        cost = probe.cost_probe(o, d, tables, dims, reps=reps,
-                                threads=threads or probe.THREADS)
-    else:
-        cost = []
-        for layout, table in tables.items():
-            for v in probe.VARIANTS:
-                probe.march_probe(o, d, table, dims, probe.N_ITERS, v,
-                                  layout)
-    _sync(device)
-    cost_s = time.perf_counter() - t0
-    probe_launches = probe.LAUNCHES["march_probe_kernel"]
-    blocks = f" x {len(threads or probe.THREADS)} block sizes" if cost else ""
-    print(f"phase 9 resume: launches during the cost probe "
-          f"({len(tables)} layouts x {len(probe.VARIANTS)} variants{blocks}, "
-          f"{cost_s:.1f} s): march_probe_kernel {probe_launches}")
-    if device.type == "cuda" and probe_launches == 0:
-        raise AssertionError("the cost probe did not launch "
-                             "march_probe_kernel")
 
     # comparisons with the plain versions and single-round K1 (not
     # counted)
@@ -1543,28 +1788,7 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
               f"in launch order {coh[k]['unsorted']:.4f}, in the sorted "
               f"resume round's order {coh[k]['sorted']:.4f}")
 
-    # K6 against its plain version on the 512^3 rays
-    acc_sum = {}
-    for layout, table in tables.items():
-        for v in probe.VARIANTS:
-            got = probe.march_probe(o, d, table, dims, probe.N_ITERS, v,
-                                    layout)
-            want = probe.march_probe_reference(o, d, table, dims,
-                                               probe.N_ITERS, v, layout)
-            nbad = int((got != want).sum())
-            err["march_probe_kernel"] = max(err["march_probe_kernel"],
-                                            float((got - want).abs().max()))
-            acc_sum[(v, layout)] = float(got.double().sum())
-            if nbad:
-                raise AssertionError(f"K6 {v} {layout} at {D}^3: acc differs "
-                                     f"on {nbad} rays")
-    print(f"phase 9 resume: K6 on all {n} rays at {D}^3, {probe.N_ITERS} "
-          f"iterations: acc equal to the plain version bit for bit for "
-          f"every variant and layout; acc sums "
-          + ", ".join(f"{v}/{lay} {x:.6g}" for (v, lay), x in acc_sum.items()))
-
-    times = dict(coherence=coh, cost=cost, launches=launches,
-                 probe_launches=probe_launches)
+    times = dict(coherence=coh, launches=launches)
     steps0 = int((r0k.steps).sum(dtype=torch.int64))
     alive = ~e0k["done"]
     steps1 = int((r1k.steps - r0k.steps)[alive].sum(dtype=torch.int64))
@@ -1641,23 +1865,11 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
               + "; ".join(f"round0_iters {r0}: {x['ms']:.3f} ms, "
                           f"{x['survivors']} survivors, {x['rounds']} "
                           f"round(s)" for r0, x in sp["sorted"].items()))
-        for row in cost:
-            row["bound"] = probe_bound(
-                n, probe.N_ITERS, row["variant"],
-                tables[row["layout"]].numel()
-                * tables[row["layout"]].element_size())
-            print(f"phase 9 resume: K6 {row['variant']:8s} "
-                  f"{row['layout']:10s} {row['threads']:3d} threads: "
-                  f"{row['ms']:.4f} ms device ({row['clock']}; "
-                  f"{row['events_ms']:.4f} ms events), "
-                  f"{row['ns_per_ray_iter']:.6f} ns per "
-                  f"ray-iteration; bound {row['bound']['bound_ms']:.4f} ms "
-                  f"by {row['bound']['bound_by']}")
-        times["probe_plain_ms"] = median_ms(
-            lambda: probe.march_probe_reference(o, d, accel.words, dims),
-            device, 3)
-        print(f"phase 9 resume: K6 full/morton16 plain version "
-              f"{times['probe_plain_ms']:.1f} ms")
+    del single, srec, r0k, e0k, r1k, e1k
+    k6 = k6_probe(device, big_grid, h, w, case_d, case_hw, reps, threads,
+                  orders)
+    err["march_probe_kernel"] = k6.pop("err")
+    times["k6"] = k6
     secs = time.perf_counter() - t_phase
     print(f"phase 9 resume: {secs:.1f} s")
     return {"err": err, "times": times, "seconds": secs}
@@ -1833,11 +2045,13 @@ def sample_bounds(n, S, D, active_samples, touched, lit=False,
     K3 reads the rays (32 B each) and the table rows its samples touch
     (16 B each: four channels, whatever their layout), and writes nout
     [S, N] planes; K4 reads the rays and nout [S, N] cotangent planes and
-    writes the dense [D^3, 4] gradient, and with ``ray_grads`` also reads
+    adds into the gradient rows its samples touch (16 B each, written
+    once; the wrapper's zero-fill of the dense [D^3, 4] gradient is not
+    the kernel's work: zero_fill_bound), and with ``ray_grads`` also reads
     the touched rows and writes the ray cotangents (32 B each)."""
     nout = 7 if lit else 4
     fwd_bytes = n * 32 + 4 * 4 * touched + nout * S * n * 4
-    bwd_bytes = n * 32 + nout * S * n * 4 + 4 * 4 * D ** 3
+    bwd_bytes = n * 32 + nout * S * n * 4 + 4 * 4 * touched
     if ray_grads:
         bwd_bytes += 4 * 4 * touched + n * 32
     fwd_ops = active_samples * (FWD_OPS + (FWD_OPS_LIT if lit else 0))
@@ -1845,6 +2059,32 @@ def sample_bounds(n, S, D, active_samples, touched, lit=False,
         (BWD_OPS + (BWD_OPS_LIT if lit else 0)) if ray_grads
         else (SCATTER_OPS + (SCATTER_OPS_LIT if lit else 0)))
     return dict(fwd=_bound(fwd_bytes, fwd_ops), bwd=_bound(bwd_bytes, bwd_ops))
+
+
+def zero_fill_bound(D) -> dict:
+    """The wrapper's zero-fill of K4's dense [D^3, 4] float32 gradient:
+    16 B a row written."""
+    return _bound(16 * D ** 3, 0)
+
+
+def zero_fill_times(D, device, runs, prefix) -> dict:
+    """Device time of the zero-fill that K4's wrapper makes before the
+    kernel (torch.zeros of the [D^3, 4] gradient), beside its bound;
+    prints one line."""
+    import torch
+
+    from vxtpu_torch import bench
+
+    row = dict(**zero_fill_bound(D))
+    # the fill's own kernel (at::native::FillFunctor), per recorded launch
+    dev = bench.device_time(
+        row, "device_ms", lambda: torch.zeros((D ** 3, 4),
+                                              device=device), device, runs,
+        "FillFunctor")
+    print(f"{prefix}: K4's wrapper zero-fills the [{D}^3, 4] gradient "
+          f"before the kernel: device {dev}; bound {row['bound_ms']:.4f} ms "
+          f"by bytes ({row['bytes']:.4g} B written)")
+    return row
 
 
 def ray_sum_bound(n, chunks) -> dict:
@@ -2051,9 +2291,12 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
                 times[BWD[rg]], "device_ms",
                 lambda: ks.sample_grads(*args, ray_grads=rg), device, runs,
                 f"sample_bwd_kernel<{str(rg).lower()}, false>")
+        rs = times["sample_ray_sum_kernel"]
         dev["sample_ray_sum_kernel"] = (
-            f"{times['sample_ray_sum_kernel']['device_ms']:.4f} ms "
-            f"({times['sample_ray_sum_kernel']['device_ms_clock']})")
+            f"{rs['device_ms']:.4f} ms warm ({rs['device_ms_clock']}; "
+            f"{rs['warm_graph_ms']:.4f} ms a launch replayed from a CUDA "
+            f"graph), {rs['cold_device_ms']:.4f} ms with L2 flushed "
+            f"({rs['cold_device_ms_clock']})")
     for k, b in (("sample_fwd_kernel", bounds["fwd"]),
                  (BWD[False], bounds_scatter["bwd"]),
                  (BWD[True], bounds["bwd"]),
@@ -2068,6 +2311,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
               f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']:.4g} "
               f"B, {b['ops']:.4g} flop; {touched} table words touched, "
               f"{active} active samples)")
+    times["zero_fill"] = zero_fill_times(D, device, runs, "phase 6 train")
 
     # where a step's time goes (profiler device times)
     model = MortonSoftGrid(tab_fit.detach().clone().requires_grad_(True))
@@ -2126,6 +2370,18 @@ def ray_sum_times(n, chunks, device, runs) -> dict:
     if device.type == "cuda":
         bench.device_time(out, "device_ms", lambda: ks.ray_sums(part),
                           device, runs, "sample_ray_sum_kernel")
+        # warm again from a CUDA graph's replay: the profiler often
+        # records none of these short launches
+        out.update(warm_graph_ms=graph_ms(lambda: ks.ray_sums(part)),
+                   warm_graph_ms_clock="events")
+        # the partial sums (35.7 MB at the main shape) stay in the 50 MB
+        # L2 between launches: timed again with it flushed, a 128 MB
+        # buffer written before each launch (its fill is not counted)
+        flush = torch.empty(32 << 20, dtype=torch.float32, device=device)
+        bench.device_time(out, "cold_device_ms", lambda: (
+            flush.fill_(1.0), ks.ray_sums(part)), device, runs,
+            "sample_ray_sum_kernel")
+        del flush
     return out
 
 
@@ -2665,6 +2921,8 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
               f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.4f} ms; "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({touched} "
               f"table words touched, {active} active samples)")
+    alone[BWD[False]]["zero_fill"] = zero_fill_times(D, device, runs,
+                                                     "phase 10 xla+mask")
     del args, cots, warm, tab
 
     # (4) the path, counted: a short masked fit from zeros, the mask
@@ -3655,6 +3913,10 @@ def main(argv=None) -> int:
                         "instantiation and a JSON line of the results; "
                         "copied into a checkout of another commit, it times "
                         "that commit's K1 the same way")
+    p.add_argument("--k6-times", action="store_true",
+                   help="phases 1 and 2, then phase 9's K6 part alone "
+                        "(k6_probe) on phase 4's 512^3 world and 1080x1920 "
+                        "rays, and a JSON line of its results")
     p.add_argument("--scale-out", action="store_true",
                    help="phases 1 and 2, then phase 11 alone (the sharded "
                         "paths, config 5 at full size) and a JSON line of "
@@ -3664,9 +3926,9 @@ def main(argv=None) -> int:
                         "and wavefront marches and the bench) and a JSON "
                         "line of its results")
     p.add_argument("--sass", default=None, metavar="FILE",
-                   help="with --k5-times or --k1-times: write that kernel's "
-                        "SASS listing to FILE and print its opcodes by "
-                        "count")
+                   help="with --k5-times, --k1-times or --k6-times: write "
+                        "that kernel's SASS listing to FILE (and with the "
+                        "first two print its opcodes by count)")
     args = p.parse_args(argv)
     _require_checkout()
     device, name, smi = phase_device()
@@ -3680,6 +3942,15 @@ def main(argv=None) -> int:
     if args.bench:
         out = phase_bench(device, card=smi)
         print(json.dumps({"bench": out, "gpu": smi}, default=str))
+        return 0
+    if args.k6_times:
+        from vxtpu_torch.world import procgen
+
+        if args.sass:
+            sass_functions("march_probe_kernel", Path(args.sass))
+        out = k6_probe(device, procgen.terrain((FULL,) * 3, seed=7,
+                                               device=device))
+        print(json.dumps({"k6": out, "gpu": smi}, default=str))
         return 0
     if args.k1_times:
         out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
@@ -3791,6 +4062,12 @@ def main(argv=None) -> int:
             "plain_ms": tt[k]["plain_ms"],
             "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
             "library_ms": tt[k]["library_ms"]})
+        if k in BWD.values():
+            kernels[-1]["zero_fill"] = tt["zero_fill"]
+        if k == "sample_ray_sum_kernel":
+            kernels[-1].update({x: tt[k].get(x) for x in (
+                "warm_graph_ms", "warm_graph_ms_clock", "cold_device_ms",
+                "cold_device_ms_clock")})
         if k in scale["train"]["launches"]:
             # phase 11's sharded field-kernel and masked steps
             kernels[-1]["sharded"] = {
@@ -3838,9 +4115,7 @@ def main(argv=None) -> int:
         "bound_rays_only_ms": rt["bound0_rays_only_ms"],
         "resume_ms": rt["resume_all_ms"],
         "resume_bound_ms": rt["bound1"]["bound_ms"], "library_ms": None})
-    full = next(r for r in rt["cost"] if (r["variant"], r["layout"],
-                                          r["threads"]) ==
-                ("full", "morton16", 256))
+    k6 = rt["k6"]
     kernels.append({
         "name": "march_probe_kernel", "route": "cuda",
         "source": "vxtpu_torch/csrc/probe.cu",
@@ -3850,12 +4125,17 @@ def main(argv=None) -> int:
             "probe_r5_fetch3.py:152", "probe_r4_tune.py:181",
             "probe_r4_tile16.py:133", "probe_r4_matfetch.py:96",
             "probe_r4_matfetch.py:102")),
-        "launches": rt["probe_launches"],
+        "launches": k6["launches"],
         "max_abs_err": resume["err"]["march_probe_kernel"],
-        "ms": full["ms"], "ms_clock": full["clock"],
-        "plain_ms": rt["probe_plain_ms"],
-        "bound_ms": full["bound"]["bound_ms"],
-        "bound_by": full["bound"]["bound_by"], "library_ms": None})
+        "ms": k6["full_ms"], "ms_clock": k6["full_clock"],
+        "parent_form_ms": k6["parent_ms"],
+        "parent_form_ms_clock": k6["parent_clock"],
+        "reads_per_ray_iter": k6["reads_per_ray_iter"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound"]["bound_ms"],
+        "bound_by": k6["bound"]["bound_by"],
+        "occupancy": k6["occupancy"]["full/morton16/k1"],
+        "library_ms": None})
     print(json.dumps({"kernels": kernels, "gpu": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from vxtpu_torch import kernel_check as kc
+from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.render import kernel_march as km
 from vxtpu_torch.render import kernel_packed as kp
 from vxtpu_torch.render import kernel_sample as ks
@@ -310,6 +311,28 @@ def test_probe_kernel_matches_plain(cuda, name):
     kc.check_probe_case(m, name)
     assert probe.LAUNCHES["march_probe_kernel"] == \
         (2 if name.startswith("identity") else 1)
+
+
+def test_probe_instantiations_fit_and_the_orders_agree(cuda):
+    """Every K6 instantiation (variant x layout x step) holds at least one
+    block of 512 threads an SM, and in the 32x32 block order with padded
+    blocks (a 48 x 80 frame) every variant's acc, put back in pixel
+    order, equals scanline's."""
+    dims = (32, 32, 32)
+    for step in probe.STEPS:
+        for layout in probe.LAYOUTS:
+            for v in probe.VARIANTS:
+                assert probe.blocks_per_sm(v, layout, step, 512, dims) >= 1
+    grid = procgen.terrain(dims, seed=3, device=cuda)
+    table = kc.probe_table("bricked16", grid)
+    o, d = generate_rays(kc._cameras(32, cuda)["inside"], 48, 80)
+    for v in probe.VARIANTS:
+        want = probe.march_probe(o, d, table, dims, 16, v, "bricked16")
+        for name in ("block32x32", "block4x8"):
+            po, pd, inv = probe.ordered_rays(o, d, (48, 80), name)
+            got = probe.march_probe(po, pd, table, dims, 16, v, "bricked16",
+                                    threads=128)
+            assert torch.equal(got[inv], want), (v, name)
 
 
 def test_cuda_tensor_never_reaches_resume_or_probe_plain_versions(

@@ -12,7 +12,11 @@ Tolerances: acc equal on every ray for ``empty``, ``nomath`` and
 ``full`` (counts of solid voxels visited: the same voxels on every ray);
 within rtol 1e-6 for ``nofetch``, whose sum of x * 1e-9 XLA contracts
 into fused multiply-adds where the port rounds the product first (one or
-two ulps of the sum, on the same voxels).
+two ulps of the sum, on the same voxels). The plain version's default
+step is K1's (integer faces, clamp then truncate, the dilation table, a
+read on a cell change); it is held to the TPU probe's float form and to
+the TPU probe's loop exactly. The image-block ray order is held to
+vxtpu's ``_tile_layout`` pack of ``arange`` exactly.
 """
 
 import functools
@@ -28,11 +32,13 @@ import torch
 from vxtpu.camera.camera import Camera as JCamera
 from vxtpu.camera.rays import generate_rays as jgenerate_rays
 from vxtpu.world import procgen as jprocgen
+from vxtpu.render.kernel_pallas_v2 import _tile_layout
 from vxtpu.world.packed import build_packed_morton as jbuild_packed_morton
 from vxtpu_torch import convert
 from vxtpu_torch import kernel_check as kc
 from vxtpu_torch.render import probe
-from vxtpu_torch.world.packed import build_packed
+from vxtpu_torch.world.packed import (BRICK, brick_dims, brick_words,
+                                      build_packed)
 
 ROOT = Path(__file__).resolve().parent.parent
 DIMS = (32, 32, 32)
@@ -115,14 +121,20 @@ def _tpu_acc(variant, cam):
 def _port(variant, cam, layout="morton16"):
     grid, words, rays = _world()
     o, d = (torch.from_numpy(x) for x in rays[cam])
-    if layout == "morton16":
-        table = convert.packed_morton_from_numpy(words, DIMS, device=CPU).words
-    else:
-        occ = convert.occupancy_from_numpy(np.asarray(grid.occupancy),
-                                           device=CPU)
-        table = build_packed(occ).words
-    return probe.march_probe(o, d, table, DIMS, N_ITERS, variant,
+    return probe.march_probe(o, d, _table(layout), DIMS, N_ITERS, variant,
                              layout).numpy()
+
+
+@functools.cache
+def _table(layout):
+    """The test world's table in a probe layout."""
+    grid, words, _ = _world()
+    if layout == "morton16":
+        return convert.packed_morton_from_numpy(words, DIMS, device=CPU).words
+    occ = convert.occupancy_from_numpy(np.asarray(grid.occupancy),
+                                       device=CPU)
+    packed = build_packed(occ)
+    return packed.bricks if layout == "bricked16" else packed.words
 
 
 @pytest.mark.parametrize("cam", ["outside", "inside"])
@@ -204,6 +216,11 @@ def test_probe_rejects_bad_inputs():
         probe.march_probe(o, d, table, (32, 32, 16))
     with pytest.raises(TypeError):
         probe.march_probe(o, d, table, DIMS, layout="rowmajor32")
+    with pytest.raises(TypeError):
+        probe.march_probe(o, d, table.to(torch.int32), DIMS,
+                          layout="bricked16")
+    with pytest.raises(ValueError):
+        probe.march_probe(o, d, table, DIMS, step="fast")
 
 
 def test_cpu_launches_no_kernel_and_timing_needs_the_gpu():
@@ -252,3 +269,170 @@ def test_cost_and_sorted_probe_control_flow(monkeypatch):
     assert set(out["sorted"]) == {2, 6} and out["n"] == 1024
     assert out["single_device_clock"] == probe.CLOCK_DEVICE
     assert out["sorted"][2]["survivors"] >= out["sorted"][6]["survivors"]
+
+
+@pytest.mark.parametrize("variant", probe.VARIANTS)
+def test_bricked16_agrees_with_the_other_layouts(variant):
+    """K5's bricked 16-bit table holds the row-major words: every variant
+    counts what rowmajor32 and morton16 count, on every ray."""
+    for cam in ("outside", "inside"):
+        b = _port(variant, cam, "bricked16")
+        assert np.array_equal(b, _port(variant, cam, "rowmajor32")), cam
+        assert np.array_equal(b, _port(variant, cam, "morton16")), cam
+
+
+def test_identity_table_bricked16_holds_the_row_major_words():
+    """identity_table("bricked16") is rowmajor32's identity bricked: the
+    word at each cell's bricked index is its row-major index mod 2^15, and
+    the padding cells hold 0."""
+    for dims in (DIMS, (36, 44, 20)):
+        rm = probe.identity_table("rowmajor32", dims, CPU)
+        br = probe.identity_table("bricked16", dims, CPU)
+        assert br.dtype == torch.int16
+        assert torch.equal(br, brick_words(rm, dims))
+        cx, cy, cz = (n // 2 for n in dims)
+        c = torch.stack(torch.meshgrid(
+            *(torch.arange(k) for k in (cx, cy, cz)), indexing="ij"),
+            -1).reshape(-1, 3)
+        idx = probe._cell_index(c[:, 0], c[:, 1], c[:, 2], "bricked16",
+                                dims)
+        row = (c[:, 0] * cy + c[:, 1]) * cz + c[:, 2]
+        assert torch.equal(br[idx].long(), row % (1 << 15))
+        bx, by, bz = brick_dims(dims)
+        assert br.numel() == bx * by * bz * BRICK ** 3
+        pad = torch.ones(br.numel(), dtype=torch.bool)
+        pad[idx] = False
+        assert not bool(br[pad].any())
+
+
+@pytest.mark.parametrize("variant", probe.VARIANTS)
+@pytest.mark.parametrize("layout", probe.LAYOUTS)
+def test_k1_step_equals_the_tpu_float_step(variant, layout):
+    """K1's formulations (integer faces, clamp then truncate, the dilation
+    table, a read only on a cell change) give the TPU probe's float form's
+    acc on every ray: the two cameras and random rays, some with zero or
+    tiny direction components and origins outside the grid. Full reads
+    less; nomath and static read every iteration."""
+    g = np.random.default_rng(5)
+    n = 2048
+    o = g.uniform(-12.0, 44.0, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d[:256, 0] = 0.0
+    d[256:512, 1] = 1e-13
+    d[512:640, :2] = 0.0
+    o[640:768] = np.floor(o[640:768])          # on voxel faces
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    _, _, rays = _world()
+    sets = [(torch.from_numpy(o), torch.from_numpy(d))] + [
+        tuple(torch.from_numpy(x) for x in rays[c])
+        for c in ("outside", "inside")]
+    table = _table(layout)
+    for ro, rd in sets:
+        sk, st = {}, {}
+        k1 = probe.march_probe_reference(ro, rd, table, DIMS, N_ITERS,
+                                         variant, layout, "k1", sk)
+        tpu = probe.march_probe_reference(ro, rd, table, DIMS, N_ITERS,
+                                          variant, layout, "tpu", st)
+        assert torch.equal(k1, tpu), int((k1 != tpu).sum())
+        if variant in ("empty", "nofetch"):
+            assert not bool(sk["reads"].any())
+        elif variant == "full":
+            assert bool((st["reads"] == N_ITERS).all())
+            assert bool((sk["reads"] >= 1).all())
+            assert int(sk["reads"].sum()) < int(st["reads"].sum())
+        else:
+            assert bool((sk["reads"] == N_ITERS).all())
+
+
+@pytest.mark.parametrize("image_shape", [(40, 72), (64, 96)])
+def test_tile_order_matches_vxtpu_tile_layout(image_shape):
+    """The 32x32 block order is vxtpu's _tile_layout pack of arange(H*W)
+    (padded slots -1), at a padded size and an exact one; its unpack of
+    the slot numbers is the inverse."""
+    H, W = image_shape
+    n = H * W
+    pack, unpack, _, _ = _tile_layout(n, image_shape, (32, 32))
+    want = np.asarray(pack(jnp.arange(n, dtype=jnp.int32), -1)).reshape(-1)
+    order, inverse = probe.tile_order(image_shape, (32, 32), CPU)
+    assert np.array_equal(order.numpy(), want)
+    slots = jnp.arange(want.size, dtype=jnp.int32)
+    assert np.array_equal(inverse.numpy(), np.asarray(unpack(slots)))
+
+
+@pytest.mark.parametrize("block", [(32, 32), (4, 8)])
+@pytest.mark.parametrize("image_shape", [(40, 72), (1080 // 8, 1920 // 8),
+                                         (32, 32)])
+def test_tile_order_is_a_permutation(image_shape, block):
+    """Every pixel has one slot, the padded slots are the blocks' excess,
+    each block's pixels are next to each other, and the inverse undoes
+    the order."""
+    H, W = image_shape
+    bh, bw = block
+    order, inverse = probe.tile_order(image_shape, block, CPU)
+    Hp, Wp = -(-H // bh) * bh, -(-W // bw) * bw
+    assert order.numel() == Hp * Wp
+    real = order[order >= 0]
+    assert torch.equal(torch.sort(real).values, torch.arange(H * W))
+    assert torch.equal(order[inverse], torch.arange(H * W))
+    first = order[:bh * bw]
+    assert torch.equal(first, (torch.arange(bh)[:, None] * W
+                               + torch.arange(bw)[None, :]).reshape(-1))
+    o = torch.randn(H * W, 3)
+    po, pd = probe.permute_rays(o, o, order)
+    assert torch.equal(po[inverse], o)
+    assert torch.equal(pd[order < 0], torch.tensor(
+        [probe.PAD_D] * int((order < 0).sum())).reshape(-1, 3))
+
+
+@pytest.mark.parametrize("variant", probe.VARIANTS)
+def test_acc_equal_across_orders(variant):
+    """The rays in each block order, acc put back in pixel order, equal
+    the scanline acc (a 32x32 frame, and its rays as a 16x64 one, whose
+    32x32 blocks are padded)."""
+    _, _, rays = _world()
+    o, d = (torch.from_numpy(x) for x in rays["inside"])
+    table = _table("bricked16")
+    want = probe.march_probe(o, d, table, DIMS, N_ITERS, variant,
+                             "bricked16")
+    for shape in ((32, 32), (16, 64)):
+        for name in ("block32x32", "block4x8"):
+            po, pd, inverse = probe.ordered_rays(o, d, shape, name)
+            got = probe.march_probe(po, pd, table, DIMS, N_ITERS, variant,
+                                    "bricked16")
+            assert torch.equal(got[inverse], want), (shape, name)
+
+
+def test_cost_probe_orders_and_steps_control_flow(monkeypatch):
+    """cost_probe over orders and steps, with the GPU timers replaced: one
+    row per order x step x layout x variant x block size, ns per
+    ray-iteration over the rays given (not the padded slots), and the
+    check across orders."""
+    _, _, rays = _world()
+    o, d = (torch.from_numpy(x) for x in rays["inside"])
+    monkeypatch.setattr(probe, "_require_cuda", lambda device: None)
+    monkeypatch.setattr(probe, "_events_ms", lambda fn, reps: 1.0)
+    monkeypatch.setattr(probe, "device_ms",
+                        lambda *a: (2.0, probe.CLOCK_DEVICE))
+    tables = {lay: _table(lay) for lay in ("morton16", "bricked16")}
+    orders = tuple(probe.ORDERS)
+    rows = probe.cost_probe(o, d, tables, DIMS, n_iters=6,
+                            variants=("nofetch", "full"), threads=(256,),
+                            orders=orders, image_shape=(16, 64),
+                            steps=probe.STEPS)
+    assert [(r["order"], r["step"], r["layout"], r["variant"])
+            for r in rows] == [(od, st, lay, v) for od in orders
+                               for st in probe.STEPS for lay in tables
+                               for v in ("nofetch", "full")]
+    assert {r["slots"] for r in rows if r["order"] == "block32x32"} == {
+        2048}
+    assert rows[0]["ns_per_ray_iter"] == pytest.approx(2.0e6 / (1024 * 6))
+    with pytest.raises(ValueError):
+        probe.cost_probe(o, d, tables, DIMS, orders=("block4x8",))
+    # an order whose acc differs from the first one's is refused
+    real = probe.march_probe
+    monkeypatch.setattr(probe, "march_probe", lambda o_, *a, **k: real(
+        o_, *a, **k) + (o_.shape[0] != o.shape[0]))
+    with pytest.raises(AssertionError):
+        probe.cost_probe(o, d, tables, DIMS, n_iters=2, variants=("full",),
+                         threads=(256,), orders=("scanline", "block32x32"),
+                         image_shape=(16, 64))

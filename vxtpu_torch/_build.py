@@ -110,10 +110,12 @@ def load() -> ctypes.CDLL:
         _P]                                               # stream
     lib.vx_march_resume.restype = _I
     lib.vx_march_probe.argtypes = [
-        _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,       # inputs, params
+        _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,   # inputs, params
         _P,                                               # output
         _P]                                               # stream
     lib.vx_march_probe.restype = _I
+    lib.vx_march_probe_blocks_per_sm.argtypes = [_I, _I, _I, _I, _I, _I, _I]
+    lib.vx_march_probe_blocks_per_sm.restype = _I
     lib.vx_march_packed.argtypes = [
         _P, _P, _P, _I, _P, _I, _I, _I, _I,               # inputs, params
         _P, _P, _P, _P, _P,                               # outputs

@@ -19,8 +19,9 @@ from the plain round 0's state (both sides make the same operations in the
 same order, as K1's do).
 
 March-cost probe (K6, march_probe_kernel): acc equal bit for bit on every
-ray, and on an identity table equal to the count computed from the index
-formula alone.
+ray, in each table layout, for both steps (K1's and the TPU probe's float
+form) and in a block ray order put back in pixel order, and on an
+identity table equal to the count computed from the index formula alone.
 
 Field sampling (K3, K4): forward samples within |d| <= 1e-6 (the same
 operations in the same order); backward gradient tables within rtol 1e-5
@@ -384,8 +385,13 @@ def check_resume_case(m: dict, what: str) -> None:
         raise AssertionError(f"{what}: no ray hit")
 
 
+# variant-layout-camera[-order][-step]: the K1 step in scanline order,
+# then the inside camera in vxtpu's 4x8 block order and in the TPU probe's
+# float step; identity-layout
 PROBE_CASES = ([f"{v}-{lay}-{c}" for v in probe.VARIANTS
                 for lay in probe.LAYOUTS for c in ("outside", "inside")]
+               + [f"{v}-{lay}-inside-{opt}" for opt in ("block4x8", "tpu")
+                  for v in probe.VARIANTS for lay in probe.LAYOUTS]
                + [f"identity-{lay}" for lay in probe.LAYOUTS])
 
 
@@ -393,14 +399,16 @@ def probe_table(layout, grid):
     """The world's table in a probe layout."""
     if layout == "morton16":
         return build_packed_morton(grid.occupancy, cap=64).words
-    return build_packed(grid.occupancy).words
+    packed = build_packed(grid.occupancy)
+    return packed.bricks if layout == "bricked16" else packed.words
 
 
 def probe_identity_expected(o, d, dims, n_iters, layout) -> torch.Tensor:
     """acc of the nomath probe over ``probe.identity_table(layout)``,
     computed from the index formula alone: each ray steps diagonally from
     its clipped floor, and the word of coarse cell c is its index (the
-    bits of c interleaved, or row-major) mod 2^15."""
+    bits of c interleaved, or row-major for both row-major layouts) mod
+    2^15."""
     X, Y, Z = dims
     lim = torch.tensor([X - 1, Y - 1, Z - 1], device=o.device)
     v = torch.minimum(torch.clamp(torch.floor(o), min=0.0).long(), lim)
@@ -423,14 +431,19 @@ def probe_identity_expected(o, d, dims, n_iters, layout) -> torch.Tensor:
 
 def run_probe_case(name: str, device, D: int = 64, h: int = 256,
                    w: int = 256, n_iters: int = probe.N_ITERS) -> dict:
-    """march_probe (the kernel) vs march_probe_reference: variant-layout-
-    camera on the D^3 terrain (seed 11), or identity-layout (the nomath
-    and full variants over probe.identity_table, the nomath one also
-    against probe_identity_expected), outside camera."""
-    kind, layout, *cam = name.split("-")
+    """march_probe (the kernel) vs march_probe_reference:
+    variant-layout-camera[-order][-step] on the D^3 terrain (seed 11; a
+    block order's acc put back in pixel order, against the plain version
+    on the rays in pixel order), or identity-layout (the nomath and full
+    variants over probe.identity_table, the nomath one also against
+    probe_identity_expected), outside camera."""
+    kind, layout, *rest = name.split("-")
     dims = (D,) * 3
-    o, d = generate_rays(_cameras(D, device)[cam[0] if cam else "outside"],
+    o, d = generate_rays(_cameras(D, device)[rest[0] if rest else "outside"],
                          h, w)
+    opts = rest[1:]
+    step = "tpu" if "tpu" in opts else "k1"
+    order = next((x for x in opts if x in probe.ORDERS), "scanline")
     if kind == "identity":
         table = probe.identity_table(layout, dims, device)
         runs = ("nomath", "full")
@@ -438,14 +451,18 @@ def run_probe_case(name: str, device, D: int = 64, h: int = 256,
         table = probe_table(layout, procgen.terrain(dims, seed=11,
                                                     device=device))
         runs = (kind,)
+    po, pd, inverse = probe.ordered_rays(o, d, (h, w), order)
     # acc of static is 0 where the start cell is empty (every ray of the
     # outside camera starts on the grid's face, in the air)
     m = dict(n=int(o.shape[0]), acc=0, max_abs=0.0, acc_sum=0.0,
              may_be_zero=kind == "static")
     for variant in runs:
-        got = probe.march_probe(o, d, table, dims, n_iters, variant, layout)
+        got = probe.march_probe(po, pd, table, dims, n_iters, variant, layout,
+                                step=step)
+        if inverse is not None:
+            got = got[inverse]
         want = probe.march_probe_reference(o, d, table, dims, n_iters,
-                                           variant, layout)
+                                           variant, layout, step)
         m["acc"] += int((got != want).sum())
         m["max_abs"] = max(m["max_abs"], float((got - want).abs().max()))
         m["acc_sum"] += float(got.double().sum())
