@@ -6,8 +6,10 @@ The reference is ``tools/probe_pallas2_cost.py:_kernel`` itself: its body
 ``jax.jit`` over array-backed refs for one [8,128] tile, with its window
 set to the table's rows, so that its read is the exact word. No
 ``pl.pallas_call`` runs; the script is loaded with
-``enable_compilation_cache`` replaced by a no-op, so that its persistent
-cache stays out of this process, and its DIMS set to the test grid.
+``enable_compilation_cache`` replaced by a no-op, so that it does not point
+this process's cache (a temp dir that lives only as long as the process,
+set by the repository's root ``conftest.py``) at ``~/jaxcache``, and its
+DIMS set to the test grid.
 Tolerances: acc equal on every ray for ``empty``, ``nomath`` and
 ``full`` (counts of solid voxels visited: the same voxels on every ray);
 within rtol 1e-6 for ``nofetch``, whose sum of x * 1e-9 XLA contracts
