@@ -2,7 +2,8 @@
 """Drive vxtpu_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--save DIR] [--k5-times | --k1-times |
-                           --scale-out | --bench] [--sass FILE]
+                           --k6-times | --tv-times | --scale-out | --bench]
+                          [--sass FILE]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.
 Phases, each printing what it found (any failure raises, exit code != 0):
@@ -12,7 +13,7 @@ Phases, each printing what it found (any failure raises, exit code != 0):
   3. kernels each kernel against its plain PyTorch version on the card,
              64^3 scenes at 256x256 (vxtpu_torch.kernel_check), each
              instantiation of K1 (march_shade_kernel) on every ray and
-             pixel;
+             pixel, the TV prior's kernel pair (train/kernel_tv.py);
   4. main    the full-size path: 512^3 terrain (seed 7), Morton tables,
              and five 1080x1920 frames through render_frame_fused
              (outside camera lambert; full + shadows + fog in-kernel and
@@ -30,7 +31,8 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              256x256 target view at S = 256 (plain soft renderer, in ray
              chunks) -> five fit_soft steps from SoftGrid.zeros through the
              field-sampling kernels K3/K4 (K4's pure scatter: the rays
-             carry no gradient). Launch counts per K4 variant, the loss
+             carry no gradient) and the TV prior's kernel pair. Launch
+             counts per K4 variant and per TV kernel, the loss
              per step (finite and falling), median step time, peak
              memory; two steps refining the camera pose (K4 with
              kRayGrads, counted); one step's loss and gradient through
@@ -44,7 +46,8 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              wrapper's zero-fill of the dense gradient on its own line
              (K4's bound counts only the rows its samples touch). The
              scene is one channel-interleaved [D^3, 4] Morton table that
-             K3 reads and K4 scatters into;
+             K3 reads and K4 scatters into; then tv_times (below) at
+             512^3;
   7. cross   the fit at 32^3 against the JAX package's loss trajectory and
              K3's outputs against its checksums (vxtpu_torch/data);
   8. pipeline the composable render pipeline (render / animate / bench
@@ -214,6 +217,10 @@ has its clock beside it ("events", "profiler-device").
 --save DIR writes the main-path frames there as PNGs. --scale-out runs
 phases 1 and 2, then phase 11 alone, and prints one JSON line; --bench
 runs phases 1 and 2, then phase 12 alone, and prints one JSON line.
+--tv-times runs phases 1 and 2, then tv_times alone: the TV prior's kernel
+pair against its plain version at 64^3 and 512^3 in every case of
+kernel_check.TV_CASES, and its device time a call at 512^3 beside its
+bounds and the plain version's time; it prints one JSON line.
 --k6-times runs phases 1 and 2, then phase 9's K6 part alone
 (k6_probe) on phase 4's 512^3 world, and prints one JSON line.
 --k5-times runs phases 1 and 2, then K5 alone on its three ray sets as
@@ -273,6 +280,10 @@ BWD = {False: "sample_bwd_kernel<kRayGrads=false>",
 # directions, slab clip, entry voxel) and per iteration (three axis exits,
 # their minimum, the next voxel's position, floor and clamps, the tests)
 K5_OPS_RAY, K5_OPS_STEP = 40, 45
+# float32 operations per table row of the TV prior's kernels
+# (csrc/tv.cu): the forward's 12 differences, 12 squares and 12 adds; the
+# backward's 12 differences, 12 adds and 4 products
+TV_FWD_OPS, TV_BWD_OPS = 36, 28
 # float32 operations the K6 work needs (csrc/probe.cu, the K1 step), per
 # ray: inverse directions (an |d| test, a divide and a select an axis: 9)
 # and the start voxel (clamp and truncate: 9); per iteration by variant:
@@ -466,7 +477,25 @@ def phase_kernels(device, D=64, h=256, w=256) -> dict:
         if m["ray_grads"]:
             err["sample_ray_sum_kernel"] = max(err["sample_ray_sum_kernel"],
                                                m["rays_max_abs"])
+    for case in kc.TV_CASES:
+        m = kc.run_tv_case(D, device, case)
+        print(f"phase 3 kernels: TV prior at {D}^3 ({case}): value "
+              f"{m['value']!r}, plain {m['plain']!r} (rel "
+              f"{m['value_rel']:.3g}), second launch {m['again']!r}; "
+              f"gradient off by {m['grad_err']:.3g} x max |g|")
+        kc.check_tv_case(m, f"TV prior at {D}^3")
+        _add_tv_err(err, m)
     return err
+
+
+def _add_tv_err(err: dict, m: dict) -> None:
+    """Adds a run_tv_case's errors to a kernel -> max error dict: the
+    value's relative error to the forward pair, the gradient's (x max |g|)
+    to the backward."""
+    for k, e in (("tv_fwd_kernel", "value_rel"),
+                 ("tv_fwd_finish_kernel", "value_rel"),
+                 ("tv_bwd_kernel", "grad_err")):
+        err[k] = max(err.get(k, 0.0), m[e])
 
 
 def _main_scene(device, D):
@@ -1926,6 +1955,7 @@ def _grads(tab, plain, o, d, settings, S, lights=None, target=None,
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                                 render_soft_rays_kernel)
+    from vxtpu_torch.train.kernel_tv import tv_prior
     from vxtpu_torch.train.loss import mse, tv_prior_morton
 
     p = tab.detach().clone().requires_grad_(True)
@@ -1933,7 +1963,8 @@ def _grads(tab, plain, o, d, settings, S, lights=None, target=None,
                                   lights=lights, plain=plain, mask=mask,
                                   seg_bounds=bounds)
     if target is not None:
-        loss = mse(out, target) + tv_prior_morton(p, tc.tv_sigma, tc.tv_rgb)
+        prior = tv_prior_morton if plain else tv_prior
+        loss = mse(out, target) + prior(p, tc.tv_sigma, tc.tv_rgb)
         g, = torch.autograd.grad(loss, [p])
         return loss.detach(), kc.channels(g)
     g, = torch.autograd.grad(out, [p], cot)
@@ -1992,12 +2023,14 @@ def _profile_step(step, device, big, steps=2):
 
 def _group_kernels(kernels: dict, dense: dict) -> dict:
     """Device ms per step by part: K3, K4 (its scatter, and its ray sums
-    where they run), Adam (its multi-tensor kernels), the TV prior (the
-    dense ops on its [D^3/8, 2, 2, 2, 4] view of the table, forward and
-    backward: the only inputs of 4 or more dimensions in a step), the
-    other dense-table glue (K4's zero-fill, gradient accumulation), and
-    the rest (the [S, N] math of render_soft_rays_kernel and its
-    autograd)."""
+    where they run), Adam (its multi-tensor kernels), the TV prior (its
+    kernels, train/kernel_tv.py; in the plain version the dense ops on its
+    [D^3/8, 2, 2, 2, 4] view of the table, forward and backward: the only
+    inputs of 4 or more dimensions in a step), the other dense-table glue
+    (K4's zero-fill, gradient accumulation), and the rest (the [S, N] math
+    of render_soft_rays_kernel and its autograd)."""
+    from vxtpu_torch.train import kernel_tv
+
     tv = sum(ms for ms, ndim in dense.values() if ndim >= 4)
     glue = sum(ms for ms, ndim in dense.values() if ndim < 4)
     groups = {"K3 sample_fwd_kernel": 0.0, "K4 sample_bwd_kernel": 0.0,
@@ -2011,6 +2044,8 @@ def _group_kernels(kernels: dict, dense: dict) -> dict:
             groups["K4 sample_bwd_kernel"] += ms
         elif "adam" in low or "multi_tensor" in low:
             groups["Adam"] += ms
+        elif any(k in name for k in kernel_tv.LAUNCHES):
+            groups["TV prior"] += ms
         else:
             groups["[S,N] math"] += ms
     return groups
@@ -2035,6 +2070,87 @@ def _bound(b, f) -> dict:
     tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
     return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
                 bound_by="bytes" if tb >= tf else "operations")
+
+
+def tv_times(device, D=FULL, reps=10, rounds=3) -> dict:
+    """The Morton TV prior's kernel pair (train/kernel_tv.py) at 64^3 and
+    D^3 against its plain version in each of kernel_check.TV_CASES
+    (run_tv_case; raises on a difference; "err" the largest errors by
+    kernel), then on one random D^3 table the device times, each the
+    median of ``rounds`` profiler windows of ``reps`` calls
+    (render/probe.py:device_ms): each kernel's a launch ("fwd_kernel",
+    "fwd_finish", "bwd": tv_bwd_kernel), a forward call's ("fwd": the
+    sum of its two kernels), beside their bounds (the forward reads the
+    table once, the backward reads it and writes its gradient once), and
+    the plain version's a call, its forward alone and forward with
+    backward (autograd)."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.render import probe
+    from vxtpu_torch.train import kernel_tv
+    from vxtpu_torch.train.loss import tv_prior_morton
+
+    out = {"checks": {}, "err": {}}
+    for dim in (64, D):
+        for case in kc.TV_CASES:
+            m = kc.run_tv_case(dim, device, case)
+            kc.check_tv_case(m, f"TV prior at {dim}^3")
+            out["checks"][f"{dim}/{case}"] = m
+            _add_tv_err(out["err"], m)
+            print(f"TV prior at {dim}^3 ({case}): value {m['value']!r}, "
+                  f"plain {m['plain']!r} (rel {m['value_rel']:.3g}), second "
+                  f"launch equal; gradient off by {m['grad_err']:.3g} x max "
+                  f"|g|")
+            torch.cuda.empty_cache()
+    tab = kc.tv_table(D, device, seed=1)
+    g = torch.ones((), device=device)
+    w = kc.TV_WEIGHTS
+    q = tab.clone().requires_grad_(True)
+    rows = tab.shape[0]
+    fwd = _bound(rows * 16, rows * TV_FWD_OPS)
+    # each kernel's time a launch, over the launches the profiler recorded
+    # (it can drop some); the plain version's a call, over every call
+    calls = {
+        "fwd_kernel": ("tv_fwd_kernel", lambda: kernel_tv.tv_fwd(tab, *w),
+                       fwd),
+        # the partials read and the value written
+        "fwd_finish": ("tv_fwd_finish_kernel",
+                       lambda: kernel_tv.tv_fwd(tab, *w),
+                       _bound(kernel_tv.FWD_PARTS * 16 + 4,
+                              kernel_tv.FWD_PARTS * 4)),
+        "bwd": ("tv_bwd_kernel", lambda: kernel_tv.tv_bwd(tab, g, *w),
+                _bound(rows * 32, rows * TV_BWD_OPS)),
+        "plain_fwd": ("", lambda: tv_prior_morton(tab, *w), None),
+        "plain_fwd_bwd": ("", lambda: torch.autograd.grad(
+            tv_prior_morton(q, *w), [q]), None)}
+    for name, (kernel, fn, bound) in calls.items():
+        runs = [probe.device_ms(fn, reps, kernel, per_call=not kernel)
+                for _ in range(rounds)]
+        out[name] = dict(device_ms=statistics.median(r[0] for r in runs),
+                         clock=runs[0][1], rounds_ms=[r[0] for r in runs],
+                         bound=bound)
+        torch.cuda.empty_cache()
+    # a forward call: its two kernels
+    out["fwd"] = dict(device_ms=out["fwd_kernel"]["device_ms"]
+                      + out["fwd_finish"]["device_ms"],
+                      clock=out["fwd_kernel"]["clock"], bound=fwd)
+    for name in [*calls, "fwd"]:
+        row = out[name]
+        bound = row.pop("bound")
+        ms = row["device_ms"]
+        if bound is not None:
+            row.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                       share=bound["bound_ms"] / ms)
+            if row["share"] > 1.05:
+                raise AssertionError(f"TV prior at {D}^3, {name}: {ms} ms "
+                                     f"is below its bound {row['bound_ms']} "
+                                     f"ms: the time misses part of the work")
+        print(f"TV prior at {D}^3, {name}: {ms:.4f} ms "
+              f"({row['clock']})" + (f"; bound {row['bound_ms']:.4f} ms "
+                                     f"({row['bound_by']}), share "
+                                     f"{row['share']:.3f}" if bound else ""))
+    return out
 
 
 def sample_bounds(n, S, D, active_samples, touched, lit=False,
@@ -2106,7 +2222,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     from vxtpu_torch.render import kernel_sample as ks
     from vxtpu_torch.render import soft
     from vxtpu_torch.render.soft_kernel import MortonSoftGrid, _enter_dt_soft
-    from vxtpu_torch.train import loop
+    from vxtpu_torch.train import kernel_tv, loop
     from vxtpu_torch.world import procgen
     from vxtpu_torch.world.lights import Lights
 
@@ -2133,16 +2249,19 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     ks.reset_launch_counts()
+    kernel_tv.reset_launch_counts()
     timer()
     fitted, _, losses, _ = loop.fit_soft(
         soft.SoftGrid.zeros(dims, device=device), cam,
         target.reshape(h, w, 3), settings, tc, step_hook=timer)
     _sync(device)
     launches = dict(ks.LAUNCHES)
+    tv_launches = dict(kernel_tv.LAUNCHES)
     step_ms = timer.ms()
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else float("nan"))
-    print(f"phase 6 train: launches during the {steps} steps: {launches}")
+    print(f"phase 6 train: launches during the {steps} steps: {launches}; "
+          f"TV prior {tv_launches}")
     print(f"phase 6 train: losses {losses}")
     print(f"phase 6 train: step ms {[round(x, 3) for x in step_ms]} "
           f"(the first includes the Morton conversion); median of steps "
@@ -2154,6 +2273,10 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
         raise AssertionError(f"the train steps did not run K3 and K4's pure "
                              f"scatter once each a step, and nothing else "
                              f"of K4's: {launches}")
+    if device.type == "cuda" and tv_launches != dict.fromkeys(
+            kernel_tv.LAUNCHES, steps):
+        raise AssertionError(f"the train steps did not run each TV prior "
+                             f"kernel once a step: {tv_launches}")
     _check_losses(losses)
 
     # the kRayGrads variant's own path: fit_soft refining the camera pose,
@@ -2336,8 +2459,13 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
                                     key=lambda kv: -kv[1][0])[:8]:
             print(f"phase 6 train:   dense op {ms:8.3f} ms  {name[:90]}")
         times["profile"] = dict(groups=groups, wall_ms=wall, busy_ms=busy)
+        # the TV prior's kernel pair alone at D^3, in every case
+        del model, opt
+        torch.cuda.empty_cache()
+        times["tv"] = tv_times(device, D)
     return {"launches": launches, "cam_launches": cam_launches, "err": err,
-            "times": times, "losses": losses, "step_ms": step_ms}
+            "tv_launches": tv_launches, "times": times, "losses": losses,
+            "step_ms": step_ms}
 
 
 def _check_losses(losses) -> None:
@@ -3917,6 +4045,12 @@ def main(argv=None) -> int:
                    help="phases 1 and 2, then phase 9's K6 part alone "
                         "(k6_probe) on phase 4's 512^3 world and 1080x1920 "
                         "rays, and a JSON line of its results")
+    p.add_argument("--tv-times", action="store_true",
+                   help="phases 1 and 2, then the TV prior's kernel pair "
+                        "against its plain version at 64^3 and 512^3 and "
+                        "its device time a call at 512^3 beside its bounds "
+                        "and the plain version's (tv_times), and a JSON "
+                        "line of the results")
     p.add_argument("--scale-out", action="store_true",
                    help="phases 1 and 2, then phase 11 alone (the sharded "
                         "paths, config 5 at full size) and a JSON line of "
@@ -3942,6 +4076,12 @@ def main(argv=None) -> int:
     if args.bench:
         out = phase_bench(device, card=smi)
         print(json.dumps({"bench": out, "gpu": smi}, default=str))
+        return 0
+    if args.tv_times:
+        out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
+                                     if k.startswith("tv_")},
+               "tv_times": tv_times(device)}
+        print(json.dumps(out, default=str))
         return 0
     if args.k6_times:
         from vxtpu_torch.world import procgen
@@ -4080,6 +4220,28 @@ def main(argv=None) -> int:
             kernels[-1]["masked"] = {
                 "launches": mask["launches"][k],
                 "max_abs_err": mask["err"][k], **mask["alone"][k]}
+    # the TV prior's pair: launches of the five c4 steps, errors of phase
+    # 3 (64^3) and phase 6 (64^3 and 512^3, every case), times at 512^3
+    tv = tt["tv"]
+    for k, row, plain in (("tv_fwd_kernel", "fwd_kernel", "plain_fwd"),
+                          ("tv_fwd_finish_kernel", "fwd_finish", "plain_fwd"),
+                          ("tv_bwd_kernel", "bwd", "plain_fwd_bwd")):
+        r = tv[row]
+        kernels.append({
+            "name": k, "route": "cuda", "source": "vxtpu_torch/csrc/tv.cu",
+            "replaces": "none (vxtpu/train/loss.py:tv_loss_morton is plain "
+                        "jnp that XLA fuses)",
+            "launches": train["tv_launches"][k],
+            "max_abs_err": max(err3[k], tv["err"][k]),
+            "max_abs_err_is": ("the value's relative error" if "fwd" in k
+                               else "the gradient's error x max |g|"),
+            "device_ms": r["device_ms"], "device_ms_clock": r["clock"],
+            "call_device_ms": tv["fwd" if "fwd" in k else "bwd"]["device_ms"],
+            "plain_ms": tv[plain]["device_ms"],
+            "plain_ms_is": ("the plain forward" if plain == "plain_fwd"
+                            else "the plain forward and backward"),
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None})
     pt = pipe["times"]
     c3, c3s, big = pt["c3"], pt["c3_shadow"], pt["big"]["k5"]
     kernels.append({

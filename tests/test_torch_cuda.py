@@ -141,6 +141,70 @@ def test_cuda_tensor_never_reaches_sample_plain_versions(cuda, monkeypatch):
                            "sample_ray_sum_kernel": 1}
 
 
+@pytest.mark.parametrize("case", list(kc.TV_CASES))
+@pytest.mark.parametrize("D", [64, 512])
+def test_tv_kernels_match_plain(cuda, D, case):
+    """The TV prior's kernel pair against its plain version at D^3 in each
+    of kernel_check.TV_CASES (a zero weight, an upstream gradient of 3.7,
+    a gradient accumulated onto an existing .grad): the value within rel
+    1e-6 and equal bit for bit on a second launch, the gradient within
+    1e-6 x max|g|; one launch of each kernel a forward, one backward."""
+    m = kc.run_tv_case(D, cuda, case)
+    kc.check_tv_case(m, f"TV prior at {D}^3")
+    assert m["launches"] == {"tv_fwd_kernel": 2, "tv_fwd_finish_kernel": 2,
+                             "tv_bwd_kernel": 1}
+
+
+def test_tv_kernels_never_sync_and_never_reach_the_plain_version(
+        cuda, monkeypatch):
+    """Forward and backward of the prior on a CUDA table run clean under
+    torch.cuda.set_sync_debug_mode("error") (no host sync: g is read on
+    the device), and the plain version is not called, not even as a
+    fallback."""
+    from vxtpu_torch.train import kernel_tv
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(kernel_tv, "tv_prior_morton", boom)
+    tab = kc.tv_table(64, cuda).requires_grad_(True)
+    kernel_tv.tv_prior(tab.detach(), 1e-4, 1e-5)        # build, load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        (2.0 * kernel_tv.tv_prior(tab, 1e-4, 1e-5)).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(tab.grad).all())
+
+
+def test_field_kernel_fit_launches_the_tv_kernels(cuda):
+    """Three fit_soft steps with field_kernel at 32^3 launch each TV
+    kernel once a step."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.render import soft
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.train import kernel_tv, loop
+
+    truth = soft.SoftGrid.from_hard(procgen.terrain(
+        (32,) * 3, seed=7, with_rgb=True, device=cuda))
+    cam = Camera.make(pos=(-22.4, 16.0, 35.2), device=cuda).look_at(
+        (16.0, 16.0, 8.64))
+    with torch.no_grad():
+        target = soft.render_soft_image(truth, cam, RenderSettings(), 32, 32,
+                                        32)
+    kernel_tv.reset_launch_counts()
+    _, _, losses, _ = loop.fit_soft(
+        soft.SoftGrid.zeros((32,) * 3, device=cuda), cam, target,
+        RenderSettings(), loop.TrainConfig(steps=3, num_samples=16,
+                                           field_kernel=True))
+    assert kernel_tv.LAUNCHES == {"tv_fwd_kernel": 3,
+                                  "tv_fwd_finish_kernel": 3,
+                                  "tv_bwd_kernel": 3}
+    assert losses[-1] < losses[0]
+
+
 def test_sample_bwd_refuses_another_chunk_length(cuda, monkeypatch):
     """The wrapper passes RAY_CHUNK to the kRayGrads kernel, which refuses
     any length but its own (the scratch is sized from RAY_CHUNK)."""

@@ -131,6 +131,11 @@ def load() -> ctypes.CDLL:
     lib.vx_sample_bwd.restype = _I
     lib.vx_sample_ray_sum.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P]
     lib.vx_sample_ray_sum.restype = _I
+    _L, _F = ctypes.c_int64, ctypes.c_float
+    lib.vx_tv_fwd.argtypes = [_P, _L, _F, _F, _P, _I, _P, _P]
+    lib.vx_tv_fwd.restype = _I
+    lib.vx_tv_bwd.argtypes = [_P, _L, _P, _F, _F, _P, _P]
+    lib.vx_tv_bwd.restype = _I
     lib.vx_error_string.argtypes = [_I]
     lib.vx_error_string.restype = ctypes.c_char_p
     return lib

@@ -30,6 +30,14 @@ in an order that changes from run to run (the plain version sums in
 float64; two runs of the kernel are held to the same limits); per-ray
 cotangents (the kRayGrads variant) equal bit for bit (summed in chunks
 in a fixed order, the plain version in the same order).
+
+Morton TV prior (tv_fwd_kernel, tv_fwd_finish_kernel, tv_bwd_kernel):
+the value within rel 1e-6 of the plain version's (train/loss.py:
+tv_prior_morton; both sum in float32, in other orders) and equal bit for
+bit on a second launch; the gradient within 1e-6 x its max |g| of the
+plain version's autograd gradient; in each of TV_CASES (a zero weight,
+an upstream gradient other than 1, a gradient accumulated onto an
+existing .grad).
 """
 
 from __future__ import annotations
@@ -47,6 +55,8 @@ from vxtpu_torch.render.fused import render_rays_fused
 from vxtpu_torch.render.pipeline import shadow_ray_batch
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft_kernel import MortonSoftGrid, _enter_dt_soft
+from vxtpu_torch.train import kernel_tv
+from vxtpu_torch.train.loss import tv_prior_morton
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.lights import Lights
 from vxtpu_torch.world.packed import (build_material_morton, build_packed,
@@ -790,3 +800,73 @@ def golden_sample_inputs(D: int = 16, n: int = 1024, S: int = 8,
     t0, dt, _ = _enter_dt_soft(torch.from_numpy(o), torch.from_numpy(d),
                                (D,) * 3, S, None)
     return fields, o, d, t0.numpy(), dt.numpy(), S
+
+
+TV_RTOL = 1e-6
+TV_ATOL_REL = 1e-6
+# case -> (tv_sigma, tv_rgb, upstream gradient, an existing .grad); the
+# trainer's weights (TrainConfig: tv_sigma, tv_rgb) are 1e-4 and 1e-5
+TV_CASES = {"both": (1e-4, 1e-5, 1.0, False),
+            "rgb_zero": (1e-4, 0.0, 1.0, False),
+            "sigma_zero": (0.0, 1e-5, 1.0, False),
+            "upstream_3.7": (1e-4, 1e-5, 3.7, False),
+            "accumulated": (1e-4, 1e-5, 1.0, True)}
+TV_WEIGHTS = TV_CASES["both"][:2]
+
+
+def tv_table(D, device, seed=0):
+    """A random [D^3, 4] table, sigma twice the spread of r, g, b, drawn
+    on ``device`` (a 512^3 table is 537 M numbers)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    tab = torch.randn((D ** 3, 4), generator=g, device=device)
+    tab[:, 0] *= 2.0
+    return tab
+
+
+def run_tv_case(D, device, case="upstream_3.7", seed=0):
+    """The TV prior's kernel pair against its plain version on one table,
+    in one of TV_CASES: the value (twice, for the bit-for-bit repeat) and
+    the gradient of the upstream gradient x the prior, accumulated onto
+    an existing .grad (random, of the prior gradient's magnitude) where
+    the case has one."""
+    w_s, w_rgb, up, accumulate = TV_CASES[case]
+    tab = tv_table(D, device, seed)
+    before = (tv_table(D, device, seed + 1) * (8e-4 / (3 * D ** 3))
+              if accumulate else None)
+
+    def grad_of(prior):
+        x = tab.clone().requires_grad_(True)
+        if before is not None:
+            x.grad = before.clone()
+        v = prior(x, w_s, w_rgb)
+        (up * v).backward()
+        return float(v.detach()), x.grad
+
+    kernel_tv.reset_launch_counts()
+    v, gk = grad_of(kernel_tv.tv_prior)
+    again = float(kernel_tv.tv_prior(tab, w_s, w_rgb))
+    launches = dict(kernel_tv.LAUNCHES)
+    w, gp = grad_of(tv_prior_morton)
+    scale = float((gp if before is None else gp - before).abs().max())
+    return dict(D=D, case=case, device=torch.device(device).type, value=v,
+                again=again, plain=w, value_rel=abs(v - w) / abs(w),
+                grad_err=float((gk - gp).abs().max()) / scale,
+                grad_scale=scale, launches=launches)
+
+
+def check_tv_case(m: dict, what: str) -> None:
+    what = f"{what} ({m['case']})"
+    if m["value"] != m["again"]:
+        raise AssertionError(f"{what}: two launches gave {m['value']!r} and "
+                             f"{m['again']!r}")
+    if not m["value_rel"] <= TV_RTOL:
+        raise AssertionError(f"{what}: value {m['value']!r}, plain "
+                             f"{m['plain']!r} (rel {m['value_rel']:.3g})")
+    if not m["grad_err"] <= TV_ATOL_REL:
+        raise AssertionError(f"{what}: gradient off by {m['grad_err']:.3g} "
+                             f"x max |g|")
+    if m["device"] == "cuda" and m["launches"] != {
+            "tv_fwd_kernel": 2, "tv_fwd_finish_kernel": 2,
+            "tv_bwd_kernel": 1}:
+        raise AssertionError(f"{what}: launches {m['launches']}, not one of "
+                             f"each kernel a forward and one a backward")

@@ -9,8 +9,9 @@ PyTorch runs eagerly, so a step is a plain loop body: loss, backward,
 ``torch.optim.Adam`` (vxtpu's ``optax.adam``: betas (0.9, 0.999), eps
 1e-8, the same update up to rounding). With ``field_kernel`` the scene is
 trained in fine-voxel Morton layout through the sampling kernels
-(``render/soft_kernel.py``) with the Morton TV prior, and Adam sees one
-tensor, its [D^3, 4] table; otherwise through the plain soft renderer
+(``render/soft_kernel.py``) with the Morton TV prior (on the card its
+kernel pair, ``train/kernel_tv.py``), and Adam sees one tensor, its
+[D^3, 4] table; otherwise through the plain soft renderer
 and autograd. With ``occ_mask`` the fit trains the masked soft model
 (``render/occmask.py``): the mask starts all ones, is rebuilt from the
 current density every ``mask_refresh`` steps, and each step samples only
@@ -44,7 +45,8 @@ from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
 from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                             render_soft_rays_kernel)
 from vxtpu_torch.render.vjp import render_soft_rays_fast
-from vxtpu_torch.train.loss import mse, tv_loss, tv_prior_morton
+from vxtpu_torch.train.kernel_tv import tv_prior
+from vxtpu_torch.train.loss import mse, tv_loss
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -101,8 +103,7 @@ def _loss_fn(model, cam: Camera, o, d, target, hw,
                                        cfg.num_samples, **masked)
         loss = mse(pred, target)
         if cfg.tv_sigma or cfg.tv_rgb:
-            loss = loss + tv_prior_morton(model.tab, cfg.tv_sigma,
-                                          cfg.tv_rgb)
+            loss = loss + tv_prior(model.tab, cfg.tv_sigma, cfg.tv_rgb)
         return loss
     if cfg.use_custom_vjp:
         pred = render_soft_rays_fast(model, o, d, settings, cfg.num_samples,
