@@ -80,6 +80,15 @@ _NOT_PORTED = {
 }
 KERNELS = ["xla", "wavefront", "ref", "pallas", "pallas2", "fused",
            "pallas-interpret"]
+# the one table kind a pipeline kernel marches (its factory builds this
+# kind from the grid when it is handed another, in every frame)
+_MARCHED_ACCEL = {"pallas": "packed", "pallas2": "morton"}
+
+
+def marched_accel(kernel: str, accel_kind: str) -> str:
+    """The table kind to build at set-up for ``kernel``: the kind it
+    marches where it marches one kind only, else ``accel_kind``."""
+    return _MARCHED_ACCEL.get(kernel, accel_kind)
 
 
 def build_scene(cfg: SceneConfig, dims=None, accel_kind="none",
@@ -180,13 +189,16 @@ def make_frame(cfg, dims, h, w, device, kernel, accel_kind="none",
                atlas=None):
     """(frame(cam) -> [H, W, 3] through ``kernel``, the scene's camera).
     The fused kernel marches the Morton table and shades in the kernel;
-    the pipeline kernels take the ``accel_kind`` table and shade in
-    PyTorch, with face textures from ``atlas`` when it is given."""
+    the pipeline kernels take the ``accel_kind`` table (``pallas`` and
+    ``pallas2`` the one kind each marches, whatever ``accel_kind`` says)
+    and shade in PyTorch, with face textures from ``atlas`` when it is
+    given. Every table is built here, once."""
     fused = kernel == "fused"
     if not fused:
         factory = kernel_factory(kernel)
     grid, accel, cam, lights = build_scene(
-        cfg, dims, "none" if fused else accel_kind, device)
+        cfg, dims, "none" if fused else marched_accel(kernel, accel_kind),
+        device)
     if fused:
         acc, mats, rgb8 = _fused_tables(grid)
 
@@ -476,7 +488,8 @@ def cmd_scaling(args) -> int:
     cfg, dims, h, w, _ = _scene_args(args)
     fused = args.kernel == "fused"
     grid, accel, cam, lights = build_scene(
-        cfg, dims, "none" if fused else args.accel, device)
+        cfg, dims, "none" if fused else marched_accel(args.kernel,
+                                                      args.accel), device)
     if fused:
         acc, mats, rgb8 = _fused_tables(grid)
 
@@ -550,8 +563,8 @@ def main(argv=None) -> int:
                         choices=["distfield", "pyramid", "packed", "morton",
                                  "none"], default="distfield",
                         help="table handed to the pipeline's march factory "
-                             "(a factory builds its own kind when it is "
-                             "another)")
+                             "(pallas and pallas2 take the kind they march, "
+                             "packed and morton, whatever is given)")
         sp.add_argument("--kernel", choices=KERNELS, default="fused")
         device_arg(sp)
 

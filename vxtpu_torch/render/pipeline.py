@@ -7,11 +7,21 @@ Every march plugs in through the same closure,
 row-major kernel, the CLI's ``--kernel pallas``) or
 ``kernel_march.make_march`` (the fused kernel in march-only mode,
 ``--kernel pallas2``). Shading runs in PyTorch (``render/shade.py``).
+
+A frame records one ``torch.profiler`` span a stage: ``SPAN + "rays"``
+(``generate_rays``), ``"march"`` (the primary march), ``"shadows"`` (the
+shadow rays toward one light and their march, once a light) and
+``"shade"`` (albedo gather, lighting, fog, sky, clamp), while a profiler
+runs; without one a frame opens no span, since an idle span still costs
+two dispatcher calls of host time in a frame bound by its host.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.profiler import record_function
 
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.camera.rays import generate_rays
@@ -20,6 +30,15 @@ from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.shade import SHADOW_EPS, shade
 from vxtpu_torch.world.grid import VoxelGrid
 from vxtpu_torch.world.lights import Lights
+
+SPAN = "vxtpu_torch.pipeline."
+
+
+def _span(stage: str):
+    """The profiler span of one stage, or none when no profiler runs."""
+    if torch.autograd._profiler_enabled():
+        return record_function(SPAN + stage)
+    return contextlib.nullcontext()
 
 
 def shadow_ray_batch(rec, o, d, light_pos):
@@ -37,9 +56,10 @@ def shadow_visibility(march, rec, o, d, lights: Lights) -> torch.Tensor:
     is unoccluded, and for misses (they are sky, never lit)."""
     cols = []
     for li in range(lights.count):
-        p, ldir, tm = shadow_ray_batch(rec, o, d, lights.pos[li])
-        srec = march(p, ldir, t_max=tm)
-        cols.append(torch.where(srec.hit & rec.hit, 0.0, 1.0))
+        with _span("shadows"):
+            p, ldir, tm = shadow_ray_batch(rec, o, d, lights.pos[li])
+            srec = march(p, ldir, t_max=tm)
+            cols.append(torch.where(srec.hit & rec.hit, 0.0, 1.0))
     if not cols:
         return torch.ones((o.shape[0], 0), dtype=torch.float32,
                           device=o.device)
@@ -49,12 +69,14 @@ def shadow_visibility(march, rec, o, d, lights: Lights) -> torch.Tensor:
 def render_rays(march, o, d, albedo_src, dims, lights: Lights,
                 settings: RenderSettings, atlas=None, material_ids=None):
     """Rays [N, 3] -> (rgb [N, 3], HitRecord) through the march closure."""
-    rec = march(o, d)
+    with _span("march"):
+        rec = march(o, d)
     vis = None
     if settings.shadows and settings.shading != "flat" and lights.count > 0:
         vis = shadow_visibility(march, rec, o, d, lights)
-    rgb = shade(rec, o, d, albedo_src, dims, lights, settings,
-                shadow_vis=vis, atlas=atlas, material_ids=material_ids)
+    with _span("shade"):
+        rgb = shade(rec, o, d, albedo_src, dims, lights, settings,
+                    shadow_vis=vis, atlas=atlas, material_ids=material_ids)
     return rgb, rec
 
 
@@ -68,7 +90,8 @@ def render_image(march_factory, grid: VoxelGrid, cam: Camera,
     dims = grid.dims
     occ_flat = grid.occupancy.reshape(-1)
     march = march_factory(occ_flat, dims, settings, accel)
-    o, d = generate_rays(cam, height, width)
+    with _span("rays"):
+        o, d = generate_rays(cam, height, width)
     rgb, _ = render_rays(march, o, d, grid.albedo(), dims, lights, settings,
                          atlas=atlas, material_ids=occ_flat)
     return rgb.reshape(height, width, 3)
