@@ -2,7 +2,8 @@
 """Drive vxtpu_torch's main path on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--save DIR] [--k5-times | --k1-times |
-                           --k6-times | --tv-times | --scale-out | --bench]
+                           --k6-times | --tv-times | --adam-times |
+                           --scale-out | --bench]
                           [--sass FILE]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.
@@ -13,7 +14,9 @@ Phases, each printing what it found (any failure raises, exit code != 0):
   3. kernels each kernel against its plain PyTorch version on the card,
              64^3 scenes at 256x256 (vxtpu_torch.kernel_check), each
              instantiation of K1 (march_shade_kernel) on every ray and
-             pixel, the TV prior's kernel pair (train/kernel_tv.py);
+             pixel, the TV prior's kernel pair (train/kernel_tv.py),
+             Adam's kernel against torch's foreach step
+             (train/kernel_adam.py);
   4. main    the full-size path: 512^3 terrain (seed 7), Morton tables,
              and five 1080x1920 frames through render_frame_fused
              (outside camera lambert; full + shadows + fog in-kernel and
@@ -31,8 +34,9 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              256x256 target view at S = 256 (plain soft renderer, in ray
              chunks) -> five fit_soft steps from SoftGrid.zeros through the
              field-sampling kernels K3/K4 (K4's pure scatter: the rays
-             carry no gradient) and the TV prior's kernel pair. Launch
-             counts per K4 variant and per TV kernel, the loss
+             carry no gradient), the TV prior's kernel pair and Adam's
+             kernel. Launch counts per K4 variant, per TV kernel and of
+             Adam's kernel (one a step), the loss
              per step (finite and falling), median step time, peak
              memory; two steps refining the camera pose (K4 with
              kRayGrads, counted); one step's loss and gradient through
@@ -46,8 +50,8 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              wrapper's zero-fill of the dense gradient on its own line
              (K4's bound counts only the rows its samples touch). The
              scene is one channel-interleaved [D^3, 4] Morton table that
-             K3 reads and K4 scatters into; then tv_times (below) at
-             512^3;
+             K3 reads and K4 scatters into; then tv_times and
+             adam_times (below) at 512^3;
   7. cross   the fit at 32^3 against the JAX package's loss trajectory and
              K3's outputs against its checksums (vxtpu_torch/data);
   8. pipeline the composable render pipeline (render / animate / bench
@@ -221,6 +225,12 @@ runs phases 1 and 2, then phase 12 alone, and prints one JSON line.
 pair against its plain version at 64^3 and 512^3 in every case of
 kernel_check.TV_CASES, and its device time a call at 512^3 beside its
 bounds and the plain version's time; it prints one JSON line.
+--adam-times runs phases 1 and 2, then adam_times alone: Adam's kernel
+against torch's foreach step in every case of kernel_check.ADAM_CASES and
+over three steps of a 512^3 table, and its device time a launch at 512^3
+beside its bound (the table, its gradient and both moments read once,
+three of them written once), the plain version's and the foreach step's
+a call; it prints one JSON line.
 --k6-times runs phases 1 and 2, then phase 9's K6 part alone
 (k6_probe) on phase 4's 512^3 world, and prints one JSON line.
 --k5-times runs phases 1 and 2, then K5 alone on its three ray sets as
@@ -284,6 +294,10 @@ K5_OPS_RAY, K5_OPS_STEP = 40, 45
 # (csrc/tv.cu): the forward's 12 differences, 12 squares and 12 adds; the
 # backward's 12 differences, 12 adds and 4 products
 TV_FWD_OPS, TV_BWD_OPS = 36, 28
+# float32 operations per element of Adam's kernel (csrc/adam.cu): g - m,
+# three fused multiply-adds (2 each), g g, beta2 v, sqrt, two divides and
+# the add of eps
+ADAM_OPS = 13
 # float32 operations the K6 work needs (csrc/probe.cu, the K1 step), per
 # ray: inverse directions (an |d| test, a divide and a select an axis: 9)
 # and the start voxel (clamp and truncate: 9); per iteration by variant:
@@ -485,6 +499,16 @@ def phase_kernels(device, D=64, h=256, w=256) -> dict:
               f"gradient off by {m['grad_err']:.3g} x max |g|")
         kc.check_tv_case(m, f"TV prior at {D}^3")
         _add_tv_err(err, m)
+    err["adam_step_kernel"] = 0.0
+    for name, case in kc.ADAM_CASES.items():
+        m = kc.run_adam_case(device, **case)
+        print(f"phase 3 kernels: Adam ({name}): {m['steps']} steps against "
+              f"torch's foreach step: allclose excess {m['excess']:.3g}, "
+              f"max |d| {m['max_abs']:.3g}, {m['unequal']} of "
+              f"{m['elements']} values not bit-equal; second run equal "
+              f"{m['rerun_equal']}; launches {m['launches']}")
+        kc.check_adam_case(m, f"Adam ({name})")
+        err["adam_step_kernel"] = max(err["adam_step_kernel"], m["max_abs"])
     return err
 
 
@@ -2023,13 +2047,13 @@ def _profile_step(step, device, big, steps=2):
 
 def _group_kernels(kernels: dict, dense: dict) -> dict:
     """Device ms per step by part: K3, K4 (its scatter, and its ray sums
-    where they run), Adam (its multi-tensor kernels), the TV prior (its
+    where they run), Adam (adam_step_kernel), the TV prior (its
     kernels, train/kernel_tv.py; in the plain version the dense ops on its
     [D^3/8, 2, 2, 2, 4] view of the table, forward and backward: the only
     inputs of 4 or more dimensions in a step), the other dense-table glue
     (K4's zero-fill, gradient accumulation), and the rest (the [S, N] math
     of render_soft_rays_kernel and its autograd)."""
-    from vxtpu_torch.train import kernel_tv
+    from vxtpu_torch.train import kernel_adam, kernel_tv
 
     tv = sum(ms for ms, ndim in dense.values() if ndim >= 4)
     glue = sum(ms for ms, ndim in dense.values() if ndim < 4)
@@ -2042,7 +2066,7 @@ def _group_kernels(kernels: dict, dense: dict) -> dict:
             groups["K3 sample_fwd_kernel"] += ms
         elif "sample_bwd_kernel" in name or "sample_ray_sum_kernel" in name:
             groups["K4 sample_bwd_kernel"] += ms
-        elif "adam" in low or "multi_tensor" in low:
+        elif any(k in name for k in kernel_adam.LAUNCHES):
             groups["Adam"] += ms
         elif any(k in name for k in kernel_tv.LAUNCHES):
             groups["TV prior"] += ms
@@ -2153,6 +2177,89 @@ def tv_times(device, D=FULL, reps=10, rounds=3) -> dict:
     return out
 
 
+def adam_bound(D) -> dict:
+    """Adam's update of the [D^3, 4] float32 table: the table, its
+    gradient and the two moments read once, the table and the moments
+    written once (7 x 16 B a row), ADAM_OPS an element."""
+    return _bound(7 * 16 * D ** 3, ADAM_OPS * 4 * D ** 3)
+
+
+def adam_times(device, D=FULL, reps=10, rounds=3, steps=3) -> dict:
+    """Adam's kernel (train/kernel_adam.py) against torch's foreach step in
+    each of kernel_check.ADAM_CASES and over ``steps`` steps of a random
+    [D^3, 4] table (run_adam_case; raises on a difference; "err" the
+    largest |difference|), then on one random [D^3, 4] table, gradient and
+    moments the device times, each the median of ``rounds`` profiler
+    windows of ``reps`` calls (render/probe.py:device_ms): the kernel's a
+    launch ("kernel", beside adam_bound; a share above 1.05 raises), the
+    plain version's a call ("plain": torch's single-tensor ops) and
+    torch.optim.Adam's foreach step a call ("foreach", the library
+    yardstick: the path the kernel replaces)."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.render import probe
+    from vxtpu_torch.train import kernel_adam
+    from vxtpu_torch.train.loop import ADAM_EPS, BETAS
+
+    out = {"checks": {}, "err": 0.0}
+    cases = {**kc.ADAM_CASES,
+             f"table{D}": dict(shapes=[(D ** 3, 4)], steps=steps)}
+    for name, case in cases.items():
+        m = kc.run_adam_case(device, **case)
+        kc.check_adam_case(m, f"Adam ({name})")
+        out["checks"][name] = {k: m[k] for k in (
+            "excess", "max_abs", "unequal", "elements", "rerun_equal",
+            "launches")}
+        out["err"] = max(out["err"], m["max_abs"])
+        print(f"Adam ({name}): {m['steps']} steps against torch's foreach "
+              f"step: allclose excess {m['excess']:.3g}, max |d| "
+              f"{m['max_abs']:.3g}, {m['unequal']} of {m['elements']} values "
+              f"not bit-equal; second run equal; {m['launches']} launches")
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(1)
+    p, g, m, v = (torch.randn((D ** 3, 4), generator=gen, device=device)
+                  for _ in range(4))
+    v.square_()
+    q = p.clone().requires_grad_(True)
+    q.grad = g
+    lib = torch.optim.Adam([q], lr=5e-2, betas=BETAS, eps=ADAM_EPS,
+                           foreach=True)
+    args = (BETAS, ADAM_EPS)
+    # (kernel name, per call, fn, bound): the kernel's time a launch over
+    # the launches recorded; the others' a call, over every call (the
+    # foreach step's by its kernels' name, as the profiler mirrors the
+    # step's record_function range on the device timeline)
+    calls = {
+        "kernel": ("adam_step_kernel", False, lambda: kernel_adam.adam_step(
+            p, g, m, v, 10, 5e-2, *args), adam_bound(D)),
+        "plain": ("", True, lambda: kernel_adam.adam_step_reference(
+            p, g, m, v, 10, 5e-2, *args), None),
+        "foreach": ("multi_tensor_apply_kernel", True, lib.step, None)}
+    for name, (kernel, per_call, fn, bound) in calls.items():
+        runs = [probe.device_ms(fn, reps, kernel, per_call=per_call)
+                for _ in range(rounds)]
+        row = out[name] = dict(device_ms=statistics.median(
+            r[0] for r in runs), clock=runs[0][1],
+            rounds_ms=[r[0] for r in runs])
+        ms = row["device_ms"]
+        if bound is not None:
+            row.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                       bytes=bound["bytes"], share=bound["bound_ms"] / ms)
+            if row["share"] > 1.05:
+                raise AssertionError(f"Adam at {D}^3: {ms} ms is below its "
+                                     f"bound {row['bound_ms']} ms: the time "
+                                     f"misses part of the work")
+        print(f"Adam at {D}^3, {name}: {ms:.4f} ms ({row['clock']}; rounds "
+              + ", ".join(f"{t:.4f}" for t in row["rounds_ms"]) + ")"
+              + (f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                 f"{row['bytes']:.4g} B), share {row['share']:.3f}"
+                 if bound else ""))
+    del p, g, m, v, q, lib
+    torch.cuda.empty_cache()
+    return out
+
+
 def sample_bounds(n, S, D, active_samples, touched, lit=False,
                   ray_grads=True) -> dict:
     """Least times (ms) of K3 and K4 for one call: the larger of the bytes
@@ -2222,7 +2329,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     from vxtpu_torch.render import kernel_sample as ks
     from vxtpu_torch.render import soft
     from vxtpu_torch.render.soft_kernel import MortonSoftGrid, _enter_dt_soft
-    from vxtpu_torch.train import kernel_tv, loop
+    from vxtpu_torch.train import kernel_adam, kernel_tv, loop
     from vxtpu_torch.world import procgen
     from vxtpu_torch.world.lights import Lights
 
@@ -2250,6 +2357,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
         torch.cuda.reset_peak_memory_stats(device)
     ks.reset_launch_counts()
     kernel_tv.reset_launch_counts()
+    kernel_adam.reset_launch_counts()
     timer()
     fitted, _, losses, _ = loop.fit_soft(
         soft.SoftGrid.zeros(dims, device=device), cam,
@@ -2257,11 +2365,12 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     _sync(device)
     launches = dict(ks.LAUNCHES)
     tv_launches = dict(kernel_tv.LAUNCHES)
+    adam_launches = dict(kernel_adam.LAUNCHES)
     step_ms = timer.ms()
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else float("nan"))
     print(f"phase 6 train: launches during the {steps} steps: {launches}; "
-          f"TV prior {tv_launches}")
+          f"TV prior {tv_launches}; Adam {adam_launches}")
     print(f"phase 6 train: losses {losses}")
     print(f"phase 6 train: step ms {[round(x, 3) for x in step_ms]} "
           f"(the first includes the Morton conversion); median of steps "
@@ -2277,11 +2386,16 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
             kernel_tv.LAUNCHES, steps):
         raise AssertionError(f"the train steps did not run each TV prior "
                              f"kernel once a step: {tv_launches}")
+    if device.type == "cuda" and adam_launches != {"adam_step_kernel": steps}:
+        raise AssertionError(f"the train steps did not run Adam's kernel "
+                             f"once a step (one table): {adam_launches}")
     _check_losses(losses)
 
     # the kRayGrads variant's own path: fit_soft refining the camera pose,
-    # whose rays carry gradients (two steps, counted)
+    # whose rays carry gradients (two steps, counted; Adam once a step for
+    # the table and each of the camera's four tensors)
     ks.reset_launch_counts()
+    kernel_adam.reset_launch_counts()
     _, cam_fit, cam_losses, _ = loop.fit_soft(
         soft.SoftGrid.zeros(dims, device=device), cam,
         target.reshape(h, w, 3), settings,
@@ -2297,6 +2411,11 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
             and cam_launches["sample_ray_sum_kernel"] == 2):
         raise AssertionError(f"the camera refinement did not run K4 with "
                              f"kRayGrads: {cam_launches}")
+    if device.type == "cuda" and kernel_adam.LAUNCHES != {
+            "adam_step_kernel": 2 * (1 + len(loop.CAM_FIELDS))}:
+        raise AssertionError(f"the camera refinement did not run Adam's "
+                             f"kernel once a parameter a step: "
+                             f"{kernel_adam.LAUNCHES}")
     if not moved > 0.0:
         raise AssertionError("the camera refinement did not move the pose")
     _check_losses(cam_losses)
@@ -2463,9 +2582,10 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
         del model, opt
         torch.cuda.empty_cache()
         times["tv"] = tv_times(device, D)
+        times["adam"] = adam_times(device, D)
     return {"launches": launches, "cam_launches": cam_launches, "err": err,
-            "tv_launches": tv_launches, "times": times, "losses": losses,
-            "step_ms": step_ms}
+            "tv_launches": tv_launches, "adam_launches": adam_launches,
+            "times": times, "losses": losses, "step_ms": step_ms}
 
 
 def _check_losses(losses) -> None:
@@ -4051,6 +4171,13 @@ def main(argv=None) -> int:
                         "its device time a call at 512^3 beside its bounds "
                         "and the plain version's (tv_times), and a JSON "
                         "line of the results")
+    p.add_argument("--adam-times", action="store_true",
+                   help="phases 1 and 2, then Adam's kernel against "
+                        "torch's foreach step in kernel_check.ADAM_CASES "
+                        "and on a 512^3 table, and its device time a launch "
+                        "at 512^3 beside its bound, the plain version's and "
+                        "the foreach step's (adam_times), and a JSON line "
+                        "of the results")
     p.add_argument("--scale-out", action="store_true",
                    help="phases 1 and 2, then phase 11 alone (the sharded "
                         "paths, config 5 at full size) and a JSON line of "
@@ -4081,6 +4208,12 @@ def main(argv=None) -> int:
         out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
                                      if k.startswith("tv_")},
                "tv_times": tv_times(device)}
+        print(json.dumps(out, default=str))
+        return 0
+    if args.adam_times:
+        out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
+                                     if k.startswith("adam_")},
+               "adam_times": adam_times(device)}
         print(json.dumps(out, default=str))
         return 0
     if args.k6_times:
@@ -4242,6 +4375,26 @@ def main(argv=None) -> int:
                             else "the plain forward and backward"),
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    # Adam's kernel: launches of the five c4 steps, errors against torch's
+    # foreach step of phase 3 and phase 6 (its cases and the 512^3 table),
+    # times at 512^3 (the foreach step as the library yardstick)
+    ad = tt["adam"]
+    kernels.append({
+        "name": "adam_step_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/adam.cu",
+        "replaces": "none (vxtpu's optax.adam is plain jnp that XLA fuses)",
+        "launches": train["adam_launches"]["adam_step_kernel"],
+        "max_abs_err": max(err3["adam_step_kernel"], ad["err"]),
+        "max_abs_err_is": "against torch.optim.Adam's foreach step, over "
+                          "the parameters and both moments",
+        "device_ms": ad["kernel"]["device_ms"],
+        "device_ms_clock": ad["kernel"]["clock"],
+        "plain_ms": ad["plain"]["device_ms"],
+        "plain_ms_is": "torch's single-tensor ops, a call",
+        "bound_ms": ad["kernel"]["bound_ms"],
+        "bound_by": ad["kernel"]["bound_by"],
+        "library_ms": ad["foreach"]["device_ms"],
+        "library_ms_is": "torch.optim.Adam's foreach step, a call"})
     pt = pipe["times"]
     c3, c3s, big = pt["c3"], pt["c3_shadow"], pt["big"]["k5"]
     kernels.append({

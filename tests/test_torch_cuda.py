@@ -181,11 +181,11 @@ def test_tv_kernels_never_sync_and_never_reach_the_plain_version(
 
 def test_field_kernel_fit_launches_the_tv_kernels(cuda):
     """Three fit_soft steps with field_kernel at 32^3 launch each TV
-    kernel once a step."""
+    kernel once a step, and Adam's kernel once a step (one table)."""
     from vxtpu_torch.camera.camera import Camera
     from vxtpu_torch.render import soft
     from vxtpu_torch.render.settings import RenderSettings
-    from vxtpu_torch.train import kernel_tv, loop
+    from vxtpu_torch.train import kernel_adam, kernel_tv, loop
 
     truth = soft.SoftGrid.from_hard(procgen.terrain(
         (32,) * 3, seed=7, with_rgb=True, device=cuda))
@@ -195,6 +195,7 @@ def test_field_kernel_fit_launches_the_tv_kernels(cuda):
         target = soft.render_soft_image(truth, cam, RenderSettings(), 32, 32,
                                         32)
     kernel_tv.reset_launch_counts()
+    kernel_adam.reset_launch_counts()
     _, _, losses, _ = loop.fit_soft(
         soft.SoftGrid.zeros((32,) * 3, device=cuda), cam, target,
         RenderSettings(), loop.TrainConfig(steps=3, num_samples=16,
@@ -202,7 +203,51 @@ def test_field_kernel_fit_launches_the_tv_kernels(cuda):
     assert kernel_tv.LAUNCHES == {"tv_fwd_kernel": 3,
                                   "tv_fwd_finish_kernel": 3,
                                   "tv_bwd_kernel": 3}
+    assert kernel_adam.LAUNCHES == {"adam_step_kernel": 3}
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.parametrize("name", list(kc.ADAM_CASES))
+def test_adam_kernel_matches_torch_step(cuda, name):
+    """kernel_adam.Adam against torch.optim.Adam's foreach step over five
+    steps in each of kernel_check.ADAM_CASES (numel 1, 3, 4, 1,027 and
+    64^3 x 4, a view off the 16-byte boundary, a state resumed at count
+    7, the camera's four tensors): parameters and moments within rtol
+    1e-6, equal bit for bit on a second run, one adam_step_kernel launch
+    a parameter a step."""
+    kc.check_adam_case(kc.run_adam_case(cuda, **kc.ADAM_CASES[name]),
+                       f"Adam ({name})")
+
+
+def test_adam_kernel_never_syncs_and_never_reaches_torch_step(
+        cuda, monkeypatch):
+    """Steps of kernel_adam.Adam on CUDA parameters run clean under
+    torch.cuda.set_sync_debug_mode("error") (the count lives on the host,
+    the bias corrections go to the kernel as arguments), and neither the
+    plain version nor torch's own step is called."""
+    from vxtpu_torch.train import kernel_adam
+
+    def boom(*a, **k):
+        raise AssertionError("a plain step called for CUDA tensors")
+
+    monkeypatch.setattr(kernel_adam, "adam_step_reference", boom)
+    monkeypatch.setattr(torch.optim.Adam, "step", boom)
+    ps = [torch.randn((64 ** 3, 4), device=cuda).requires_grad_(True),
+          torch.zeros((), device=cuda).requires_grad_(True)]
+    opt = kernel_adam.Adam(ps, lr=5e-2)
+    for p in ps:
+        p.grad = torch.randn_like(p)
+    opt.step()                                  # build, load, state
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        opt.step()
+        opt.step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(p).all()) for p in ps)
+    assert float(opt.state[ps[0]]["step"]) == 3
 
 
 def test_sample_bwd_refuses_another_chunk_length(cuda, monkeypatch):

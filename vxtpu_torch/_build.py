@@ -136,6 +136,9 @@ def load() -> ctypes.CDLL:
     lib.vx_tv_fwd.restype = _I
     lib.vx_tv_bwd.argtypes = [_P, _L, _P, _F, _F, _P, _P]
     lib.vx_tv_bwd.restype = _I
+    lib.vx_adam_step.argtypes = [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
+                                 _P]
+    lib.vx_adam_step.restype = _I
     lib.vx_error_string.argtypes = [_I]
     lib.vx_error_string.restype = ctypes.c_char_p
     return lib

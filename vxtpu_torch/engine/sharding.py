@@ -32,6 +32,7 @@ from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
 from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                             render_soft_rays_kernel)
 from vxtpu_torch.render.vjp import render_soft_rays_fast
+from vxtpu_torch.train import kernel_adam
 from vxtpu_torch.train.loop import (ADAM_EPS, BETAS, CAM_FIELDS,
                                     init_opt_state, read_opt_state,
                                     state_params, write_opt_state)
@@ -212,7 +213,7 @@ def camera_frame_rays(cam: Camera, height: int, width: int):
 
 class ShardedTrainState:
     """The sharded step's optimizer state: the parameters it updates (the
-    scene's tensors, and the camera's) and a ``torch.optim.Adam`` over
+    scene's tensors, and the camera's) and a ``kernel_adam.Adam`` over
     them, identical on every rank. ``opt_state()`` gives it in optax's
     leaf order (the scene's group, then the camera's, as vxtpu's
     ``(opt.init(soft), cam_opt.init(cam))``) for the checkpoint;
@@ -232,7 +233,7 @@ class ShardedTrainState:
         if optimize_camera:
             groups.append(dict(params=self.cam_params, lr=cam_lr, name="cam",
                                interleaved=False))
-        self.opt = torch.optim.Adam(groups, betas=BETAS, eps=ADAM_EPS)
+        self.opt = kernel_adam.Adam(groups, betas=BETAS, eps=ADAM_EPS)
 
     def model(self, detach: bool = False):
         return self.cls(*[p.detach() if detach else p for p in self.params])

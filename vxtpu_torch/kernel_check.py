@@ -38,6 +38,15 @@ bit on a second launch; the gradient within 1e-6 x its max |g| of the
 plain version's autograd gradient; in each of TV_CASES (a zero weight,
 an upstream gradient other than 1, a gradient accumulated onto an
 existing .grad).
+
+Adam (adam_step_kernel, train/kernel_adam.py): five steps of
+kernel_adam.Adam against torch.optim.Adam's foreach step from the same
+parameters, gradients and state, each parameter and both moments within
+rtol 1e-6 / atol 1e-6 x max |x| (the kernel rounds where torch's kernels
+round; the margin takes a last-bit difference where m sums to near 0),
+equal bit for bit on a second run, one launch a parameter a step; in each
+of ADAM_CASES (sizes with and without a float4 tail, a view that is not
+16-byte aligned, a state resumed at count 7, the camera's four tensors).
 """
 
 from __future__ import annotations
@@ -55,7 +64,8 @@ from vxtpu_torch.render.fused import render_rays_fused
 from vxtpu_torch.render.pipeline import shadow_ray_batch
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft_kernel import MortonSoftGrid, _enter_dt_soft
-from vxtpu_torch.train import kernel_tv
+from vxtpu_torch.train import kernel_adam, kernel_tv
+from vxtpu_torch.train.loop import ADAM_EPS, BETAS
 from vxtpu_torch.train.loss import tv_prior_morton
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.lights import Lights
@@ -870,3 +880,93 @@ def check_tv_case(m: dict, what: str) -> None:
             "tv_bwd_kernel": 1}:
         raise AssertionError(f"{what}: launches {m['launches']}, not one of "
                              f"each kernel a forward and one a backward")
+
+
+ADAM_RTOL = 1e-6
+ADAM_ATOL_REL = 1e-6
+ADAM_STEPS = 5
+# case -> run_adam_case's keywords: the parameters' shapes, the elements
+# by which each parameter and gradient starts past a 16-byte boundary (1:
+# the kernel's scalar path), a state resumed at count 7
+ADAM_CASES = {"n1": dict(shapes=[(1,)]),
+              "n3": dict(shapes=[(3,)]),
+              "n4": dict(shapes=[(4,)]),
+              "n1027": dict(shapes=[(1027,)]),
+              "table64": dict(shapes=[(64 ** 3, 4)]),
+              "unaligned": dict(shapes=[(1027,)], offset=1),
+              "resume7": dict(shapes=[(64 ** 3, 4)], resume=True),
+              "camera": dict(shapes=[(3,), (), (), ()])}
+
+
+def _placed(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of x that starts ``offset`` floats into a fresh buffer."""
+    buf = torch.empty(x.numel() + offset, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def run_adam_case(device, shapes, offset=0, resume=False, steps=ADAM_STEPS):
+    """kernel_adam.Adam twice and torch.optim.Adam's foreach step once over
+    the same ``steps`` steps at the fit's lr: parameters of ``shapes``
+    (normal), gradients drawn anew each step from one seed (the k-th
+    parameter's scaled by 10^-k), and with ``resume`` a state at count 7. Each run's results are
+    compared as they come, so at most three parameter sets live at once.
+    Returns the worst allclose excess over the parameters and moments
+    (ADAM_RTOL, ADAM_ATOL_REL), their largest |difference|, the elements
+    that differ at all, whether the second run equalled the first bit for
+    bit, and the first run's launches."""
+
+    def draw(gen, shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    def run(cls, **kw):
+        gen = torch.Generator(device=device).manual_seed(0)
+        ps = [_placed(draw(gen, s), offset).requires_grad_(True)
+              for s in shapes]
+        opt = cls(ps, lr=5e-2, betas=BETAS, eps=ADAM_EPS, **kw)
+        if resume:
+            for p in ps:
+                opt.state[p] = {
+                    "step": torch.tensor(7.0),
+                    "exp_avg": draw(gen, p.shape, 0.1),
+                    "exp_avg_sq": draw(gen, p.shape, 0.1) ** 2}
+        for _ in range(steps):
+            for k, p in enumerate(ps):
+                p.grad = _placed(draw(gen, p.shape, 10.0 ** -k), offset)
+            opt.step()
+        out = []
+        for p in ps:
+            out += [p.detach(), opt.state[p]["exp_avg"],
+                    opt.state[p]["exp_avg_sq"]]
+        return out
+
+    kernel_adam.reset_launch_counts()
+    got = run(kernel_adam.Adam)
+    launches = kernel_adam.LAUNCHES["adam_step_kernel"]
+    rerun_equal = all(torch.equal(a, b)
+                      for a, b in zip(got, run(kernel_adam.Adam)))
+    excess = max_abs = 0.0
+    unequal = 0
+    for a, b in zip(got, run(torch.optim.Adam, foreach=True)):
+        atol = ADAM_ATOL_REL * max(float(b.abs().max()), 1e-30)
+        excess = max(excess, allclose_excess(a, b, ADAM_RTOL, atol))
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        unequal += int((a != b).sum())
+    return dict(device=torch.device(device).type, shapes=shapes,
+                offset=offset, resume=resume, steps=steps, excess=excess,
+                max_abs=max_abs, unequal=unequal, rerun_equal=rerun_equal,
+                launches=launches,
+                elements=3 * sum(int(np.prod(s)) for s in shapes))
+
+
+def check_adam_case(m: dict, what: str) -> None:
+    if not m["rerun_equal"]:
+        raise AssertionError(f"{what}: a second run differs")
+    if not m["excess"] <= 1.0:
+        raise AssertionError(f"{what}: off torch's step by allclose excess "
+                             f"{m['excess']:.3g} (max |d| {m['max_abs']:.3g})")
+    want = m["steps"] * len(m["shapes"])
+    if m["device"] == "cuda" and m["launches"] != want:
+        raise AssertionError(f"{what}: {m['launches']} adam_step_kernel "
+                             f"launches, not {want} (one a parameter a step)")

@@ -6,8 +6,10 @@ optionally the camera pose, to target images (counterpart of
   fit_soft_views  N posed views, rays drawn from all of them.
 
 PyTorch runs eagerly, so a step is a plain loop body: loss, backward,
-``torch.optim.Adam`` (vxtpu's ``optax.adam``: betas (0.9, 0.999), eps
-1e-8, the same update up to rounding). With ``field_kernel`` the scene is
+Adam (vxtpu's ``optax.adam``: betas (0.9, 0.999), eps 1e-8, the same
+update up to rounding) as ``train/kernel_adam.py:Adam``, torch.optim.Adam
+whose update on the card is one hand-written kernel (one read of each
+parameter, its gradient and both moments). With ``field_kernel`` the scene is
 trained in fine-voxel Morton layout through the sampling kernels
 (``render/soft_kernel.py``) with the Morton TV prior (on the card its
 kernel pair, ``train/kernel_tv.py``), and Adam sees one tensor, its
@@ -45,6 +47,7 @@ from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
 from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
                                             render_soft_rays_kernel)
 from vxtpu_torch.render.vjp import render_soft_rays_fast
+from vxtpu_torch.train import kernel_adam
 from vxtpu_torch.train.kernel_tv import tv_prior
 from vxtpu_torch.train.loss import mse, tv_loss
 
@@ -129,7 +132,7 @@ def make_optimizer(cfg: TrainConfig, params, cam_params=None):
     if cfg.optimize_camera:
         groups.insert(0, dict(params=list(cam_params), lr=cfg.cam_lr,
                               name="cam", interleaved=False))
-    return torch.optim.Adam(groups, betas=BETAS, eps=ADAM_EPS)
+    return kernel_adam.Adam(groups, betas=BETAS, eps=ADAM_EPS)
 
 
 def state_params(model) -> list:
