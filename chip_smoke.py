@@ -1,22 +1,16 @@
 #!/usr/bin/env python3
 """Drive vxtpu_torch's main path on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--save DIR] [--k5-times | --k1-times |
-                           --k6-times | --tv-times | --adam-times |
+    python3 chip_smoke.py [--save DIR] [--times [ROW ...] [--sass FILE] |
                            --scale-out | --bench]
-                          [--sass FILE]
 
 Run from the root of a checkout; it needs one CUDA device and nvcc.
 Phases, each printing what it found (any failure raises, exit code != 0):
 
   1. device  the card's name and power limit (nvidia-smi);
   2. build   compile the CUDA kernels of vxtpu_torch/csrc with nvcc;
-  3. kernels each kernel against its plain PyTorch version on the card,
-             64^3 scenes at 256x256 (vxtpu_torch.kernel_check), each
-             instantiation of K1 (march_shade_kernel) on every ray and
-             pixel, the TV prior's kernel pair (train/kernel_tv.py),
-             Adam's kernel against torch's foreach step
-             (train/kernel_adam.py);
+  3. (none)  each kernel against its plain version on small scenes is
+             python -m pytest --noconftest tests/test_torch_cuda.py;
   4. main    the full-size path: 512^3 terrain (seed 7), Morton tables,
              and five 1080x1920 frames through render_frame_fused
              (outside camera lambert; full + shadows + fog in-kernel and
@@ -24,9 +18,8 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              lambert; an inside camera in the air, lambert). Launch counts
              (K1's by instantiation), finiteness, hit fraction, agreement
              with the plain versions (K1: hit, voxel, normal and steps on
-             every ray, rgb within 1e-5 on every pixel), median frame
-             times, the kernel alone (events and profiler device time)
-             and total march steps;
+             every ray, rgb within 1e-5 on every pixel; K2 on the
+             composed frame), median frame times and total march steps;
   5. cross   the 512^3 world fingerprint and the frame of the 128^3 entry
              scene against the JAX package's data in vxtpu_torch/data;
   6. train   the config-4 trainer (c4_512_diff as its config defines it):
@@ -36,73 +29,38 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              field-sampling kernels K3/K4 (K4's pure scatter: the rays
              carry no gradient), the TV prior's kernel pair and Adam's
              kernel. Launch counts per K4 variant, per TV kernel and of
-             Adam's kernel (one a step), the loss
-             per step (finite and falling), median step time, peak
-             memory; two steps refining the camera pose (K4 with
-             kRayGrads, counted); one step's loss and gradient through
-             the plain versions against the kernels', a lit forward and
-             backward at 512^3, K3 and both K4 variants alone against
-             their plain versions and torch's grid_sample (the library
-             yardstick, used nowhere in the port), and a profiled step's
-             device time by group (K3, K4, Adam, the TV prior, the other
-             dense-table glue, the [S, N] math); the ray sum alone warm
-             and with the L2 flushed before each launch, and K4's
-             wrapper's zero-fill of the dense gradient on its own line
-             (K4's bound counts only the rows its samples touch). The
+             Adam's kernel (one a step), the loss per step (finite and
+             falling), peak memory; two steps refining the camera pose
+             (K4 with kRayGrads, counted); one step's loss and gradient
+             through the plain versions against the kernels', a lit
+             forward and backward at 512^3, K3 and both K4 variants
+             against their plain versions at the step's shape, and a
+             profiled step's device time by group (K3, K4, Adam, the TV
+             prior, the other dense-table glue, the [S, N] math). The
              scene is one channel-interleaved [D^3, 4] Morton table that
-             K3 reads and K4 scatters into; then tv_times and
-             adam_times (below) at 512^3;
+             K3 reads and K4 scatters into;
   7. cross   the fit at 32^3 against the JAX package's loss trajectory and
              K3's outputs against its checksums (vxtpu_torch/data);
   8. pipeline the composable render pipeline (render / animate / bench
-             --kernel pallas) through the row-major march kernel K5:
-             K5 against its plain version (64^3 and non-cubic cases, ray
-             counts that leave a partial last block, then every primary
-             and shadow ray of the c3_256_shadows frame, exactly); the c3
-             frame (256^3 terrain seed 7, per-voxel RGB,
-             1024x1024, full + shadows + fog) through render_image, with
-             and without the face-texture atlas; K5 against K1 (march-
-             only) on the 512^3/1080p lambert frame of phase 4; K1 alone
-             on those rays in each launch mode (march only, lambert, full
-             + shadows + fog) and K1' round 0, each against its plain
-             version and its own bound, with its device time (profiler,
-             CUDA graph) and the blocks an SM of each K1 instantiation
-             (k1_times, k1_occupancy); K5's
-             device time per launch on the c3 primary and shadow rays and
-             at 512^3 (profiler; cross-checked by the same launches
-             replayed from a CUDA graph; one window's launches listed),
-             its bounds at each with the table words its marches read (2
-             B each: the bricked table), and the blocks it holds an SM;
-             the animate
-             and bench commands; K5 and the row-major table against the
-             JAX package's checksums (vxtpu_torch/data/packed_seed7.json).
-             Runs between phases 5 and 6, on phase 4's 512^3 world;
-  9. resume  the last two TPU kernels, on phase 4's 512^3 world (run after
-             phase 8): the resume-mode march K1' (march_resume_kernel)
-             against its plain version at 64^3 (budgets 0, 1, 3, 24, and
-             the resume from the plain round 0) and on all 1080x1920
-             lambert rays (budget 24, then a resume); the march-cost probe
-             K6 (march_probe_kernel, k6_probe) against its plain version
-             for every variant and layout (morton16, rowmajor32,
-             bricked16) at 64^3, also in the 4x8 block ray order and in
-             the TPU probe's float step (with the identity-table words),
-             and on the 1080x1920 rays at 48 iterations for every variant
-             x layout x ray order (scanline, block32x32, block4x8) and
-             both steps, the two steps' plain versions equal; the sorted
-             multi-round march march_sorted on the lambert and the
+             --kernel pallas) through the row-major march kernel K5: the
+             c3 frame (256^3 terrain seed 7, per-voxel RGB, 1024x1024,
+             full + shadows + fog) through render_image, with and without
+             the face-texture atlas (launches counted); K5 against K1
+             (march-only) on the 512^3/1080p lambert frame of phase 4; the
+             blocks an SM of K5 and of each K1 instantiation
+             (k1_occupancy); the animate and bench commands; K5 and the
+             row-major table against the JAX package's checksums
+             (vxtpu_torch/data/packed_seed7.json). Runs between phases 5
+             and 6, on phase 4's 512^3 world;
+  9. resume  the resume-mode march K1' (march_resume_kernel) on phase 4's
+             512^3 world (run after phase 8): against its plain version
+             on all 1080x1920 lambert rays (budget 24, then a resume); the
+             sorted multi-round march march_sorted on the lambert and the
              inside_air_lambert rays against single-round K1 march-only,
              with a forced drain; the warp coherence of the single round,
              of the survivors in launch order and of the sorted resume
-             round; the times: K1' round 0 and resume rounds beside K1
-             march-only (profiler device times), the sorted march and
-             an argsort alone (sorted_probe), K6's device ms and ns per
-             ray-iteration for each ray order x variant x layout x {128,
-             256, 512} threads (cost_probe, K1's step) with its reads per
-             ray-iteration and bound (the distinct table words its plain
-             version reads), the float step (the form first ported) on
-             full/morton16/256/scanline beside it, each K6
-             instantiation's registers and blocks of 256 threads an SM,
-             and the instructions of full's SASS loops (cuobjdump);
+             round; the sorted march and an argsort alone (sorted_probe,
+             events);
  10. xla+mask the CLI's default march and the masked trainer (run after
              phase 9; neither uses phase 4's world: the c3 frame is 256^3
              with per-voxel RGB, the masked fit's truth 512^3 with RGB).
@@ -115,8 +73,9 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              voxel >= 99.8% and normal >= 99.5% equal), the frame against
              the K5 pipeline frame (pixels beyond 1/255), median frame
              time, mean steps a ray, chunks (host syncs) a march, device
-             kernels and busy time a frame (profiler), and the render
-             (both accelerations) and bench commands with --kernel xla;
+             kernels and busy time a frame (profile_kernels), and the
+             render (both accelerations) and bench commands with --kernel
+             xla;
              (b) the occupancy-masked c4 fit: 512^3 truth (seed 7,
              from_hard), one 256x256 target at S = 256, the warm state
              (0.8 x the truth), its 128^3 mask (G = 4, tau 0.01, dilate
@@ -125,12 +84,12 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              bounds conservative on all 65,536 rays; S = 64 on the bands
              against S = 256 on the whole segment (mean |d rgb| < 0.015);
              one masked step through K3/K4 against their plain versions;
-             the masked step at S = 64 and the unmasked at S = 256 (ms,
-             peak memory, loss, K3/K4 launches); K3 and K4's scatter alone
-             at the masked shape with their bounds; five fit_soft steps
-             from zeros with the mask rebuilt at steps 2 and 4 (counted:
-             K3 and K4 once a step; losses finite and falling); and
-             train --field-kernel --occmask at c4's size.
+             a masked step at S = 64 and an unmasked one at S = 256 (peak
+             memory, loss, K3/K4 launches); K3 and K4's scatter against
+             their plain versions at the masked shape; five fit_soft
+             steps from zeros with the mask rebuilt at steps 2 and 4
+             (counted: K3 and K4 once a step; losses finite and falling);
+             and train --field-kernel --occmask at c4's size.
  11. scale-out the platform checks and the sharded paths (run last, on a
              1-rank NCCL process group of this process: NCCL cannot put
              two ranks on one card). (a) validate_platform (sm_90, the
@@ -183,20 +142,45 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              each mode and K3/K4 in the field-kernel step), then render
              and bench --kernel wavefront (c3_256_shadows at its size)
              and --kernel ref (--dims 64).
+ 13. times   the kernel table (kernel_rows; PERF.md section 6; run after
+             phase 9): each kernel alone at its main path's shape, timed
+             one way (time_row: the device time a launch, the median of
+             ROUNDS profiler windows of REPS launches,
+             render/probe.py:device_ms; a CUDA graph's replay beside K1,
+             K1' round 0, K5 and the warm ray sum), its bound (the larger
+             of its bytes over the HBM rate and its float32 operations
+             over the float32 peak, vxbench/bounds.py; a share above 1.05
+             raises) and its plain and library yardsticks' time a call
+             (CUDA events). The rows: K1 in
+             each launch mode (march, lambert, full_shadows_fog) and K1'
+             round 0 and the resume of every ray on phase 4's 512^3/1080p
+             outside rays; K2 on the composed frame's record; K5 on the
+             c3 frame's primary and shadow rays and at 512^3; K6's sweep
+             (every ray order x layout x variant x block size in K1's
+             step, the float step, the rays from their grid entry;
+             windows of 10 a configuration; registers, blocks an SM and
+             SASS loops); K3 and K4's scatter at the c4 step's shape and
+             at the masked one, K4 with kRayGrads, the ray sum warm and
+             with the L2 flushed, K4's zero-fill of the dense gradient;
+             the TV prior's three kernels and Adam's at 512^3. Where a
+             bound counts the table words the plain version reads (K1,
+             K1', K5, K6), the row first holds the kernel to its plain
+             version on every ray; the TV rows first hold the pair to
+             its plain version at 512^3, and Adam's row its kernel to
+             torch's foreach step over 3 steps of the 512^3 table.
 
-Phases 3 and 6 also hold K3/K4 against their plain versions: forward
-|d| <= 1e-6; both K4 variants' gradient tables within rtol 1e-5 / atol
-1e-6 x max|g| of the plain version and of a second run (the float
-atomics of the scatter sum in a varying order), the kRayGrads variant's
-ray cotangents equal bit for bit.
+Phases 6 and 10 hold K3/K4 against their plain versions: forward |d| <=
+1e-6; both K4 variants' gradient tables within rtol 1e-5 / atol 1e-6 x
+max|g| of the plain version and of a second run (the float atomics of the
+scatter sum in a varying order), the kRayGrads variant's ray cotangents
+equal bit for bit.
 
-Phase 8 holds K5 to its plain version exactly: hit, voxel, normal and
-steps equal on every ray, |t difference| <= 1e-6.
-
-Phase 9 holds K1' to its plain version exactly (hit, t, voxel, normal,
-steps, done, dist on every ray), march_sorted to single-round K1 exactly
-(hit, t, voxel, normal, steps), and K6's acc to its plain version bit for
-bit (in every ray order, put back in pixel order, and in both steps).
+Phase 13 holds K1 to its plain version as phase 4 does, K5 exactly (hit,
+voxel, normal and steps equal on every ray, |t difference| <= 1e-6), K1'
+exactly (every field on every ray) and K6's acc bit for bit (in every ray
+order, put back in pixel order, and in both steps). Phase 9 holds K1' to
+its plain version and march_sorted to single-round K1 exactly (hit, t,
+voxel, normal, steps).
 
 Phase 10 holds the masked step's loss and gradient through K3/K4 to
 their plain versions with phase 6's limits, and the batched march to K5
@@ -208,43 +192,27 @@ and the custom backward (to autograd) and 2 gloo ranks' config-5 step
 (to 1 rank's) within rtol 2e-4 / atol 2e-5 x max|g| (the loss within
 rel 1e-5): on CUDA index_add_ sums in a varying order.
 
-The line before the last is one JSON object with the kernels' counts,
-errors, times and bounds (the bounds of K1, K1' and K5 count the
-distinct table words their marches read, counted on the plain march;
-the bounds without them are kept as bound_rays_only_ms; K3's and K4's
-scatter also carry "masked": phase 10's launches and the kernel alone at
-the masked step's shape); the last line
-is {"ok": true, "device": {...}}. K1, K3 and K4 carry "sharded": their
-launches in phase 11, and "bench": their launches in the bench's fused
-and field-kernel sections (phase 12, counted by the bench); every time
-has its clock beside it ("events", "profiler-device").
+The line before the last is one JSON object with the kernels' counts
+and errors (from the phases) and times and bounds (from phase 13's rows;
+the bounds of K1, K1' and K5 count the distinct table words their
+marches read, counted on the plain march; the bounds without them are
+kept as bound_rays_only_ms; K3's and K4's scatter also carry "masked":
+phase 10's launches and the kernel alone at the masked step's shape);
+the last line is {"ok": true, "device": {...}}. K1, K3 and K4 carry
+"sharded": their launches in phase 11, and "bench": their launches in
+the bench's fused and field-kernel sections (phase 12, counted by the
+bench); every time has its clock beside it ("events", "profiler-device").
 --save DIR writes the main-path frames there as PNGs. --scale-out runs
 phases 1 and 2, then phase 11 alone, and prints one JSON line; --bench
 runs phases 1 and 2, then phase 12 alone, and prints one JSON line.
---tv-times runs phases 1 and 2, then tv_times alone: the TV prior's kernel
-pair against its plain version at 64^3 and 512^3 in every case of
-kernel_check.TV_CASES, and its device time a call at 512^3 beside its
-bounds and the plain version's time; it prints one JSON line.
---adam-times runs phases 1 and 2, then adam_times alone: Adam's kernel
-against torch's foreach step in every case of kernel_check.ADAM_CASES and
-over three steps of a 512^3 table, and its device time a launch at 512^3
-beside its bound (the table, its gradient and both moments read once,
-three of them written once), the plain version's and the foreach step's
-a call; it prints one JSON line.
---k6-times runs phases 1 and 2, then phase 9's K6 part alone
-(k6_probe) on phase 4's 512^3 world, and prints one JSON line.
---k5-times runs phases 1 and 2, then K5 alone on its three ray sets as
-phase 8 times it
-(k5_rays, k5_times), and prints one JSON line; --k1-times runs phases 1
-and 2, then K1 alone in each launch mode and K1' round 0 on phase 4's
-512^3 rays as phase 8 times them (k1_world, k1_times), the registers and
-spills of each K1 instantiation (ptxas) and its blocks an SM (the CUDA
-occupancy API), and prints one JSON line. Copied into a checkout of
-another commit, either times that commit's kernel the same way, so that
-two commits can be compared in turns on one card (--k1-times needs a
-commit whose kernel_check has check_exact). --sass FILE writes the
-kernel's SASS listing there and prints its opcodes by count (K1's by
-instantiation).
+--times [ROW ...] runs phases 1 and 2, then phase 13 alone on the named
+rows (a row's name, such as k4.scatter, or its kernel's part before the
+dot, such as k4; none: every row), and prints one JSON line. Copied into
+a checkout of another commit, it times that commit's kernels the same
+way, so that two commits can be compared in turns on one card. With
+--times, --sass FILE writes the SASS listing of the K1, K5 and K6 kernels
+among the rows there, each instantiation after a "// name" line, and
+prints each one's opcodes by count.
 """
 
 from __future__ import annotations
@@ -260,17 +228,30 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT))
+
+# the benchmark's yardstick, one copy: the card's peaks, the least time
+# of a piece of work and the march's operation counts (the peaks are read
+# here by vxbench/tests only)
+from vxbench.bounds import (MARCH_OPS_RAY, MARCH_OPS_STEP,  # noqa: E402
+                            PEAK_BYTES, PEAK_F32)
+from vxbench.bounds import bound as _bound  # noqa: E402
 
 FULL = 512
 H, W = 1080, 1920
 RUNS = 5
+# the c3_256_shadows frame; the c4 fit's view and its samples a ray,
+# unmasked and masked
+C3_D, C3_HW = 256, 1024
+C4_HW, C4_S, C4_S_MASK = 256, 256, 64
+# a kernel row's profiler windows (launches a window, windows), and the
+# calls a plain or library yardstick is timed over (CUDA events)
+REPS, ROUNDS, YARD_REPS = 20, 3, 3
 
-# the card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
-# bytes/s and float32 operations/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 # float32 operations per active sample, counted from csrc/sample.cu. The
 # forward: position (8), corner set-up (9), four trilinear ladders
 # (4 x 24); lit adds the gradient ladder (39). The backward's pure scatter
@@ -281,8 +262,6 @@ PEAK_F32 = 67e12
 FWD_OPS, FWD_OPS_LIT = 113, 39
 SCATTER_OPS, SCATTER_OPS_LIT = 68, 96
 BWD_OPS, BWD_OPS_LIT = 257, 156
-# float32 operations per ray (set-up, shading) and per DDA step of K1
-MARCH_OPS_RAY, MARCH_OPS_STEP = 60, 20
 # the two variants of K4 (csrc/sample.cu), as kernel_sample.LAUNCHES keys
 BWD = {False: "sample_bwd_kernel<kRayGrads=false>",
        True: "sample_bwd_kernel<kRayGrads=true>"}
@@ -316,7 +295,6 @@ def _require_checkout() -> None:
     if not (ROOT / "vxtpu_torch" / "csrc" / "march.cu").exists():
         raise SystemExit("chip_smoke.py: vxtpu_torch/ not found next to this "
                          "script; run it from a checkout of the repository")
-    sys.path.insert(0, str(ROOT))
 
 
 def _sync(device) -> None:
@@ -328,7 +306,10 @@ def _sync(device) -> None:
 
 def median_ms(fn, device, runs=RUNS) -> float:
     """Median wall time of fn() over ``runs`` runs after one warm-up; on
-    the GPU measured with CUDA events around each run."""
+    the GPU measured with CUDA events around each run: the wall times of
+    paths that have no benchmark cell, and the kernel rows' plain and
+    library yardsticks; a kernel alone is timed by time_row's profiler
+    windows."""
     import torch
 
     fn()
@@ -350,19 +331,77 @@ def median_ms(fn, device, runs=RUNS) -> float:
     return statistics.median(times)
 
 
-def device_rounds(row: dict, fn, reps: int, kernel: str, rounds: int) -> str:
-    """device_time over ``rounds`` profiler windows: row["device_ms"] their
-    median, row["device_ms_rounds"] each one, row["device_ms_clock"] the
-    clocks behind them; returns their text for the phase's line."""
+class Row(NamedTuple):
+    """A row of the kernel table (PERF.md section 6): a kernel alone at a
+    main path's shape. ``inputs`` builds its inputs (a SimpleNamespace)
+    from its ``scene`` (SCENES; rows of one scene stand together in
+    kernel_rows()),
+    as the phases build them; where its bound counts what the plain
+    version reads, ``inputs`` runs the plain version and holds the kernel
+    to it. ``launch`` runs the kernel once; ``kernel`` is the part of its
+    name the profiler records, timed a launch; ``bound`` the least time of
+    that launch (_bound: bytes and float32 operations); ``plain`` and
+    ``library`` the yardsticks, timed a call; ``graph`` adds the launches
+    replayed from a CUDA graph; ``sweep`` times the row as a loop of its
+    own (K6). Each callable takes the inputs."""
+
+    name: str
+    scene: str | None
+    inputs: object
+    launch: object
+    kernel: str
+    bound: object = None
+    plain: object = None
+    library: object = None
+    graph: bool = False
+    sweep: object = None
+
+
+def time_row(row: Row, x, device, reps=REPS) -> dict:
+    """``row``'s kernel alone on its inputs ``x``: its device time a launch
+    (render/probe.py:device_ms over ROUNDS profiler windows of ``reps``
+    launches: ``device_ms`` their median, ``device_ms_rounds`` each
+    window's, ``device_ms_clock`` the clocks behind them), with ``graph`` the same launches replayed from a CUDA
+    graph (graph_ms), its bound and bound / time (``share``; above 1.05
+    the time misses part of the work, and it raises), the plain and
+    library yardsticks' time a call (median_ms of YARD_REPS calls: CUDA
+    events, as a profiler window of a plain march's many small kernels
+    can leave the profiler recording nothing after it), and what the
+    inputs found (``x.info``); prints one line."""
     from vxtpu_torch.render import probe
 
-    got = [probe.device_ms(fn, reps, kernel) for _ in range(rounds)]
-    row["device_ms_rounds"] = [ms for ms, _ in got]
-    row["device_ms"] = statistics.median(row["device_ms_rounds"])
-    row["device_ms_clock"] = "+".join(sorted({c for _, c in got}))
-    return (f"{row['device_ms']:.5f} ms per launch ({row['device_ms_clock']}"
-            f", windows of {reps}: "
-            + ", ".join(f"{t:.5f}" for t in row["device_ms_rounds"]) + ")")
+    launch = functools.partial(row.launch, x)
+    got = [probe.device_ms(launch, reps, row.kernel) for _ in range(ROUNDS)]
+    ms = [t for t, _ in got]
+    out = dict(kernel=row.kernel, reps=reps, device_ms=statistics.median(ms),
+               device_ms_rounds=ms,
+               device_ms_clock="+".join(sorted({c for _, c in got})))
+    line = (f"{out['device_ms']:.5f} ms a launch ({out['device_ms_clock']}, "
+            f"windows of {reps}: "
+            + ", ".join(f"{t:.5f}" for t in out["device_ms_rounds"]) + ")")
+    if row.graph:
+        out.update(graph_ms=graph_ms(launch, reps), graph_ms_clock="events")
+        line += f", CUDA graph {out['graph_ms']:.5f} (events)"
+    if row.bound is not None:
+        out.update(row.bound(x))
+        out["share"] = out["bound_ms"] / out["device_ms"]
+        line += (f"; bound {out['bound_ms']:.5f} ms by {out['bound_by']} "
+                 f"({out['bytes']:.6g} B, {out['ops']:.6g} flop), share "
+                 f"{out['share']:.3f}")
+        if out["share"] > 1.05:
+            raise AssertionError(f"{row.name}: {out['device_ms']} ms is below "
+                                 f"its bound {out['bound_ms']} ms: the time "
+                                 f"misses part of the work")
+    for key, fn in (("plain", row.plain), ("library", row.library)):
+        if fn is not None:
+            out[f"{key}_ms"] = median_ms(functools.partial(fn, x), device,
+                                         YARD_REPS)
+            out[f"{key}_ms_clock"] = "events"
+            line += f"; {key} {out[f'{key}_ms']:.4f} ms a call (events)"
+    out.update(getattr(x, "info", {}))
+    print(f"phase 13 times: {row.name}: {line}"
+          + (f"; {json.dumps(x.info)}" if getattr(x, "info", None) else ""))
+    return out
 
 
 def phase_device():
@@ -430,96 +469,6 @@ def phase_build() -> dict:
               f"{u.get('spill_loads', '?')} bytes spill loads")
     print(f"phase 2 build: {_build.library_path().name} in {dt:.1f} s")
     return usage
-
-
-def phase_kernels(device, D=64, h=256, w=256) -> dict:
-    """Returns the largest |rgb| difference seen per kernel."""
-    from vxtpu_torch import kernel_check as kc
-
-    err = {"march_shade_kernel": 0.0, "shade_kernel": 0.0}
-    for name in kc.MARCH_CASES:
-        m = kc.run_march_case(name, device, D, h, w)
-        print(f"phase 3 kernels: march {name}: {m['hits']} hits; mismatches "
-              f"hit {m['hit']} voxel {m['voxel']} normal {m['normal']} "
-              f"steps {m['steps']} of {m['n']}; t rel {m['t_rel']:.3g}")
-        kc.check_march_case(m, f"march {name}")
-    for name in kc.SHADE_CASES:
-        m = kc.run_shade_case(name, device, D, h, w)
-        rec = (f"; record mismatches hit {m['rec_hit']} voxel "
-               f"{m['rec_voxel']} steps {m['rec_steps']}"
-               if "rec_n" in m else "")
-        print(f"phase 3 kernels: shade {name}: {m['hits']} hits; rgb beyond "
-              f"{kc.RGB_ATOL} on {m['rgb']} of {m['n']} pixels, max "
-              f"{m['max_abs']:.3g}{rec}")
-        kc.check_shade_case(m, f"shade {name}")
-        uses_shade_kernel = name in ("shade_kernel",
-                                     "full_shadows_fog_composed")
-        k = "shade_kernel" if uses_shade_kernel else "march_shade_kernel"
-        err[k] = max(err[k], m["max_abs"])
-    for name in kc.K1_CASES:
-        m = kc.run_k1_case(name, device, D, h, w)
-        im = m["image"]
-        print(f"phase 3 kernels: K1 instantiation {m['variant']} ({name}): "
-              f"{m['hits']} hits of {m['n']}; mismatches hit {m['hit']} "
-              f"voxel {m['voxel']} normal {m['normal']} steps {m['steps']}"
-              + (f"; rgb beyond {kc.RGB_ATOL} on {im['rgb']} px, max "
-                 f"{im['max_abs']:.3g}" if im else ""))
-        kc.check_k1_case(m, f"K1 {name}")
-        if im:
-            err["march_shade_kernel"] = max(err["march_shade_kernel"],
-                                            im["max_abs"])
-    err.update({"sample_fwd_kernel": 0.0, BWD[False]: 0.0, BWD[True]: 0.0,
-                "sample_ray_sum_kernel": 0.0})
-    for name in kc.SAMPLE_CASES:
-        m = kc.run_sample_case(name, device, D, n=min(h * w, 16384))
-        rays = (f", rays {m['rays_excess']:.3g}, {m['rays_unequal']} ray "
-                f"cotangents unequal" if m["ray_grads"] else
-                ", no ray outputs")
-        print(f"phase 3 kernels: sample {name}: {m['active']} of {m['n']} "
-              f"rays sampled ({m['empty_bands']} cross the grid on an empty "
-              f"band), S {m['S']}; forward max |d| "
-              f"{m['fwd_max_abs']:.3g}; backward (kRayGrads="
-              f"{str(m['ray_grads']).lower()}) vs plain: max |d| "
-              f"{m['bwd_max_abs']:.3g}, allclose excess "
-              f"{m['bwd_excess']:.3g} (tables {m['tables_excess']:.3g}"
-              f"{rays}); second run excess {m['rerun_excess']:.3g}")
-        kc.check_sample_case(m, f"sample {name}")
-        err["sample_fwd_kernel"] = max(err["sample_fwd_kernel"],
-                                       m["fwd_max_abs"])
-        err[BWD[m["ray_grads"]]] = max(err[BWD[m["ray_grads"]]],
-                                       m["bwd_max_abs"])
-        if m["ray_grads"]:
-            err["sample_ray_sum_kernel"] = max(err["sample_ray_sum_kernel"],
-                                               m["rays_max_abs"])
-    for case in kc.TV_CASES:
-        m = kc.run_tv_case(D, device, case)
-        print(f"phase 3 kernels: TV prior at {D}^3 ({case}): value "
-              f"{m['value']!r}, plain {m['plain']!r} (rel "
-              f"{m['value_rel']:.3g}), second launch {m['again']!r}; "
-              f"gradient off by {m['grad_err']:.3g} x max |g|")
-        kc.check_tv_case(m, f"TV prior at {D}^3")
-        _add_tv_err(err, m)
-    err["adam_step_kernel"] = 0.0
-    for name, case in kc.ADAM_CASES.items():
-        m = kc.run_adam_case(device, **case)
-        print(f"phase 3 kernels: Adam ({name}): {m['steps']} steps against "
-              f"torch's foreach step: allclose excess {m['excess']:.3g}, "
-              f"max |d| {m['max_abs']:.3g}, {m['unequal']} of "
-              f"{m['elements']} values not bit-equal; second run equal "
-              f"{m['rerun_equal']}; launches {m['launches']}")
-        kc.check_adam_case(m, f"Adam ({name})")
-        err["adam_step_kernel"] = max(err["adam_step_kernel"], m["max_abs"])
-    return err
-
-
-def _add_tv_err(err: dict, m: dict) -> None:
-    """Adds a run_tv_case's errors to a kernel -> max error dict: the
-    value's relative error to the forward pair, the gradient's (x max |g|)
-    to the backward."""
-    for k, e in (("tv_fwd_kernel", "value_rel"),
-                 ("tv_fwd_finish_kernel", "value_rel"),
-                 ("tv_bwd_kernel", "grad_err")):
-        err[k] = max(err.get(k, 0.0), m[e])
 
 
 def _main_scene(device, D):
@@ -597,7 +546,6 @@ def _logged_fetch(module, words):
 def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
     import torch
 
-    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.render import kernel_march as km
@@ -678,13 +626,8 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
         spec = km.ShadeSpec.from_settings(settings, light,
                                           shadows=settings.shadows)
 
-        def plain(o=o, d=d, spec=spec, lights_arr=lights_arr, ms=ms):
-            return km.march_shade_reference(o, d, accel, dims, ms, None, spec,
-                                            mats, lights_arr)
-
-        # the distinct table words the marches read, for K1's bound
-        with _logged_fetch(km, accel.words) as log:
-            rec_p, rgb_p = plain()
+        rec_p, rgb_p = km.march_shade_reference(o, d, accel, dims, ms, None,
+                                                spec, mats, lights_arr)
         rm = kc.record_mismatch(rec, rec_p)
         im = kc.image_mismatch(rgb, rgb_p)
         kc.check_exact(rm, im, f"main {name}")
@@ -698,39 +641,18 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
                 f"plain: rgb beyond {kc.RGB_ATOL} on {im['rgb']} px (max "
                 f"{im['max_abs']:.3g}), hit/voxel/normal/steps mismatches "
                 f"{rm['hit']}/{rm['voxel']}/{rm['normal']}/{rm['steps']}; "
-                f"rec.steps total kernel {steps} plain {steps_p}; "
-                f"{log.count()} distinct occupancy words read")
+                f"rec.steps total kernel {steps} plain {steps_p}")
         t_k = median_ms(lambda c=cam, s=settings, i=inkernel:
                         render_frame_fused(accel, mats, dims, c, light, s, h,
                                            w, inkernel_shadows=i), device,
                         runs)
         times[name] = {"ms": t_k, "hits": int(rec.hit.sum()),
-                       "table_words": log.count()}
-        line += f"; frame {t_k:.3f} ms ({h * w / t_k / 1e3:.1f} Mrays/s)"
-        if inkernel:
-            kspec = km.ShadeSpec.from_settings(settings, light,
-                                               shadows=settings.shadows)
-            kfn = lambda o=o, d=d, sp=kspec: km.march(
-                o, d, accel, dims, ms, shade_spec=sp, mats=mats,
-                lights_arr=lights_arr)
-            t_kern = median_ms(kfn, device, runs)
-            times[name]["kernel_ms"] = t_kern
-            line += f"; kernel alone {t_kern:.3f} ms (events)"
-            if device.type == "cuda":
-                line += ", device " + bench.device_time(
-                    times[name], "kernel_device_ms", kfn, device, 20,
-                    "march_shade_kernel") + " over 20 launches"
-            # the composed frame's plain version is this same function
-            t_p = median_ms(lambda c=cam, f=plain: f(*generate_rays(c, h, w)),
-                            device, runs)
-            times[name]["plain_ms"] = t_p
-            line += (f", plain {t_p:.1f} ms "
-                     f"({h * w / t_p / 1e3:.2f} Mrays/s)")
-        times[name]["steps"] = steps
-        print(line)
+                       "steps": steps}
+        print(line + f"; frame {t_k:.3f} ms ({h * w / t_k / 1e3:.1f} "
+                     f"Mrays/s)")
 
         if name == "full_shadows_fog_composed":
-            # the shade kernel alone at this shape, vs shade_reference
+            # the shade kernel at this shape, vs shade_reference
             vis = torch.stack([km.shadow_visibility_reference(
                 rec, o, d, accel, dims, ms, light.pos[li])
                 for li in range(light.count)], dim=-1)
@@ -741,21 +663,8 @@ def phase_main(device, D=FULL, h=H, w=W, runs=RUNS, save=None) -> dict:
             sm = kc.image_mismatch(got, want)
             kc.check_image(sm, "main shade kernel")
             err["shade_kernel"] = max(err["shade_kernel"], sm["max_abs"])
-            t_s = median_ms(lambda: km.shade(rec, o, d, vis, mats, lights_arr,
-                                             vspec), device, runs)
-            t_sp = median_ms(lambda: km.shade_reference(
-                rec, o, d, vis, mats, lights_arr, vspec), device, runs)
-            times["shade_kernel"] = {"ms": t_s, "plain_ms": t_sp}
-            dev = "not measured"
-            if device.type == "cuda":
-                dev = bench.device_time(
-                    times["shade_kernel"], "device_ms",
-                    lambda: km.shade(rec, o, d, vis, mats, lights_arr, vspec),
-                    device, runs, "shade_kernel")
-            print(f"phase 4 main: shade kernel alone at {h}x{w}: {t_s:.3f} "
-                  f"ms (events), device {dev}; plain {t_sp:.3f} ms "
-                  f"(events); rgb beyond {kc.RGB_ATOL} on "
-                  f"{sm['rgb']} px (max {sm['max_abs']:.3g})")
+            print(f"phase 4 main: shade kernel at {h}x{w}: rgb beyond "
+                  f"{kc.RGB_ATOL} on {sm['rgb']} px (max {sm['max_abs']:.3g})")
     return {"launches": launches, "variant_launches": variants, "err": err,
             "times": times, "grid": grid, "accel": accel}
 
@@ -903,12 +812,16 @@ def sass_listing(kernel: str) -> dict | None:
     return funcs
 
 
-def sass_functions(kernel: str, listing: Path) -> dict:
-    """Function -> {opcode: count} in sass_listing(kernel), whose lines
-    are written to ``listing``."""
-    funcs = sass_listing(kernel)
-    if funcs is None:
-        raise FileNotFoundError("cuobjdump not found beside nvcc")
+def sass_functions(kernels, listing: Path) -> dict:
+    """Function -> {opcode: count} for every function whose name holds one
+    of ``kernels`` (sass_listing), whose lines are written to ``listing``
+    with a ``// name`` line before each function."""
+    funcs = {}
+    for kernel in kernels:
+        got = sass_listing(kernel)
+        if got is None:
+            raise FileNotFoundError("cuobjdump not found beside nvcc")
+        funcs.update(got)
     lines = []
     for fn, seq in funcs.items():
         lines += [f"// {fn}"] + [x[0] for x in seq]
@@ -923,129 +836,10 @@ def sass_functions(kernel: str, listing: Path) -> dict:
             for f, o in out.items()}
 
 
-def sass_opcodes(kernel: str, listing: Path) -> dict:
-    """Opcode -> count over the functions of sass_functions."""
-    ops = {}
-    for fops in sass_functions(kernel, listing).values():
-        for k, v in fops.items():
-            ops[k] = ops.get(k, 0) + v
-    return dict(sorted(ops.items(), key=lambda kv: -kv[1]))
-
-
-def k5_rays(device) -> dict:
-    """K5's ray sets at the main paths' shapes, built as phase 8 builds
-    them: name -> (o, d, t_max, accel, dims, max_steps). ``c3``: the
-    c3_256_shadows frame's primary rays (256^3 terrain seed 7, 1024x1024);
-    ``c3_shadow``: their shadow rays toward the config's light (t_max
-    set); ``512``: phase 4's 512^3 seed-7 1080x1920 lambert rays."""
-    from vxtpu_torch.app.configs import CONFIGS
-    from vxtpu_torch.app.run import build_scene
-    from vxtpu_torch.camera.rays import generate_rays
-    from vxtpu_torch.render import kernel_packed as kp
-    from vxtpu_torch.render.pipeline import shadow_ray_batch
-    from vxtpu_torch.world import procgen
-    from vxtpu_torch.world.packed import build_packed
-
-    cfg = CONFIGS["c3_256_shadows"]
-    dims = (256,) * 3
-    _, accel, cam, lights = build_scene(cfg, dims, "packed", device)
-    ms = cfg.settings.resolve_max_steps(dims)
-    o, d = generate_rays(cam, 1024, 1024)
-    sp, sd, stm = shadow_ray_batch(kp.march_packed(o, d, accel, dims, ms),
-                                   o, d, lights.pos[0])
-    big = procgen.terrain((FULL,) * 3, seed=7, device=device)
-    _, requests = _main_scene(device, FULL)
-    _, bcam, lam, _ = requests[0]
-    bo, bd = generate_rays(bcam, H, W)
-    return {"c3": (o, d, None, accel, dims, ms),
-            "c3_shadow": (sp, sd, stm, accel, dims, ms),
-            "512": (bo, bd, None, build_packed(big.occupancy), big.dims,
-                    lam.resolve_max_steps(big.dims))}
-
-
-def k5_times(rays: dict, device, reps=20, rounds=3, record=False,
-             prefix="K5 alone") -> dict:
-    """K5 alone on each ray set of ``rays`` (name -> (o, d, t_max, accel,
-    dims, max_steps)): K5 against its plain version (raises on any
-    mismatch), the iterations, the distinct table words the plain march
-    reads, the bound with them at 2 B (``bound_ms``) and at 4 B
-    (``bound_int32_ms``); on the GPU, K5's device time per launch (the
-    median of ``rounds`` profiler windows of ``reps`` launches,
-    render/probe.py:device_ms), the same launches replayed from one CUDA
-    graph (``graph_ms``) and, with ``record``, the device time of each
-    launch of one more profiler window (``launch_us``)."""
-    import torch
-
-    from vxtpu_torch import kernel_check as kc
-    from vxtpu_torch.render import kernel_packed as kp
-    from vxtpu_torch.render import probe
-
-    out = {}
-    for name, (o, d, tm, acc, dims, ms) in rays.items():
-        with _logged_fetch(kp, acc.words) as log:
-            ref = kp.march_packed_reference(o, d, acc, dims, ms, t_max=tm)
-        m = kc.packed_mismatch(kp.march_packed(o, d, acc, dims, ms, t_max=tm),
-                               ref)
-        kc.check_packed(m, f"K5 {name}")
-        steps = int(ref.steps.sum(dtype=torch.int64))
-        bound = k5_bound(o.shape[0], steps, tm is not None, log.count())
-        row = dict(n=o.shape[0], steps=steps, table_words=log.count(),
-                   t_abs=m["t_abs"], bound_ms=bound["bound_ms"],
-                   bound_by=bound["bound_by"],
-                   bound_int32_ms=k5_bound(o.shape[0], steps, tm is not None,
-                                           log.count(), 4)["bound_ms"],
-                   bound_rays_only_ms=k5_bound(o.shape[0], steps,
-                                               tm is not None)["bound_ms"])
-        line = ""
-        if device.type == "cuda":
-            fn = lambda: kp.march_packed(o, d, acc, dims, ms, t_max=tm)
-            line = "; device " + device_rounds(row, fn, reps,
-                                               "march_packed_kernel", rounds)
-            row["graph_ms"] = graph_ms(fn, reps)
-            line += (f", CUDA graph {row['graph_ms']:.5f} (events); bound / "
-                     f"time {row['bound_ms'] / row['device_ms']:.3f}")
-            if record:
-                row["launch_us"] = probe.launch_us(fn, reps,
-                                                   "march_packed_kernel")
-                line += (f"; one more window, {len(row['launch_us'])} of "
-                         f"{reps} launches recorded, us: "
-                         + " ".join(f"{u:.2f}" for u in row["launch_us"]))
-        print(f"{prefix} {name}: {row['n']} rays, {steps} iterations, "
-              f"{row['table_words']} table words; 0 mismatches, max |dt| "
-              f"{m['t_abs']:.3g}; bound {row['bound_ms']:.5f} ms by "
-              f"{row['bound_by']} (table words at 2 B; "
-              f"{row['bound_int32_ms']:.5f} at 4 B, "
-              f"{row['bound_rays_only_ms']:.5f} without){line}")
-        out[name] = row
-    return out
-
-
-# K1's launch modes as k1_times times them: name -> (the settings of
-# _main_scene's outside frame that launch it, in-kernel shadows). march:
+# K1's launch modes, a row each, on _main_scene's outside rays. march:
 # march only (the composed frame's primary and shadow marches); lambert:
 # the headline frame's one launch; full_shadows_fog: entry()'s launch
 K1_MODES = ("march", "lambert", "full_shadows_fog")
-
-
-def k1_world(device, grid=None, h=H, w=W) -> dict:
-    """Phase 4's world and rays, for K1 alone: ``grid`` (by default the
-    FULL^3 seed-7 terrain), its Morton occupancy and material tables, the
-    outside camera's h x w rays and the light."""
-    from vxtpu_torch.camera.rays import generate_rays
-    from vxtpu_torch.world import procgen
-    from vxtpu_torch.world.packed import (build_material_morton,
-                                          build_packed_morton)
-
-    if grid is None:
-        grid = procgen.terrain((FULL,) * 3, seed=7, device=device)
-    dims = grid.dims
-    light, requests = _main_scene(device, dims[0])
-    by_name = {name: (cam, st) for name, cam, st, _ in requests}
-    o, d = generate_rays(by_name["lambert"][0], h, w)
-    return dict(dims=dims, accel=build_packed_morton(grid.occupancy, cap=64),
-                mats=build_material_morton(grid.occupancy), o=o, d=d,
-                light=light, lambert=by_name["lambert"][1],
-                full=by_name["full_shadows_fog"][1])
 
 
 def k1_bound(n, steps, table_words, shaded, hits=0, shadow_rays=0) -> dict:
@@ -1060,128 +854,6 @@ def k1_bound(n, steps, table_words, shaded, hits=0, shadow_rays=0) -> dict:
     b = n * (24 + (45 if shaded else 33)) + (4 * hits if shaded else 0)
     return _bound(b + 2 * table_words,
                   (n + shadow_rays) * MARCH_OPS_RAY + steps * MARCH_OPS_STEP)
-
-
-def k1_times(world: dict, device, reps=20, rounds=3, record=False,
-             prefix="K1 alone") -> dict:
-    """K1 alone in each launch mode of K1_MODES on ``world`` (k1_world),
-    and K1' round 0 (budget 24) on the same rays: each against its plain
-    version on every ray (hit, voxel, normal and steps equal, t within
-    rtol 1e-5, rgb within 1e-5 on every pixel; K1' exact on every field;
-    raises otherwise), the steps and distinct table words its plain
-    version reads, its bound (k1_bound, k1r_bound); on the GPU its device
-    time per launch (the median of ``rounds`` profiler windows of ``reps``
-    launches, render/probe.py:device_ms), the same launches replayed from
-    a CUDA graph (``graph_ms``), bound / time (``share``) and, with
-    ``record``, the device time of each launch of one more window
-    (``launch_us``)."""
-    import torch
-
-    from vxtpu_torch import kernel_check as kc
-    from vxtpu_torch.render import kernel_march as km
-    from vxtpu_torch.render import probe
-
-    o, d, acc, mats, dims = (world[k] for k in ("o", "d", "accel", "mats",
-                                                "dims"))
-    light = world["light"]
-    lights_arr = km.pack_lights(light)
-    n = o.shape[0]
-    specs = {"march": (world["lambert"], None),
-             "lambert": (world["lambert"], km.ShadeSpec.from_settings(
-                 world["lambert"], light, shadows=False)),
-             "full_shadows_fog": (world["full"], km.ShadeSpec.from_settings(
-                 world["full"], light, shadows=True))}
-    out = {}
-    for mode in (*K1_MODES, "resume_round0"):
-        settings, spec = specs.get(mode, specs["march"])
-        ms = settings.resolve_max_steps(dims)
-        if mode == "resume_round0":
-            kernel = "march_resume_kernel"
-            fn = lambda ms=ms: km.march(o, d, acc, dims, ms, iter_budget=24,
-                                        extended=True)
-            with _logged_fetch(km, acc.words) as log:
-                want, ext_p = km.march_reference(o, d, acc, dims, ms,
-                                                 iter_budget=24, extended=True)
-            got, ext_k = fn()
-            bad = kc.resume_mismatch(got, ext_k, want, ext_p)
-            steps = int(want.steps.sum(dtype=torch.int64))
-            bound = k1r_bound(n, steps, False, False, log.count())
-            row = dict(n=n, steps=steps, table_words=log.count(),
-                       mismatches=bad, bound_ms=bound["bound_ms"],
-                       bound_by=bound["bound_by"])
-            what = f"{bad} (every field)"
-            if any(bad.values()):
-                raise AssertionError(f"K1' round 0 differs from its plain "
-                                     f"version: {bad}")
-        else:
-            kernel = "march_shade_kernel"
-            fn = lambda ms=ms, spec=spec: km.march(
-                o, d, acc, dims, ms, shade_spec=spec, mats=mats,
-                lights_arr=lights_arr)
-            with _logged_fetch(km, acc.words) as log:
-                want = km.march_shade_reference(o, d, acc, dims, ms, None,
-                                                spec, mats, lights_arr)
-            got = fn()
-            rm = kc.record_mismatch(got[0] if spec else got,
-                                    want[0] if spec else want)
-            im = kc.image_mismatch(got[1], want[1]) if spec else None
-            kc.check_exact(rm, im, f"K1 {mode} against its plain version")
-            rec = want[0] if spec else want
-            steps = int(rec.steps.sum(dtype=torch.int64))
-            hits = int(rec.hit.sum())
-            # the steps of each phase a warp runs: the primary march, then
-            # one shadow march per light
-            phases = [rec.steps]
-            shadow_rays = 0
-            if spec is not None and spec.runs_shadow_marches:
-                for li in range(light.count):
-                    p_, ldir, dist, facing = km.shadow_rays(
-                        rec, o, d, light.pos[li])
-                    srec = km.march_reference(
-                        p_, ldir, acc, dims, ms,
-                        torch.where(rec.hit, dist - 2.0 * km.SHADOW_EPS, 0.0),
-                        active=facing)
-                    shadow_rays += int(facing.sum())
-                    phases.append(srec.steps)
-            shadow_steps = sum(int(x.sum(dtype=torch.int64))
-                               for x in phases[1:])
-            bound = k1_bound(n, steps + shadow_steps, log.count(),
-                             spec is not None, hits, shadow_rays)
-            row = dict(n=n, steps=steps, hits=hits, shadow_rays=shadow_rays,
-                       shadow_steps=shadow_steps, table_words=log.count(),
-                       coherence=probe.warp_coherence(*phases),
-                       shadow_coherence=probe.warp_coherence(*phases[1:])
-                       if shadow_rays else None,
-                       t_rel=rm["t_rel"],
-                       rgb_max_abs=im["max_abs"] if im else None,
-                       bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
-            what = (f"0 mismatches in hit, voxel, normal, steps (t rel "
-                    f"{rm['t_rel']:.3g}"
-                    + (f", max |drgb| {im['max_abs']:.3g}" if im else "")
-                    + f"); warp coherence {row['coherence']:.4f}"
-                    + (f" (the shadow marches alone "
-                       f"{row['shadow_coherence']:.4f})"
-                       if shadow_rays else ""))
-        line = ""
-        if device.type == "cuda":
-            line = "; device " + device_rounds(row, fn, reps, kernel,
-                                               rounds)
-            row["graph_ms"] = graph_ms(fn, reps)
-            row["share"] = row["bound_ms"] / row["device_ms"]
-            line += (f", CUDA graph {row['graph_ms']:.5f} (events); bound / "
-                     f"time {row['share']:.3f}")
-            if record:
-                row["launch_us"] = probe.launch_us(fn, reps, kernel)
-                line += (f"; one more window, {len(row['launch_us'])} of "
-                         f"{reps} launches recorded, us: "
-                         + " ".join(f"{u:.2f}" for u in row["launch_us"]))
-        print(f"{prefix} {mode}: {n} rays, {steps} steps"
-              + (f" + {row['shadow_steps']} on {row['shadow_rays']} shadow "
-                 f"rays" if row.get("shadow_rays") else "")
-              + f", {row['table_words']} table words; {what}; bound "
-              f"{row['bound_ms']:.5f} ms by {row['bound_by']}{line}")
-        out[mode] = row
-    return out
 
 
 def k1_occupancy() -> dict:
@@ -1213,9 +885,8 @@ def _run_cli(argv) -> list:
     return buf.getvalue().splitlines()
 
 
-def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
-                   runs=RUNS, save=None, frames=24, case_d=64,
-                   case_hw=256, cli_size=()) -> dict:
+def phase_pipeline(device, big_grid, D=C3_D, h=C3_HW, w=C3_HW, bh=H, bw=W,
+                   save=None, frames=24, cli_size=()) -> dict:
     """Phase 8: the composable pipeline through K5 (see the module
     docstring). big_grid: phase 4's world, for the K5-vs-K1 frame."""
     import tempfile
@@ -1228,21 +899,10 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.render import kernel_march as km
     from vxtpu_torch.render import kernel_packed as kp
-    from vxtpu_torch.render.pipeline import (render_image, render_rays,
-                                             shadow_ray_batch)
+    from vxtpu_torch.render.pipeline import render_image, render_rays
     from vxtpu_torch.utils import save_png
     from vxtpu_torch.world.atlas import build_procedural_atlas
     from vxtpu_torch.world.packed import build_packed
-
-    err = 0.0
-    for name in kc.PACKED_CASES:
-        m = kc.run_packed_case(name, device, D=case_d, h=case_hw, w=case_hw)
-        print(f"phase 8 pipeline: K5 {name}: {m['hits']} hits of {m['n']}; "
-              f"mismatches hit {m['hit']} voxel {m['voxel']} normal "
-              f"{m['normal']} steps {m['steps']}; max |dt| {m['t_abs']:.3g}; "
-              f"{m['steps_total']} iterations")
-        kc.check_packed_case(m, f"K5 {name}")
-        err = max(err, m["t_abs"])
 
     cfg = CONFIGS["c3_256_shadows"]
     dims = (D,) * 3
@@ -1257,13 +917,6 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     ms = settings.resolve_max_steps(dims)
     o, d = generate_rays(cam, h, w)
     rec = kp.march_packed(o, d, accel, dims, ms)
-    sp, sd, stm = shadow_ray_batch(rec, o, d, lights.pos[0])
-    # K5 against its plain version on every primary and shadow ray of the
-    # frame, exactly; their bounds; on the card K5's device times
-    k5 = k5_times({"c3": (o, d, None, accel, dims, ms),
-                   "c3_shadow": (sp, sd, stm, accel, dims, ms)}, device,
-                  record=True, prefix="phase 8 pipeline: K5 alone")
-    err = max(err, k5["c3"]["t_abs"], k5["c3_shadow"]["t_abs"])
 
     # the main path, counted: the frame, and the frame with the atlas
     atlas = build_procedural_atlas(tex_size=16, device=device)
@@ -1289,36 +942,7 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
         Path(save).mkdir(parents=True, exist_ok=True)
         save_png(str(Path(save) / "c3_pipeline.png"), img)
         save_png(str(Path(save) / "c3_pipeline_atlas.png"), img_atlas)
-
-    # measurement (not counted)
-    frame_ms = median_ms(lambda: render_image(
-        kp.make_march_packed, grid, cam, lights, settings, h, w, accel),
-        device, runs)
-    k5_ms = median_ms(lambda: kp.march_packed(o, d, accel, dims, ms), device,
-                      runs)
-    k5_shadow_ms = median_ms(lambda: kp.march_packed(sp, sd, accel, dims, ms,
-                                                     t_max=stm), device, runs)
-    plain_ms = median_ms(lambda: kp.march_packed_reference(
-        o, d, accel, dims, ms), device, 3)
-    times = dict(ms=k5_ms, plain_ms=plain_ms, shadow_ms=k5_shadow_ms,
-                 frame_ms=frame_ms, **k5)
-    print(f"phase 8 pipeline: c3 frame {frame_ms:.3f} ms "
-          f"({h * w / frame_ms / 1e3:.1f} Mrays/s); K5 a call (events) on "
-          f"the primary rays {k5_ms:.3f} ms, on the shadow rays "
-          f"{k5_shadow_ms:.3f} ms; plain {plain_ms:.1f} ms")
-    if device.type == "cuda":
-        kernels, dense, wall = _profile_step(
-            lambda: render_image(kp.make_march_packed, grid, cam, lights,
-                                 settings, h, w, accel), device, big=h * w)
-        busy = sum(kernels.values())
-        k5_dev = sum(v for k, v in kernels.items() if "march_packed" in k)
-        print(f"phase 8 pipeline: profiled c3 frame: wall {wall:.3f} ms, "
-              f"device busy {busy:.3f} ms ({busy / wall * 100:.1f}%), K5 "
-              f"(2 launches) {k5_dev:.3f} ms, the rest (torch shading, rays, "
-              f"shadow set-up) {busy - k5_dev:.3f} ms")
-        for name, kms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"phase 8 pipeline:   kernel {kms:8.3f} ms  {name[:90]}")
-        times["profile"] = dict(wall_ms=wall, busy_ms=busy, k5_ms=k5_dev)
+    times = {}
     del grid, img, img_atlas, rec
 
     # K5 against K1 (march-only) on phase 4's lambert frame
@@ -1344,41 +968,23 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     miss_vox = int(((r5.voxel != r1.voxel).any(-1) & misses).sum())
     miss_steps = int(((r5.steps != r1.steps) & misses).sum())
     img_same = int(((rgb5 - rgb1).abs() > kc.RGB_ATOL).any(-1).sum())
-    b5 = median_ms(lambda: m5(bo, bd), device, runs)
-    b1 = median_ms(lambda: m1(bo, bd), device, runs)
-    f5 = median_ms(lambda: render_rays(m5, bo, bd, albedo, bdims, light,
-                                       lam), device, runs)
-    f1 = median_ms(lambda: render_rays(m1, bo, bd, albedo, bdims, light,
-                                       lam), device, runs)
     print(f"phase 8 pipeline: K5 vs K1 at {B}^3 {bh}x{bw} lambert: hit, t, "
           f"voxel and normal agree on {share * 100:.4f}% of the {n_hit} rays "
           f"that either hits; of the {int(misses.sum())} misses, voxel "
           f"differs on {miss_vox} and steps on {miss_steps} (K5's contract); "
-          f"rgb beyond {kc.RGB_ATOL} on {img_same} px. A call (events): K5 "
-          f"{b5:.3f} ms on a {bpacked.bricks.numel() * 2 / 2**20:.0f} MiB "
-          f"bricked table, K1 march-only {b1:.3f} ms; pipeline frame K5 "
-          f"{f5:.3f} ms, K1 {f1:.3f} ms")
+          f"rgb beyond {kc.RGB_ATOL} on {img_same} px")
     if share < 0.999:
         raise AssertionError(f"K5 and K1 agree on only {share:.5f} of the "
                              f"hit rays")
-    k5b = k5_times({"512": (bo, bd, None, bpacked, bdims,
-                            lam.resolve_max_steps(bdims))}, device,
-                   record=True, prefix="phase 8 pipeline: K5 alone")["512"]
-    err = max(err, k5b["t_abs"])
-    times["big"] = dict(k5_ms=b5, k1_ms=b1, frame_k5_ms=f5, frame_k1_ms=f1,
-                        agree=share, k5=k5b)
+    times["big"] = dict(agree=share)
     del bpacked, m5, m1, r5, r1, rgb5, rgb1
-    # K1 alone on the same rays in each of its launch modes, each against
-    # its own bound (and K1' round 0)
-    times["k1"] = k1_times(k1_world(device, big_grid, bh, bw), device,
-                           record=True, prefix="phase 8 pipeline: K1 alone")
     if device.type == "cuda":
         from vxtpu_torch import _build
 
         times["blocks_per_sm"] = _build.load().vx_march_packed_blocks_per_sm()
         times["k1_occupancy"] = k1_occupancy()
         print(f"phase 8 pipeline: K5 holds {times['blocks_per_sm']} blocks of "
-              f"256 threads an SM; K1 at {B}^3 by instantiation: "
+              f"256 threads an SM; K1 at {FULL}^3 by instantiation: "
               f"{times['k1_occupancy']}")
 
     # the commands themselves
@@ -1441,7 +1047,7 @@ def phase_pipeline(device, big_grid, D=256, h=1024, w=1024, bh=H, bw=W,
     if abs(gsum["t_sum"] - gm["checksums"]["t_sum"]) > \
             1e-6 * abs(gm["checksums"]["t_sum"]):
         raise AssertionError("K5 t checksum differs from JAX's")
-    return {"launches": launches, "err": err, "times": times}
+    return {"launches": launches, "times": times}
 
 
 def k1r_bound(n, steps, resumed, with_tmax, table_words=0) -> dict:
@@ -1454,11 +1060,8 @@ def k1r_bound(n, steps, resumed, with_tmax, table_words=0) -> dict:
     Operations: MARCH_OPS_RAY per ray and MARCH_OPS_STEP per step over the
     float32 peak."""
     b = n * (24 + (4 if with_tmax else 0) + (20 if resumed else 0) + 38)
-    b += 2 * table_words
-    f = n * MARCH_OPS_RAY + steps * MARCH_OPS_STEP
-    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
-    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
-                bound_by="bytes" if tb >= tf else "operations")
+    return _bound(b + 2 * table_words,
+                  n * MARCH_OPS_RAY + steps * MARCH_OPS_STEP)
 
 
 def probe_bound(n, n_iters, variant, table_bytes) -> dict:
@@ -1472,11 +1075,8 @@ def probe_bound(n, n_iters, variant, table_bytes) -> dict:
     empty = variant == "empty"
     reads = variant in ("nomath", "full", "static")
     b = n * (4 if empty else 28) + (table_bytes if reads else 0)
-    f = n * ((0 if empty else PROBE_OPS_RAY)
-             + n_iters * PROBE_OPS_ITER[variant])
-    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
-    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
-                bound_by="bytes" if tb >= tf else "operations")
+    return _bound(b, n * ((0 if empty else PROBE_OPS_RAY)
+                          + n_iters * PROBE_OPS_ITER[variant]))
 
 
 def sass_loops(kernel: str) -> dict | None:
@@ -1522,101 +1122,30 @@ def k6_occupancy(dims) -> dict:
     return out
 
 
-def k6_probe(device, grid, h=H, w=W, case_d=64, case_hw=256, reps=10,
-             threads=None, orders=None) -> dict:
-    """Phase 9's K6 part: the probe against its plain version at
-    ``case_d``^3 (kernel_check.PROBE_CASES); on ``grid`` (phase 4's world)
-    and phase 4's outside h x w rays, the cost probe (counted: K1's step
-    over the three layouts in each ray order and block size, then the TPU
-    probe's float step, the form first ported, on the Morton table in
-    scanline order at 256 threads), then, not counted, both steps against
-    their plain versions on every ray in every order, the reads and words
-    each variant's rays read, each row's bound, each instantiation's
-    registers and blocks an SM and the SASS loops of full."""
+def _k6_inputs(w):
+    """K6's row: on the world512 scene, the probe's three tables and the
+    outside rays, and the same rays started where they enter the grid (a
+    miss keeps its origin: the outside rays all start at one voxel, the
+    camera's clipped floor, so only these spread a warp's rays over the
+    grid as K1's primary rays are spread, and can show what a ray order
+    does to the reads). Both steps against their plain versions on every
+    ray, in every order (a block order's acc put back in pixel order),
+    and the reads and distinct words each variant's rays read (its
+    bound's bytes)."""
     import torch
 
-    from vxtpu_torch import kernel_check as kc
-    from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.render import probe
     from vxtpu_torch.render.dda import ray_grid_clip
-    from vxtpu_torch.world.packed import build_packed, build_packed_morton
 
-    err = 0.0
-    for name in kc.PROBE_CASES:
-        m = kc.run_probe_case(name, device, case_d, case_hw, case_hw)
-        print(f"phase 9 resume: K6 {name}: acc differs on {m['acc']} of "
-              f"{m['n']} rays (max {m['max_abs']:.3g}), sum "
-              f"{m['acc_sum']:.6g}"
-              + (f"; identity words wrong on {m['expected']}"
-                 if "expected" in m else ""))
-        kc.check_probe_case(m, f"K6 {name}")
-        err = max(err, m["max_abs"])
-
-    dims = grid.dims
-    D = dims[0]
-    packed = build_packed(grid.occupancy)
-    tables = {"morton16": build_packed_morton(grid.occupancy, cap=64).words,
-              "rowmajor32": packed.words, "bricked16": packed.bricks}
-    del packed
-    _, requests = _main_scene(device, D)
-    cam = next(c for name, c, _, _ in requests if name == "lambert")
-    o, d = generate_rays(cam, h, w)
+    dims, o, d = w.dims, w.o, w.d
     n = o.shape[0]
-    orders = tuple(probe.ORDERS) if orders is None else tuple(orders)
-    threads = tuple(threads or probe.THREADS)
-    parent = ("tpu", "scanline", "morton16", 256)
-    # the same rays started where they enter the grid (a miss keeps its
-    # origin): the outside rays all start at one voxel, the camera's
-    # clipped floor, so only these spread a warp's rays over the grid as
-    # K1's primary rays are spread, and can show what a ray order does
-    # to the reads
+    tables = {"morton16": w.accel.words, "rowmajor32": w.packed.words,
+              "bricked16": w.packed.bricks}
     t_in, _, hits = ray_grid_clip(o, d, dims)
     eo = torch.where(hits[:, None], o + (t_in + 1e-3)[:, None] * d, o)
     entry_tables = {k: tables[k] for k in ("morton16", "bricked16")}
-
-    # the main path, counted: the cost probe
-    probe.reset_launch_counts()
-    t0 = time.perf_counter()
-    if device.type == "cuda":
-        cost = probe.cost_probe(o, d, tables, dims, reps=reps,
-                                threads=threads, orders=orders,
-                                image_shape=(h, w))
-        cost += probe.cost_probe(o, d, {"morton16": tables["morton16"]},
-                                 dims, reps=reps, threads=(256,),
-                                 steps=("tpu",))
-        entry = probe.cost_probe(eo, d, entry_tables, dims, reps=reps,
-                                 variants=("nofetch", "full"),
-                                 threads=(256,), orders=orders,
-                                 image_shape=(h, w))
-    else:
-        entry = []
-        for layout, table in entry_tables.items():
-            probe.march_probe(eo, d, table, dims, probe.N_ITERS, "full",
-                              layout)
-        cost = []
-        for order in orders:
-            po, pd, _ = probe.ordered_rays(o, d, (h, w), order)
-            for layout, table in tables.items():
-                for v in probe.VARIANTS:
-                    probe.march_probe(po, pd, table, dims, probe.N_ITERS, v,
-                                      layout)
-    _sync(device)
-    cost_s = time.perf_counter() - t0
-    launches = probe.LAUNCHES["march_probe_kernel"]
-    print(f"phase 9 resume: launches during the cost probe ({len(orders)} "
-          f"orders x {len(tables)} layouts x {len(probe.VARIANTS)} variants"
-          + (f" x {len(threads)} block sizes, the TPU float step"
-             if cost else "") + f", the rays from their grid entry, "
-          f"{cost_s:.1f} s): march_probe_kernel {launches}")
-    if device.type == "cuda" and launches == 0:
-        raise AssertionError("the cost probe did not launch "
-                             "march_probe_kernel")
-
-    # both steps against their plain versions on every ray, in every order
-    # (a block order's acc put back in pixel order); the reads and the
-    # words each variant's rays read (not counted)
-    ordered = {k: probe.ordered_rays(o, d, (h, w), k) for k in orders}
-    work, acc_sum = {}, {}
+    ordered = {k: probe.ordered_rays(o, d, (H, W), k) for k in probe.ORDERS}
+    work, acc_sum, err = {}, {}, 0.0
     for layout, table in tables.items():
         for v in probe.VARIANTS:
             runs = {}
@@ -1628,8 +1157,9 @@ def k6_probe(device, grid, h=H, w=W, case_d=64, case_hw=256, reps=10,
                 work[(step, layout, v)] = dict(
                     reads=int(stats["reads"].sum(dtype=torch.int64)),
                     words=int(stats["touched"].sum()))
-                for order in (orders if step == "k1" else ("scanline",)):
-                    po, pd, inv = ordered.get(order) or (o, d, None)
+                for order in (probe.ORDERS if step == "k1" else
+                              ("scanline",)):
+                    po, pd, inv = ordered[order]
                     got = probe.march_probe(po, pd, table, dims,
                                             probe.N_ITERS, v, layout,
                                             step=step)
@@ -1638,8 +1168,8 @@ def k6_probe(device, grid, h=H, w=W, case_d=64, case_hw=256, reps=10,
                     err = max(err, float((got - want).abs().max()))
                     if bad:
                         raise AssertionError(
-                            f"K6 {v} {layout} {step} {order} at {D}^3: acc "
-                            f"differs from the plain version on {bad} rays")
+                            f"K6 {v} {layout} {step} {order}: acc differs "
+                            f"from the plain version on {bad} rays")
             if not torch.equal(runs["k1"], runs["tpu"]):
                 raise AssertionError(f"K6 {v} {layout}: the K1 step's plain "
                                      f"acc differs from the float step's")
@@ -1658,93 +1188,102 @@ def k6_probe(device, grid, h=H, w=W, case_d=64, case_hw=256, reps=10,
             reads=int(stats["reads"].sum(dtype=torch.int64)),
             words=int(stats["touched"].sum()))
         work[("entry", layout, "nofetch")] = dict(reads=0, words=0)
-    print(f"phase 9 resume: K6 on all {n} rays at {D}^3, {probe.N_ITERS} "
-          f"iterations: acc equal to the plain version bit for bit for "
-          f"every variant x layout x order (K1 step) and every variant x "
-          f"layout (float step), and the two steps' plain versions equal; "
-          f"acc sums "
+    print(f"phase 13 times: K6 on all {n} rays at {dims[0]}^3, "
+          f"{probe.N_ITERS} iterations: acc equal to the plain version bit "
+          f"for bit for every variant x layout x order (K1 step) and every "
+          f"variant x layout (float step), and the two steps' plain versions "
+          f"equal; acc sums "
           + ", ".join(f"{v}/{lay} {x:.6g}" for (v, lay), x in acc_sum.items()))
-    for (step, layout, v), wk in work.items():
-        if v in ("nomath", "full", "static"):
-            print(f"phase 9 resume: K6 {v} {layout} {step}: "
-                  f"{wk['reads'] / (n * probe.N_ITERS):.6f} reads per "
-                  f"ray-iteration, {wk['words']} distinct table words")
+    return SimpleNamespace(dims=dims, o=o, d=d, eo=eo, n=n, tables=tables,
+                           entry_tables=entry_tables, work=work, err=err)
 
-    out = dict(err=err, launches=launches, work={
-        "/".join(k): x for k, x in work.items()})
-    if device.type != "cuda":
-        return out
-    for row in entry:
-        row["rays"] = "entry"
-    for row in cost + entry:
-        wk = work[(row.get("rays", row["step"]), row["layout"],
-                   row["variant"])]
-        row["reads_per_ray_iter"] = wk["reads"] / (n * probe.N_ITERS)
-        row["bound"] = probe_bound(
-            n, probe.N_ITERS, row["variant"],
-            wk["words"] * tables[row["layout"]].element_size())
-        row["share"] = row["bound"]["bound_ms"] / row["ms"]
-        print(f"phase 9 resume: K6 {row.get('rays', 'camera'):6s} "
-              f"{row['step']:3s} {row['order']:10s} "
-              f"{row['variant']:7s} {row['layout']:10s} "
-              f"{row['threads']:3d} threads: {row['ms']:.4f} ms device "
-              f"({row['clock']}; {row['events_ms']:.4f} ms events), "
-              f"{row['ns_per_ray_iter']:.6f} ns per ray-iteration, "
-              f"{row['reads_per_ray_iter']:.4f} reads per ray-iteration; "
-              f"bound {row['bound']['bound_ms']:.4f} ms by "
-              f"{row['bound']['bound_by']} (share {row['share']:.3f})")
-    key = lambda r: (r["step"], r["order"], r["layout"], r["threads"])
-    full = {key(r): r for r in cost if r["variant"] == "full"}
-    new, old = full[("k1", "scanline", "morton16", 256)], full[parent]
-    out.update(cost=cost, entry=entry, full_ms=new["ms"],
-               full_clock=new["clock"],
-               parent_ms=old["ms"], parent_clock=old["clock"],
-               bound=new["bound"],
-               reads_per_ray_iter=new["reads_per_ray_iter"],
-               plain_ms=median_ms(lambda: probe.march_probe_reference(
-                   o, d, tables["morton16"], dims), device, 3),
-               occupancy=k6_occupancy(dims), sass_loops=sass_loops(
-                   "march_probe_kernel"))
-    print(f"phase 9 resume: K6 full/morton16/256/scanline: K1 step "
-          f"{new['ms']:.4f} ms ({new['clock']}), the float step (the form "
-          f"first ported) {old['ms']:.4f} ms ({old['clock']}) in the same "
-          f"run; plain version {out['plain_ms']:.1f} ms")
-    for name, x in out["occupancy"].items():
-        print(f"phase 9 resume: K6 {name}: {x['registers']} registers, "
-              f"{x['blocks_per_sm']} blocks of 256 threads an SM")
+
+def k6_sweep(row: Row, x, device) -> dict:
+    """K6's sweep, each launch configuration timed by time_row (windows of
+    10 launches; the median of ROUNDS, as a lone window now and then reads
+    half the kernel's time) with its own bound (probe_bound: the distinct
+    words its plain version reads): K1's step over every ray order x layout x
+    variant x block size, the float step (the form first ported) on the
+    Morton table in scanline order at 256 threads, and full and nofetch
+    from the grid entry; the launches counted; the plain version's time
+    beside the headline configuration (K1's step, full, morton16,
+    scanline, 256 threads); each instantiation's registers and blocks an
+    SM and the SASS loops of the probe."""
+    from vxtpu_torch.render import probe
+
+    configs = [("camera", "k1", order, layout, v, th)
+               for order in probe.ORDERS for layout in x.tables
+               for v in probe.VARIANTS for th in probe.THREADS]
+    configs += [("camera", "tpu", "scanline", "morton16", v, 256)
+                for v in probe.VARIANTS]
+    configs += [("entry", "k1", order, layout, v, 256)
+                for order in probe.ORDERS for layout in x.entry_tables
+                for v in ("nofetch", "full")]
+    headline = ("camera", "k1", "scanline", "morton16", "full", 256)
+    ordered = {(src, k): probe.ordered_rays(o, x.d, (H, W), k)
+               for src, o in (("camera", x.o), ("entry", x.eo))
+               for k in probe.ORDERS}
+    probe.reset_launch_counts()
+    out, rows = {}, []
+    for cfg in configs:
+        rays, step, order, layout, v, th = cfg
+        po, pd, _ = ordered[(rays, order)]
+        table = x.tables[layout]
+        wk = x.work[(step if rays == "camera" else "entry", layout, v)]
+        reads = wk["reads"] / (x.n * probe.N_ITERS)
+        r = time_row(row._replace(
+            name=f"k6 {rays} {step} {order} {v} {layout} {th}",
+            launch=lambda _x, a=(po, pd, table, x.dims, probe.N_ITERS, v,
+                                 layout, th, step): probe.march_probe(*a),
+            bound=lambda _x, b=probe_bound(
+                x.n, probe.N_ITERS, v, wk["words"] * table.element_size()): b,
+            plain=row.plain if cfg == headline else None),
+            SimpleNamespace(**vars(x), info=dict(reads_per_ray_iter=reads)),
+            device, reps=10)
+        r.update(zip(("rays", "step", "order", "layout", "variant",
+                      "threads"), cfg),
+                 ns_per_ray_iter=r["device_ms"] * 1e6 / (x.n * probe.N_ITERS))
+        rows.append(r)
+        if cfg == headline:
+            out.update(r)
+        elif cfg == ("camera", "tpu", "scanline", "morton16", "full", 256):
+            out.update(parent_form_ms=r["device_ms"],
+                       parent_form_ms_clock=r["device_ms_clock"])
+    out.update(rows=rows, err=x.err,
+               launches=probe.LAUNCHES["march_probe_kernel"],
+               work={"/".join(k): v for k, v in x.work.items()},
+               occupancy=k6_occupancy(x.dims),
+               sass_loops=sass_loops("march_probe_kernel"))
+    print(f"phase 13 times: K6 sweep: {len(rows)} configurations, "
+          f"{out['launches']} launches; full/morton16/256/scanline: K1 step "
+          f"{out['device_ms']:.4f} ms, the float step (the form first "
+          f"ported) {out['parent_form_ms']:.4f} ms")
+    if x.o.is_cuda and out["launches"] == 0:
+        raise AssertionError("the sweep did not launch march_probe_kernel")
+    for name, occ in out["occupancy"].items():
+        print(f"phase 13 times: K6 {name}: {occ['registers']} registers, "
+              f"{occ['blocks_per_sm']} blocks of 256 threads an SM")
     if out["sass_loops"] is None:
-        print("phase 9 resume: K6 SASS: cuobjdump not found beside nvcc")
+        print(f"phase 13 times: K6 SASS: cuobjdump not found beside nvcc")
     for fn, loops in (out["sass_loops"] or {}).items():
-        print(f"phase 9 resume: K6 SASS {fn}: loops (instructions, F2I) "
-              + ", ".join(f"({x['size']}, {x['f2i']})" for x in loops))
+        print(f"phase 13 times: K6 SASS {fn}: loops (instructions, F2I) "
+              + ", ".join(f"({lp['size']}, {lp['f2i']})" for lp in loops))
     return out
 
 
-def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
-                 budgets=None, runs=RUNS, reps=10, drain_r0=8,
-                 drain_frac=256, threads=None, orders=None) -> dict:
-    """Phase 9: K1' and K6 (see the module docstring). big_grid: phase
-    4's world."""
+def phase_resume(device, big_grid, h=H, w=W, runs=RUNS, drain_r0=8,
+                 drain_frac=256) -> dict:
+    """Phase 9: K1' and the sorted march (see the module docstring).
+    big_grid: phase 4's world."""
     import torch
 
-    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.render import kernel_march as km
     from vxtpu_torch.render import probe
-    from vxtpu_torch.world.packed import build_packed_morton, morton3
+    from vxtpu_torch.world.packed import build_packed_morton
 
     t_phase = time.perf_counter()
-    budgets = kc.RESUME_BUDGETS if budgets is None else budgets
-    err = {"march_resume_kernel": 0.0}
-    for name in kc.MARCH_CASES:
-        m = kc.run_resume_case(name, device, case_d, case_hw, case_hw,
-                               budgets)
-        print(f"phase 9 resume: K1' {name}: survivors by budget "
-              f"{m['survivors']}; mismatches {m['mismatch']}; merged rounds "
-              f"vs the single round differ on {m['merged']} of {m['n']}")
-        kc.check_resume_case(m, f"K1' {name}")
-
     dims = big_grid.dims
     D = dims[0]
     accel = build_packed_morton(big_grid.occupancy, cap=64)
@@ -1756,8 +1295,7 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
     o, d = rays["lambert"]
     n = o.shape[0]
 
-    # the main path, counted: the sorted march of both ray sets (K6's
-    # cost probe is counted in k6_probe)
+    # the main path, counted: the sorted march of both ray sets
     km.reset_launch_counts()
     stats = {k: {} for k in sets}
     srec = {k: km.march_sorted(*rays[k], accel, dims, ms, stats=stats[k])
@@ -1798,22 +1336,20 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
 
     # K1' against its plain version on every lambert ray
     r0k, e0k = km.march(o, d, accel, dims, ms, iter_budget=24, extended=True)
-    with _logged_fetch(km, accel.words) as log0:
-        r0p, e0p = km.march_reference(o, d, accel, dims, ms, iter_budget=24,
-                                      extended=True)
+    r0p, e0p = km.march_reference(o, d, accel, dims, ms, iter_budget=24,
+                                  extended=True)
     m0 = kc.resume_mismatch(r0k, e0k, r0p, e0p)
     state = (r0p.voxel, torch.where(e0p["done"], -1, e0p["dist"]),
              r0p.steps)
     r1k, e1k = km.march(o, d, accel, dims, ms, resume_state=state,
                         extended=True)
-    with _logged_fetch(km, accel.words) as log1:
-        r1p, e1p = km.march_reference(o, d, accel, dims, ms,
-                                      resume_state=state, extended=True)
+    r1p, e1p = km.march_reference(o, d, accel, dims, ms, resume_state=state,
+                                  extended=True)
     m1 = kc.resume_mismatch(r1k, e1k, r1p, e1p)
     merged = kc.exact_mismatch(kc.merge_rounds(e0k["done"], r0k, r1k),
                                single["lambert"])
-    err["march_resume_kernel"] = max(
-        float((r0k.t - r0p.t).abs().max()), float((r1k.t - r1p.t).abs().max()))
+    err = {"march_resume_kernel": max(float((r0k.t - r0p.t).abs().max()),
+                                      float((r1k.t - r1p.t).abs().max()))}
     print(f"phase 9 resume: K1' on all {n} lambert rays at {D}^3: round 0 "
           f"(budget 24) mismatches {m0}; resume mismatches {m1}; the two "
           f"rounds vs single-round K1 differ on {merged} rays")
@@ -1821,7 +1357,7 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
             not bool(e1k["done"].all()):
         raise AssertionError("K1' differs from its plain version on the "
                              "lambert rays")
-    del r0p, e0p, r1p, e1p
+    del r0p, e0p, r1p, e1p, r0k, e0k, r1k, e1k
 
     # warp coherence (host arithmetic on steps)
     coh = {}
@@ -1840,89 +1376,21 @@ def phase_resume(device, big_grid, h=H, w=W, case_d=64, case_hw=256,
               f"{st['survivors']} survivors of round 0, their resume steps "
               f"in launch order {coh[k]['unsorted']:.4f}, in the sorted "
               f"resume round's order {coh[k]['sorted']:.4f}")
+    del single, srec
 
     times = dict(coherence=coh, launches=launches)
-    steps0 = int((r0k.steps).sum(dtype=torch.int64))
-    alive = ~e0k["done"]
-    steps1 = int((r1k.steps - r0k.steps)[alive].sum(dtype=torch.int64))
-    words0, words1 = log0.count(), log1.count()
-    times["bound0"] = k1r_bound(n, steps0, False, False, words0)
-    times["bound0_rays_only_ms"] = k1r_bound(n, steps0, False,
-                                             False)["bound_ms"]
     if device.type == "cuda":
-        round0 = lambda: km.march(o, d, accel, dims, ms, iter_budget=24,
-                                  extended=True)
-        resume_all = lambda: km.march(o, d, accel, dims, ms,
-                                      resume_state=state, extended=True)
-        # the survivors alone, in launch order and in Morton order
-        ids = torch.nonzero(alive).squeeze(1)
-        v = r0k.voxel
-        key = torch.where(alive, morton3(v[:, 0] >> 1, v[:, 1] >> 1,
-                                         v[:, 2] >> 1), 1 << 30)
-        sids = torch.argsort(key, stable=True)[:ids.numel()]
-        bufs = {}
-        for tag, sel in (("launch order", ids), ("Morton order", sids)):
-            bufs[tag] = (o[sel], d[sel], (v[sel], e0k["dist"][sel],
-                                          r0k.steps[sel]))
-        t = dict(
-            round0_events_ms=median_ms(round0, device, runs),
-            round0_plain_ms=median_ms(lambda: km.march_reference(
-                o, d, accel, dims, ms, iter_budget=24, extended=True),
-                device, 3))
-        dev = {"round0_ms": bench.device_time(
-                   t, "round0_ms", round0, device, reps,
-                   "march_resume_kernel"),
-               "resume_all_ms": bench.device_time(
-                   t, "resume_all_ms", resume_all, device, reps,
-                   "march_resume_kernel"),
-               "k1_ms": bench.device_time(t, "k1_ms", lambda: km.march(
-                   o, d, accel, dims, ms), device, reps,
-                   "march_shade_kernel")}
-        for tag, (bo, bd, bs) in bufs.items():
-            key = f"survivors_{tag.split()[0]}_ms"
-            dev[key] = bench.device_time(
-                t, key, lambda bo=bo, bd=bd, bs=bs: km.march(
-                    bo, bd, accel, dims, ms, resume_state=bs, extended=True),
-                device, reps, "march_resume_kernel")
-        t["resume_launch_us"] = probe.launch_us(resume_all, reps,
-                                                "march_resume_kernel")
-        print(f"phase 9 resume: K1' resume of all rays, one more profiler "
-              f"window: {len(t['resume_launch_us'])} of {reps} launches "
-              f"recorded, us: "
-              + " ".join(f"{u:.2f}" for u in t["resume_launch_us"]))
-        b1 = k1r_bound(n, steps1, True, False, words1)
-        times.update(t)
-        times["bound1"] = b1
-        print(f"phase 9 resume: device time per launch at {D}^3 {h}x{w} "
-              f"({reps} launches): K1' round 0 (budget 24) "
-              f"{dev['round0_ms']} (events {t['round0_events_ms']:.3f} "
-              f"ms; bound {times['bound0']['bound_ms']:.4f} ms by "
-              f"{times['bound0']['bound_by']} with the {words0} table words "
-              f"its plain march reads, {times['bound0_rays_only_ms']:.4f} ms "
-              f"without; plain "
-              f"{t['round0_plain_ms']:.1f} ms); K1' resume of all rays "
-              f"{dev['resume_all_ms']} (bound {b1['bound_ms']:.4f} ms by "
-              f"{b1['bound_by']} with {words1} table words); the "
-              f"{ids.numel()} survivors alone in "
-              f"launch order {dev['survivors_launch_ms']}, in Morton "
-              f"order {dev['survivors_Morton_ms']}; K1 march-only "
-              f"{dev['k1_ms']}; round-0 steps {steps0}, resume steps "
-              f"{steps1}")
-        sp = probe.sorted_probe(o, d, accel, dims, ms, reps=runs)
+        # its single-round march times are K1's row's to give (phase 13)
+        sp = {k: v for k, v in probe.sorted_probe(
+            o, d, accel, dims, ms, reps=runs).items()
+            if k in ("n", "argsort_ms", "sorted")}
         times["sorted_probe"] = sp
         print(f"phase 9 resume: sorted_probe at {D}^3 {h}x{w} (events, "
               f"{runs} calls): argsort of {sp['n']} keys "
-              f"{sp['argsort_ms']:.3f} ms; single-round K1 march-only "
-              f"{sp['single_ms']:.3f} ms ({sp['single_device_ms']:.4f} ms "
-              f"device, {sp['single_device_clock']}); march_sorted "
+              f"{sp['argsort_ms']:.3f} ms; march_sorted "
               + "; ".join(f"round0_iters {r0}: {x['ms']:.3f} ms, "
                           f"{x['survivors']} survivors, {x['rounds']} "
                           f"round(s)" for r0, x in sp["sorted"].items()))
-    del single, srec, r0k, e0k, r1k, e1k
-    k6 = k6_probe(device, big_grid, h, w, case_d, case_hw, reps, threads,
-                  orders)
-    err["march_probe_kernel"] = k6.pop("err")
-    times["k6"] = k6
     secs = time.perf_counter() - t_phase
     print(f"phase 9 resume: {secs:.1f} s")
     return {"err": err, "times": times, "seconds": secs}
@@ -2000,49 +1468,56 @@ def _device_us(e) -> float:
     return us if us is not None else getattr(e, "self_cuda_time_total", 0.0)
 
 
-def _profile_step(step, device, big, steps=2):
-    """One profiled window of ``steps`` steps (torch.profiler): device time
-    per step (ms) by kernel name; the device time of the aten ops whose
-    inputs have >= ``big`` elements (work on the dense [D^3] tables other
-    than Adam's: zero-fills, gradient accumulation, copies, the TV
-    prior), as op -> (ms, the most dimensions of its inputs); and the
-    wall time per step."""
+def profile_kernels(fn, device, calls=1, big=None) -> dict:
+    """One torch.profiler window of ``calls`` calls of fn after a warm-up
+    call: ``kernels``, device ms a call by kernel name (without the
+    record_function ranges the profiler mirrors on the device timeline);
+    ``launches``, the kernels launched a call; ``busy_ms``, their device
+    ms a call; ``wall_ms``, a call's wall time under the profiler; with
+    ``big``, ``dense``: the aten ops whose inputs have >= ``big`` elements
+    (work on the dense [D^3] tables), op and input shapes -> (device ms a
+    call, the most dimensions of its inputs)."""
     import math
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    step()
+    fn()
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+                 record_shapes=big is not None) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            step()
+        for _ in range(calls):
+            fn()
         _sync(device)
-        wall = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = {}
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    kernels, launches = {}, 0
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.key.startswith(("Optimizer.", "ProfilerStep"))
+                or getattr(e, "is_user_annotation", False)
+                or not _device_us(e)):
             continue
-        if (e.key.startswith(("Optimizer.", "ProfilerStep"))
-                or getattr(e, "is_user_annotation", False)):
-            continue            # record_function ranges, not kernels
-        if _device_us(e):
-            kernels[e.key] = kernels.get(e.key, 0.0) + \
-                _device_us(e) / 1e3 / steps
-    dense = {}
-    for e in prof.key_averages(group_by_input_shape=True):
-        if (e.device_type != torch.autograd.DeviceType.CPU
-                or not e.key.startswith("aten::") or "foreach" in e.key):
-            continue
-        shapes = [sh for sh in (e.input_shapes or []) if isinstance(sh, list)]
-        if _device_us(e) and any(sh and math.prod(sh) >= big
-                                 for sh in shapes):
-            key = f"{e.key} {shapes}"
-            ms = dense.get(key, (0.0, 0))[0] + _device_us(e) / 1e3 / steps
-            dense[key] = (ms, max(len(sh) for sh in shapes))
-    return kernels, dense, wall
+        kernels[e.key] = kernels.get(e.key, 0.0) + \
+            _device_us(e) / 1e3 / calls
+        launches += e.count
+    out = dict(kernels=kernels, launches=launches // calls,
+               busy_ms=sum(kernels.values()), wall_ms=wall)
+    if big is not None:
+        out["dense"] = {}
+        for e in prof.key_averages(group_by_input_shape=True):
+            if (e.device_type != torch.autograd.DeviceType.CPU
+                    or not e.key.startswith("aten::") or "foreach" in e.key):
+                continue
+            shapes = [sh for sh in (e.input_shapes or [])
+                      if isinstance(sh, list)]
+            if _device_us(e) and any(sh and math.prod(sh) >= big
+                                     for sh in shapes):
+                key = f"{e.key} {shapes}"
+                ms = out["dense"].get(key, (0.0, 0))[0] + \
+                    _device_us(e) / 1e3 / calls
+                out["dense"][key] = (ms, max(len(sh) for sh in shapes))
+    return out
 
 
 def _group_kernels(kernels: dict, dense: dict) -> dict:
@@ -2090,174 +1565,11 @@ def _touched_words(o, d, t0, dt, S, D) -> int:
     return int(seen.sum())
 
 
-def _bound(b, f) -> dict:
-    tb, tf = b / PEAK_BYTES * 1e3, f / PEAK_F32 * 1e3
-    return dict(bytes=b, ops=f, bound_ms=max(tb, tf),
-                bound_by="bytes" if tb >= tf else "operations")
-
-
-def tv_times(device, D=FULL, reps=10, rounds=3) -> dict:
-    """The Morton TV prior's kernel pair (train/kernel_tv.py) at 64^3 and
-    D^3 against its plain version in each of kernel_check.TV_CASES
-    (run_tv_case; raises on a difference; "err" the largest errors by
-    kernel), then on one random D^3 table the device times, each the
-    median of ``rounds`` profiler windows of ``reps`` calls
-    (render/probe.py:device_ms): each kernel's a launch ("fwd_kernel",
-    "fwd_finish", "bwd": tv_bwd_kernel), a forward call's ("fwd": the
-    sum of its two kernels), beside their bounds (the forward reads the
-    table once, the backward reads it and writes its gradient once), and
-    the plain version's a call, its forward alone and forward with
-    backward (autograd)."""
-    import torch
-
-    from vxtpu_torch import kernel_check as kc
-    from vxtpu_torch.render import probe
-    from vxtpu_torch.train import kernel_tv
-    from vxtpu_torch.train.loss import tv_prior_morton
-
-    out = {"checks": {}, "err": {}}
-    for dim in (64, D):
-        for case in kc.TV_CASES:
-            m = kc.run_tv_case(dim, device, case)
-            kc.check_tv_case(m, f"TV prior at {dim}^3")
-            out["checks"][f"{dim}/{case}"] = m
-            _add_tv_err(out["err"], m)
-            print(f"TV prior at {dim}^3 ({case}): value {m['value']!r}, "
-                  f"plain {m['plain']!r} (rel {m['value_rel']:.3g}), second "
-                  f"launch equal; gradient off by {m['grad_err']:.3g} x max "
-                  f"|g|")
-            torch.cuda.empty_cache()
-    tab = kc.tv_table(D, device, seed=1)
-    g = torch.ones((), device=device)
-    w = kc.TV_WEIGHTS
-    q = tab.clone().requires_grad_(True)
-    rows = tab.shape[0]
-    fwd = _bound(rows * 16, rows * TV_FWD_OPS)
-    # each kernel's time a launch, over the launches the profiler recorded
-    # (it can drop some); the plain version's a call, over every call
-    calls = {
-        "fwd_kernel": ("tv_fwd_kernel", lambda: kernel_tv.tv_fwd(tab, *w),
-                       fwd),
-        # the partials read and the value written
-        "fwd_finish": ("tv_fwd_finish_kernel",
-                       lambda: kernel_tv.tv_fwd(tab, *w),
-                       _bound(kernel_tv.FWD_PARTS * 16 + 4,
-                              kernel_tv.FWD_PARTS * 4)),
-        "bwd": ("tv_bwd_kernel", lambda: kernel_tv.tv_bwd(tab, g, *w),
-                _bound(rows * 32, rows * TV_BWD_OPS)),
-        "plain_fwd": ("", lambda: tv_prior_morton(tab, *w), None),
-        "plain_fwd_bwd": ("", lambda: torch.autograd.grad(
-            tv_prior_morton(q, *w), [q]), None)}
-    for name, (kernel, fn, bound) in calls.items():
-        runs = [probe.device_ms(fn, reps, kernel, per_call=not kernel)
-                for _ in range(rounds)]
-        out[name] = dict(device_ms=statistics.median(r[0] for r in runs),
-                         clock=runs[0][1], rounds_ms=[r[0] for r in runs],
-                         bound=bound)
-        torch.cuda.empty_cache()
-    # a forward call: its two kernels
-    out["fwd"] = dict(device_ms=out["fwd_kernel"]["device_ms"]
-                      + out["fwd_finish"]["device_ms"],
-                      clock=out["fwd_kernel"]["clock"], bound=fwd)
-    for name in [*calls, "fwd"]:
-        row = out[name]
-        bound = row.pop("bound")
-        ms = row["device_ms"]
-        if bound is not None:
-            row.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                       share=bound["bound_ms"] / ms)
-            if row["share"] > 1.05:
-                raise AssertionError(f"TV prior at {D}^3, {name}: {ms} ms "
-                                     f"is below its bound {row['bound_ms']} "
-                                     f"ms: the time misses part of the work")
-        print(f"TV prior at {D}^3, {name}: {ms:.4f} ms "
-              f"({row['clock']})" + (f"; bound {row['bound_ms']:.4f} ms "
-                                     f"({row['bound_by']}), share "
-                                     f"{row['share']:.3f}" if bound else ""))
-    return out
-
-
 def adam_bound(D) -> dict:
     """Adam's update of the [D^3, 4] float32 table: the table, its
     gradient and the two moments read once, the table and the moments
     written once (7 x 16 B a row), ADAM_OPS an element."""
     return _bound(7 * 16 * D ** 3, ADAM_OPS * 4 * D ** 3)
-
-
-def adam_times(device, D=FULL, reps=10, rounds=3, steps=3) -> dict:
-    """Adam's kernel (train/kernel_adam.py) against torch's foreach step in
-    each of kernel_check.ADAM_CASES and over ``steps`` steps of a random
-    [D^3, 4] table (run_adam_case; raises on a difference; "err" the
-    largest |difference|), then on one random [D^3, 4] table, gradient and
-    moments the device times, each the median of ``rounds`` profiler
-    windows of ``reps`` calls (render/probe.py:device_ms): the kernel's a
-    launch ("kernel", beside adam_bound; a share above 1.05 raises), the
-    plain version's a call ("plain": torch's single-tensor ops) and
-    torch.optim.Adam's foreach step a call ("foreach", the library
-    yardstick: the path the kernel replaces)."""
-    import torch
-
-    from vxtpu_torch import kernel_check as kc
-    from vxtpu_torch.render import probe
-    from vxtpu_torch.train import kernel_adam
-    from vxtpu_torch.train.loop import ADAM_EPS, BETAS
-
-    out = {"checks": {}, "err": 0.0}
-    cases = {**kc.ADAM_CASES,
-             f"table{D}": dict(shapes=[(D ** 3, 4)], steps=steps)}
-    for name, case in cases.items():
-        m = kc.run_adam_case(device, **case)
-        kc.check_adam_case(m, f"Adam ({name})")
-        out["checks"][name] = {k: m[k] for k in (
-            "excess", "max_abs", "unequal", "elements", "rerun_equal",
-            "launches")}
-        out["err"] = max(out["err"], m["max_abs"])
-        print(f"Adam ({name}): {m['steps']} steps against torch's foreach "
-              f"step: allclose excess {m['excess']:.3g}, max |d| "
-              f"{m['max_abs']:.3g}, {m['unequal']} of {m['elements']} values "
-              f"not bit-equal; second run equal; {m['launches']} launches")
-        torch.cuda.empty_cache()
-    gen = torch.Generator(device=device).manual_seed(1)
-    p, g, m, v = (torch.randn((D ** 3, 4), generator=gen, device=device)
-                  for _ in range(4))
-    v.square_()
-    q = p.clone().requires_grad_(True)
-    q.grad = g
-    lib = torch.optim.Adam([q], lr=5e-2, betas=BETAS, eps=ADAM_EPS,
-                           foreach=True)
-    args = (BETAS, ADAM_EPS)
-    # (kernel name, per call, fn, bound): the kernel's time a launch over
-    # the launches recorded; the others' a call, over every call (the
-    # foreach step's by its kernels' name, as the profiler mirrors the
-    # step's record_function range on the device timeline)
-    calls = {
-        "kernel": ("adam_step_kernel", False, lambda: kernel_adam.adam_step(
-            p, g, m, v, 10, 5e-2, *args), adam_bound(D)),
-        "plain": ("", True, lambda: kernel_adam.adam_step_reference(
-            p, g, m, v, 10, 5e-2, *args), None),
-        "foreach": ("multi_tensor_apply_kernel", True, lib.step, None)}
-    for name, (kernel, per_call, fn, bound) in calls.items():
-        runs = [probe.device_ms(fn, reps, kernel, per_call=per_call)
-                for _ in range(rounds)]
-        row = out[name] = dict(device_ms=statistics.median(
-            r[0] for r in runs), clock=runs[0][1],
-            rounds_ms=[r[0] for r in runs])
-        ms = row["device_ms"]
-        if bound is not None:
-            row.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
-                       bytes=bound["bytes"], share=bound["bound_ms"] / ms)
-            if row["share"] > 1.05:
-                raise AssertionError(f"Adam at {D}^3: {ms} ms is below its "
-                                     f"bound {row['bound_ms']} ms: the time "
-                                     f"misses part of the work")
-        print(f"Adam at {D}^3, {name}: {ms:.4f} ms ({row['clock']}; rounds "
-              + ", ".join(f"{t:.4f}" for t in row["rounds_ms"]) + ")"
-              + (f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                 f"{row['bytes']:.4g} B), share {row['share']:.3f}"
-                 if bound else ""))
-    del p, g, m, v, q, lib
-    torch.cuda.empty_cache()
-    return out
 
 
 def sample_bounds(n, S, D, active_samples, touched, lit=False,
@@ -2290,38 +1602,16 @@ def zero_fill_bound(D) -> dict:
     return _bound(16 * D ** 3, 0)
 
 
-def zero_fill_times(D, device, runs, prefix) -> dict:
-    """Device time of the zero-fill that K4's wrapper makes before the
-    kernel (torch.zeros of the [D^3, 4] gradient), beside its bound;
-    prints one line."""
-    import torch
-
-    from vxtpu_torch import bench
-
-    row = dict(**zero_fill_bound(D))
-    # the fill's own kernel (at::native::FillFunctor), per recorded launch
-    dev = bench.device_time(
-        row, "device_ms", lambda: torch.zeros((D ** 3, 4),
-                                              device=device), device, runs,
-        "FillFunctor")
-    print(f"{prefix}: K4's wrapper zero-fills the [{D}^3, 4] gradient "
-          f"before the kernel: device {dev}; bound {row['bound_ms']:.4f} ms "
-          f"by bytes ({row['bytes']:.4g} B written)")
-    return row
-
-
 def ray_sum_bound(n, chunks) -> dict:
     """sample_ray_sum_kernel: reads the [chunks, 8, N] partial sums, writes
     32 B per ray, one add per partial."""
     return _bound(chunks * 8 * n * 4 + n * 32, chunks * 8 * n)
 
 
-def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
-                runs=RUNS) -> dict:
+def phase_train(device, D=FULL, h=C4_HW, w=C4_HW, S=C4_S, steps=5) -> dict:
     """Phase 6: the c4_512_diff fit through the sampling kernels."""
     import torch
 
-    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.app.configs import CONFIGS
     from vxtpu_torch.camera.camera import Camera
@@ -2352,30 +1642,23 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     # gradient, so K4 runs its pure scatter)
     tc = loop.TrainConfig(field_kernel=True, num_samples=S, ray_batch=0,
                           steps=steps, seed=cfg4.seed)
-    timer = StepTimer(device)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     ks.reset_launch_counts()
     kernel_tv.reset_launch_counts()
     kernel_adam.reset_launch_counts()
-    timer()
     fitted, _, losses, _ = loop.fit_soft(
         soft.SoftGrid.zeros(dims, device=device), cam,
-        target.reshape(h, w, 3), settings, tc, step_hook=timer)
+        target.reshape(h, w, 3), settings, tc)
     _sync(device)
     launches = dict(ks.LAUNCHES)
     tv_launches = dict(kernel_tv.LAUNCHES)
     adam_launches = dict(kernel_adam.LAUNCHES)
-    step_ms = timer.ms()
     peak = (torch.cuda.max_memory_allocated(device) / 2**30
             if device.type == "cuda" else float("nan"))
     print(f"phase 6 train: launches during the {steps} steps: {launches}; "
           f"TV prior {tv_launches}; Adam {adam_launches}")
-    print(f"phase 6 train: losses {losses}")
-    print(f"phase 6 train: step ms {[round(x, 3) for x in step_ms]} "
-          f"(the first includes the Morton conversion); median of steps "
-          f"2..{steps} {statistics.median(step_ms[1:]):.3f} ms; peak memory "
-          f"{peak:.2f} GiB")
+    print(f"phase 6 train: losses {losses}; peak memory {peak:.2f} GiB")
     if device.type == "cuda" and launches != {
             "sample_fwd_kernel": steps, BWD[False]: steps, BWD[True]: 0,
             "sample_ray_sum_kernel": 0}:
@@ -2473,7 +1756,6 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
     cots = tuple(torch.randn(S, h * w, generator=g).to(device)
                  for _ in range(4))
     args = (tab, o, d, st, sdt, cots, D)
-    times = {}
     for rg in (False, True):
         kb = ks.sample_grads(*args, ray_grads=rg)
         kb2 = ks.sample_grads(*args, ray_grads=rg)
@@ -2499,61 +1781,7 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
             raise AssertionError(f"K4 kRayGrads={rg} at the main shape "
                                  f"differs from its plain version")
         del kb, kb2, pb
-    times["sample_fwd_kernel"] = dict(
-        ms=median_ms(lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S, D),
-                     device, runs),
-        plain_ms=median_ms(lambda: ks.sample_fields_fwd_reference(
-            tab, o, d, st, sdt, S, D), device, 3))
-    for rg in (False, True):
-        times[BWD[rg]] = dict(
-            ms=median_ms(lambda: ks.sample_grads(*args, ray_grads=rg),
-                         device, runs),
-            plain_ms=median_ms(lambda: ks.sample_fields_bwd_reference(
-                *args, ray_grads=rg), device, 3))
-    lib = library_yardstick(tab, o, d, st, sdt, S, D, cots, device, runs)
-    times["sample_fwd_kernel"]["library_ms"] = lib["fwd_ms"]
-    times[BWD[False]]["library_ms"] = lib["bwd_vol_ms"]
-    times[BWD[True]]["library_ms"] = lib["bwd_ms"]
-    active = int((sdt > 0).sum()) * S
-    touched = _touched_words(o, d, st, sdt, S, D)
-    bounds = sample_bounds(h * w, S, D, active, touched)
-    bounds_scatter = sample_bounds(h * w, S, D, active, touched,
-                                   ray_grads=False)
-    chunks = -(-S // ks.RAY_CHUNK)
-    times["sample_ray_sum_kernel"] = ray_sum_times(h * w, chunks, device,
-                                                   runs)
-    dev = {k: "not measured" for k in times}
-    if device.type == "cuda":
-        dev["sample_fwd_kernel"] = bench.device_time(
-            times["sample_fwd_kernel"], "device_ms",
-            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S, D), device,
-            runs, "sample_fwd_kernel")
-        for rg in (False, True):
-            dev[BWD[rg]] = bench.device_time(
-                times[BWD[rg]], "device_ms",
-                lambda: ks.sample_grads(*args, ray_grads=rg), device, runs,
-                f"sample_bwd_kernel<{str(rg).lower()}, false>")
-        rs = times["sample_ray_sum_kernel"]
-        dev["sample_ray_sum_kernel"] = (
-            f"{rs['device_ms']:.4f} ms warm ({rs['device_ms_clock']}; "
-            f"{rs['warm_graph_ms']:.4f} ms a launch replayed from a CUDA "
-            f"graph), {rs['cold_device_ms']:.4f} ms with L2 flushed "
-            f"({rs['cold_device_ms_clock']})")
-    for k, b in (("sample_fwd_kernel", bounds["fwd"]),
-                 (BWD[False], bounds_scatter["bwd"]),
-                 (BWD[True], bounds["bwd"]),
-                 ("sample_ray_sum_kernel", ray_sum_bound(h * w, chunks))):
-        times[k].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
-        lib_ms = times[k]["library_ms"]
-        print(f"phase 6 train: {k} alone at N = {h * w}, S = {S}: "
-              f"{times[k]['ms']:.3f} ms (events, the wrapper), device "
-              f"{dev[k]}; plain "
-              f"{times[k]['plain_ms']:.3f} ms, library "
-              f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms; bound "
-              f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes']:.4g} "
-              f"B, {b['ops']:.4g} flop; {touched} table words touched, "
-              f"{active} active samples)")
-    times["zero_fill"] = zero_fill_times(D, device, runs, "phase 6 train")
+    del args, cots, tab
 
     # where a step's time goes (profiler device times)
     model = MortonSoftGrid(tab_fit.detach().clone().requires_grad_(True))
@@ -2565,27 +1793,24 @@ def phase_train(device, D=FULL, h=256, w=256, S=256, steps=5,
         loss.backward()
         opt.step()
 
+    profile = None
     if device.type == "cuda":
-        kernels, dense, wall = _profile_step(step, device, big=D ** 3)
-        groups = _group_kernels(kernels, dense)
-        busy = sum(kernels.values())
+        prof = profile_kernels(step, device, calls=2, big=D ** 3)
+        groups = _group_kernels(prof["kernels"], prof["dense"])
+        busy, wall = prof["busy_ms"], prof["wall_ms"]
         print(f"phase 6 train: profiled step: wall {wall:.3f} ms, device "
               f"busy {busy:.3f} ms ({busy / wall * 100:.1f}%); by group "
               + ", ".join(f"{k} {v:.3f} ms" for k, v in groups.items()))
-        for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+        for name, ms in sorted(prof["kernels"].items(),
+                               key=lambda kv: -kv[1])[:10]:
             print(f"phase 6 train:   kernel {ms:8.3f} ms  {name[:90]}")
-        for name, (ms, _) in sorted(dense.items(),
+        for name, (ms, _) in sorted(prof["dense"].items(),
                                     key=lambda kv: -kv[1][0])[:8]:
             print(f"phase 6 train:   dense op {ms:8.3f} ms  {name[:90]}")
-        times["profile"] = dict(groups=groups, wall_ms=wall, busy_ms=busy)
-        # the TV prior's kernel pair alone at D^3, in every case
-        del model, opt
-        torch.cuda.empty_cache()
-        times["tv"] = tv_times(device, D)
-        times["adam"] = adam_times(device, D)
+        profile = dict(groups=groups, wall_ms=wall, busy_ms=busy)
     return {"launches": launches, "cam_launches": cam_launches, "err": err,
             "tv_launches": tv_launches, "adam_launches": adam_launches,
-            "times": times, "losses": losses, "step_ms": step_ms}
+            "profile": profile, "losses": losses}
 
 
 def _check_losses(losses) -> None:
@@ -2595,94 +1820,50 @@ def _check_losses(losses) -> None:
         raise AssertionError(f"the loss did not fall: {losses}")
 
 
-def ray_sum_times(n, chunks, device, runs) -> dict:
-    """sample_ray_sum_kernel alone on random partial sums: its device time,
-    its plain version's and torch.sum over the chunks (the library
-    yardstick); the kernel must equal the plain version bit for bit."""
-    import torch
-
-    from vxtpu_torch import bench
-    from vxtpu_torch.render import kernel_sample as ks
-
-    g = torch.Generator().manual_seed(4)
-    part = torch.randn(chunks, 8, n, generator=g).to(device)
-    got, want = ks.ray_sums(part), ks.ray_sums_reference(part)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError("sample_ray_sum_kernel differs from the "
-                             "chunk-order sum")
-    out = dict(ms=median_ms(lambda: ks.ray_sums(part), device, runs),
-               plain_ms=median_ms(lambda: ks.ray_sums_reference(part),
-                                  device, runs),
-               library_ms=median_ms(lambda: torch.sum(part, dim=0), device,
-                                    runs))
-    if device.type == "cuda":
-        bench.device_time(out, "device_ms", lambda: ks.ray_sums(part),
-                          device, runs, "sample_ray_sum_kernel")
-        # warm again from a CUDA graph's replay: the profiler often
-        # records none of these short launches
-        out.update(warm_graph_ms=graph_ms(lambda: ks.ray_sums(part)),
-                   warm_graph_ms_clock="events")
-        # the partial sums (35.7 MB at the main shape) stay in the 50 MB
-        # L2 between launches: timed again with it flushed, a 128 MB
-        # buffer written before each launch (its fill is not counted)
-        flush = torch.empty(32 << 20, dtype=torch.float32, device=device)
-        bench.device_time(out, "cold_device_ms", lambda: (
-            flush.fill_(1.0), ks.ray_sums(part)), device, runs,
-            "sample_ray_sum_kernel")
-        del flush
-    return out
-
-
-def library_yardstick(tab, o, d, t0, dt, S, D, cots, device, runs,
-                      prefix="phase 6 train") -> dict:
-    """torch.nn.functional.grid_sample on the same samples: 5-D, bilinear
-    (trilinear), align_corners=False, border padding, on a row-major
-    [1, 4, D, D, D] volume; forward, its autograd backward to the volume
-    and the sample positions (K4 with kRayGrads), and to the volume alone
-    (the grid not requiring grad: the pure scatter). A timing yardstick
-    only: it gives the same values inside [0.5, D - 0.5]^3 but not in the
-    half-voxel shell at the low faces, where vxtpu's corner clamp differs;
-    the grid's last axis is (x, y, z) -> (W, H, D), so a world point p goes
-    in as (pz, py, px)."""
+def library_yardstick(x) -> dict:
+    """torch.nn.functional.grid_sample on the samples of ``x`` (the inputs
+    of K3 and K4 alone): 5-D, bilinear (trilinear), align_corners=False,
+    border padding, on a row-major [1, 4, D, D, D] volume; ``fwd`` the
+    forward, ``bwd`` its autograd backward to the volume and the sample
+    positions (K4 with kRayGrads) and ``bwd_vol`` to the volume alone (the
+    grid not requiring grad: the pure scatter), each a callable. A timing
+    yardstick only: it gives the same values inside [0.5, D - 0.5]^3
+    (``inside_max_abs``: its largest difference from K3 there) but not in
+    the half-voxel shell at the low faces, where vxtpu's corner clamp
+    differs; the grid's last axis is (x, y, z) -> (W, H, D), so a world
+    point p goes in as (pz, py, px)."""
     import torch
     import torch.nn.functional as F
 
     from vxtpu_torch.render import kernel_sample as ks
 
-    sigma, rgb = ks.fields_from_interleaved(tab, D)
+    D = x.D
+    sigma, rgb = ks.fields_from_interleaved(x.tab, D)
     vol = torch.cat([sigma[None], rgb])[None]
     del sigma, rgb
-    _, px, py, pz = ks._positions(o, d, t0, dt, S)
+    _, px, py, pz = ks._positions(x.o, x.d, x.st, x.sdt, x.S)
     grid = (torch.stack([pz, py, px], dim=-1) * (2.0 / D) - 1.0)
     grid = grid[None, :, :, None, :].contiguous()          # [1,S,N,1,3]
-
-    def fwd():
-        return F.grid_sample(vol, grid, mode="bilinear",
-                             padding_mode="border", align_corners=False)
-
+    fwd = functools.partial(F.grid_sample, vol, grid, mode="bilinear",
+                            padding_mode="border", align_corners=False)
     out = fwd()
     inside = ((px > 0.5) & (px < D - 0.5) & (py > 0.5) & (py < D - 0.5)
-              & (pz > 0.5) & (pz < D - 0.5) & (dt > 0)[None, :])
-    same = max(float((out[0, c, :, :, 0] - ks.sample_fields_fwd(
-        tab, o, d, t0, dt, S, D)[c])[inside].abs().max()) for c in range(4))
-    del out
-    fwd_ms = median_ms(fwd, device, runs)
-    cot = torch.stack(cots)[None, :, :, :, None]
+              & (pz > 0.5) & (pz < D - 0.5) & (x.sdt > 0)[None, :])
+    k3 = ks.sample_fields_fwd(x.tab, x.o, x.d, x.st, x.sdt, x.S, D)
+    same = max(float((out[0, c, :, :, 0] - k3[c])[inside].abs().max())
+               for c in range(4))
+    del out, k3
+    cot = torch.stack(x.cots)[None, :, :, :, None]
     vg = vol.detach().requires_grad_(True)
-    ms = {}
-    for key, gg in (("bwd_ms", grid.detach().requires_grad_(True)),
-                    ("bwd_vol_ms", grid)):
+    lib = dict(fwd=fwd, inside_max_abs=same)
+    for key, gg in (("bwd", grid.detach().requires_grad_(True)),
+                    ("bwd_vol", grid)):
         res = F.grid_sample(vg, gg, mode="bilinear", padding_mode="border",
                             align_corners=False)
         wrt = (vg, gg) if gg.requires_grad else (vg,)
-        ms[key] = median_ms(lambda: torch.autograd.grad(
-            res, wrt, cot, retain_graph=True), device, runs)
-        del res
-    print(f"{prefix}: grid_sample yardstick: agrees with K3 within "
-          f"{same:.3g} inside [0.5, D - 0.5]^3; forward {fwd_ms:.3f} ms, "
-          f"backward to the volume and the grid {ms['bwd_ms']:.3f} ms, to "
-          f"the volume alone {ms['bwd_vol_ms']:.3f} ms")
-    return dict(fwd_ms=fwd_ms, inside_max_abs=same, **ms)
+        lib[key] = functools.partial(torch.autograd.grad, res, wrt, cot,
+                                     retain_graph=True)
+    return lib
 
 
 def cross_train(device) -> dict:
@@ -2776,32 +1957,6 @@ def check_xla_agreement(m: dict, what: str, against: str = "K5") -> None:
                              f"{m}")
 
 
-def _profile_launches(fn, device) -> dict:
-    """One profiled call of fn: the device kernels it launched, their
-    device time and the wall time (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        _sync(device)
-        wall = (time.perf_counter() - t0) * 1e3
-    n, busy = 0, 0.0
-    for e in prof.key_averages():
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)
-                or e.key.startswith(("Optimizer.", "ProfilerStep"))):
-            continue
-        if _device_us(e):
-            n += e.count
-            busy += _device_us(e) / 1e3
-    return dict(launches=n, busy_ms=busy, wall_ms=wall)
-
-
 def phase_xla(device, D=256, h=1024, w=1024, runs=3, save=None,
               cli_size=(), card="") -> dict:
     """Phase 10 (a): the c3 frame through the batched march over the
@@ -2892,7 +2047,7 @@ def phase_xla(device, D=256, h=1024, w=1024, runs=3, save=None,
             make_march_xla, grid, cam, lights, settings, h, w, acc), device,
             runs)
         march_ms = median_ms(lambda: march(o, d), device, runs)
-        prof = (_profile_launches(lambda: render_image(
+        prof = (profile_kernels(lambda: render_image(
             make_march_xla, grid, cam, lights, settings, h, w, acc), device)
             if device.type == "cuda" else {})
         print(f"phase 10 xla+mask: c3 xla/{name} vs K5, primary rays: hit "
@@ -2944,8 +2099,8 @@ def phase_xla(device, D=256, h=1024, w=1024, runs=3, save=None,
     return out
 
 
-def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
-               runs=RUNS, cli_size=None, card="") -> dict:
+def phase_mask(device, D=FULL, h=C4_HW, w=C4_HW, S=C4_S, S_mask=C4_S_MASK,
+               steps=5, runs=RUNS, cli_size=None, card="") -> dict:
     """Phase 10 (b): the occupancy-masked c4 fit through K3/K4 (see the
     module docstring). ``card``: the GPU's name and power limit, printed
     beside the times."""
@@ -2954,7 +2109,6 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
 
     import torch
 
-    from vxtpu_torch import bench
     from vxtpu_torch import kernel_check as kc
     from vxtpu_torch.app.configs import CONFIGS
     from vxtpu_torch.camera.camera import Camera
@@ -2997,7 +2151,7 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
     occ_frac = float(mask.float().mean())
     bounds_ms = median_ms(lambda: compute_mask_bounds(mask, mask_df, cam, o_c,
                                                       d_c, G), device, runs)
-    bprof = (_profile_launches(lambda: compute_mask_bounds(
+    bprof = (profile_kernels(lambda: compute_mask_bounds(
         mask, mask_df, cam, o_c, d_c, G), device)
         if device.type == "cuda" else {})
     print(f"phase 10 xla+mask: {D}^3 truth, {h}x{w} target at S = {S}, warm "
@@ -3063,47 +2217,30 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
     if rel > 1e-6 or ex > 1.0:
         raise AssertionError("masked step: kernels and plain versions differ")
 
-    # the steps, timed at the warm state: masked at S_mask (alone, and with
-    # its bounds pass, as the trainer runs it), unmasked at S
+    # a step at the warm state, counted: masked at S_mask, unmasked at S
     step_rows = {}
     for name, tc, masked in (("masked", tc_mask, True),
                              ("dense", tc_dense, False)):
         model = MortonSoftGrid(warm.tab.detach().clone().requires_grad_(True))
         opt = loop.make_optimizer(tc, [model.tab])
-        last = {}
-
-        def step(with_bounds=False):
-            b = bounds
-            if with_bounds:
-                b = compute_mask_bounds(mask, mask_df, cam, o_c, d_c, G)
-            opt.zero_grad(set_to_none=True)
-            loss = loop._loss_fn(model, cam, o, d, tflat, (h, w), settings,
-                                 tc, mask if masked else None,
-                                 b if masked else None)
-            loss.backward()
-            opt.step()
-            last["loss"] = loss.detach()
-
         ks.reset_launch_counts()
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        step()
+        opt.zero_grad(set_to_none=True)
+        loss = loop._loss_fn(model, cam, o, d, tflat, (h, w), settings, tc,
+                             mask if masked else None,
+                             bounds if masked else None)
+        loss.backward()
+        opt.step()
         _sync(device)
         counts = dict(ks.LAUNCHES)
         peak = (torch.cuda.max_memory_allocated(device) / 2**30
                 if device.type == "cuda" else float("nan"))
-        row = dict(ms=median_ms(step, device, runs), peak_gib=peak,
-                   loss=float(last["loss"]), launches=counts)
-        if masked:
-            row["with_bounds_ms"] = median_ms(lambda: step(True), device,
-                                              runs)
+        row = dict(peak_gib=peak, loss=float(loss), launches=counts)
         step_rows[name] = row
-        print(f"phase 10 xla+mask: {name} step at S = {tc.num_samples} "
-              f"[{card}]: {row['ms']:.2f} ms"
-              + (f" ({row['with_bounds_ms']:.2f} ms with its bounds pass)"
-                 if masked else "")
-              + f", peak {peak:.2f} GiB, loss {row['loss']:.6f}, launches "
-                f"{counts}")
+        print(f"phase 10 xla+mask: {name} step at S = {tc.num_samples}: "
+              f"peak {peak:.2f} GiB, loss {row['loss']:.6f}, launches "
+              f"{counts}")
         if device.type == "cuda" and not (
                 counts["sample_fwd_kernel"] == 1 and counts[BWD[False]] == 1):
             raise AssertionError(f"{name} step: K3/K4 launches {counts}")
@@ -3132,45 +2269,6 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
     del kb, pb
     if tab_ex > 1.0:
         raise AssertionError(f"K4 at the masked shape: excess {tab_ex}")
-    active = int((sdt > 0).sum()) * S_mask
-    touched = _touched_words(o, d, st, sdt, S_mask, D)
-    bnd = sample_bounds(h * w, S_mask, D, active, touched, ray_grads=False)
-    lib = library_yardstick(tab, o, d, st, sdt, S_mask, D, cots, device, runs,
-                            prefix="phase 10 xla+mask")
-    alone = {
-        "sample_fwd_kernel": dict(
-            ms=median_ms(lambda: ks.sample_fields_fwd(
-                tab, o, d, st, sdt, S_mask, D), device, runs),
-            plain_ms=median_ms(lambda: ks.sample_fields_fwd_reference(
-                tab, o, d, st, sdt, S_mask, D), device, 3),
-            library_ms=lib["fwd_ms"], bound_ms=bnd["fwd"]["bound_ms"],
-            bound_by=bnd["fwd"]["bound_by"]),
-        BWD[False]: dict(
-            ms=median_ms(lambda: ks.sample_grads(*args, ray_grads=False),
-                         device, runs),
-            plain_ms=median_ms(lambda: ks.sample_fields_bwd_reference(
-                *args, ray_grads=False), device, 3),
-            library_ms=lib["bwd_vol_ms"], bound_ms=bnd["bwd"]["bound_ms"],
-            bound_by=bnd["bwd"]["bound_by"])}
-    dev = {k: "not measured" for k in alone}
-    if device.type == "cuda":
-        dev["sample_fwd_kernel"] = bench.device_time(
-            alone["sample_fwd_kernel"], "device_ms",
-            lambda: ks.sample_fields_fwd(tab, o, d, st, sdt, S_mask, D),
-            device, runs, "sample_fwd_kernel")
-        dev[BWD[False]] = bench.device_time(
-            alone[BWD[False]], "device_ms",
-            lambda: ks.sample_grads(*args, ray_grads=False), device, runs,
-            "sample_bwd_kernel<false, false>")
-    for k, r in alone.items():
-        print(f"phase 10 xla+mask: {k} alone at N = {h * w}, S = {S_mask} on "
-              f"the bands [{card}]: {r['ms']:.3f} ms (events), device "
-              f"{dev[k]}; plain "
-              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.4f} ms; "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']} ({touched} "
-              f"table words touched, {active} active samples)")
-    alone[BWD[False]]["zero_fill"] = zero_fill_times(D, device, runs,
-                                                     "phase 10 xla+mask")
     del args, cots, warm, tab
 
     # (4) the path, counted: a short masked fit from zeros, the mask
@@ -3178,19 +2276,15 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
     tc_fit = loop.TrainConfig(field_kernel=True, occ_mask=True,
                               num_samples=S_mask, ray_batch=0, steps=steps,
                               seed=cfg4.seed, mask_refresh=2)
-    timer = StepTimer(device)
     ks.reset_launch_counts()
-    timer()
     _, _, losses, _ = loop.fit_soft(
         soft.SoftGrid.zeros(dims, device=device), cam, target.reshape(h, w, 3),
-        settings, tc_fit, step_hook=timer)
+        settings, tc_fit)
     _sync(device)
     launches = dict(ks.LAUNCHES)
-    fit_ms = timer.ms()
     print(f"phase 10 xla+mask: masked fit, {steps} steps from zeros at S = "
           f"{S_mask}, mask rebuilt at steps 2 and 4: launches {launches}; "
-          f"losses {losses}; step ms [{card}] "
-          f"{[round(x, 2) for x in fit_ms]}")
+          f"losses {losses}")
     if device.type == "cuda" and not (
             launches["sample_fwd_kernel"] == steps
             and launches[BWD[False]] == steps):
@@ -3214,8 +2308,7 @@ def phase_mask(device, D=FULL, h=256, w=256, S=256, S_mask=64, steps=5,
         raise AssertionError(f"train --occmask: {line}")
     return dict(occupied=occ_frac, band_ratio=ratio, bounds_ms=bounds_ms,
                 bounds_profile=bprof, quadrature=quad, loss_rel=rel,
-                steps=step_rows, alone=alone, err=err, launches=launches,
-                losses=losses, fit_ms=fit_ms)
+                steps=step_rows, err=err, launches=launches, losses=losses)
 
 
 # phase 12: bench. The per-ray reference march and the native oracle at
@@ -3407,7 +2500,7 @@ def bench_wavefront(device, D=FULL, h=H, w=W, runs=3) -> dict:
                  frame_ms=median_ms(frame, device, runs),
                  df_march_ms=median_ms(lambda: march_xla_df(
                      o, d, df_flat, dims, ms, step_chunk=8), device, runs))
-    prof = (_profile_launches(frame, device) if device.type == "cuda"
+    prof = (profile_kernels(frame, device) if device.type == "cuda"
             else {})
     print(f"phase 12 bench: wavefront at {D}^3 {h}x{w} lambert: march "
           f"{times['march_ms']:.2f} ms, frame {times['frame_ms']:.2f} ms, "
@@ -3770,7 +2863,8 @@ def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
 
     groups, wall = {}, None
     if device.type == "cuda":
-        kernels, wall = _kernel_times(one_step, device)
+        prof = profile_kernels(one_step, device)
+        kernels, wall = prof["kernels"], prof["wall_ms"]
         for name, ms in kernels.items():
             key = next((g for g, subs in C5_GROUPS if any(
                 x in name for x in subs)), "other elementwise")
@@ -3815,29 +2909,6 @@ def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
                 bwd_ms=bwd_ms, target_ms=target_ms, peak_gib=peak,
                 groups=groups, profiled_wall_ms=wall, vjp_excess=ex,
                 vjp_loss_rel=rel)
-
-
-def _kernel_times(fn, device):
-    """Device ms by kernel name of one call of ``fn`` (torch.profiler
-    without input shapes: a config-5 step is ~80,000 small kernels), and
-    the call's wall ms under the profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        _sync(device)
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for e in prof.key_averages():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and _device_us(e)):
-            kernels[e.key] = kernels.get(e.key, 0.0) + _device_us(e) / 1e3
-    return kernels, wall
 
 
 # device-time groups of the profiled config-5 step (kernel-name parts)
@@ -4124,60 +3195,672 @@ def phase_scale_out(device, card="", c5=None, fused=None, train=None,
     return out
 
 
-def k1_k2_bounds(times, h, w, n_lights=1) -> dict:
-    """Least times (ms) of K1 in the lambert frame (k1_bound; without its
-    table words, ``bound_rays_only_ms``) and of K2, the shade kernel alone:
-    each ray's inputs (o, d, hit, t, voxel, normal and the visibility) read
-    once and its rgb written once, plus one material word per hit ray;
-    MARCH_OPS_RAY operations per ray and per light."""
-    n = h * w
-    lam = times["lambert"]
-    k1 = k1_bound(n, lam["steps"], lam["table_words"], True, lam["hits"])
-    comp = times["full_shadows_fog_composed"]
-    k2_bytes = n * (24 + 29 + 4 * n_lights + 12) + comp["hits"] * 4
-    k2_ops = n * MARCH_OPS_RAY * (1 + n_lights)
-    return {"march_shade_kernel": dict(
-                bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
-                bound_rays_only_ms=k1_bound(n, lam["steps"], 0, True,
-                                            lam["hits"])["bound_ms"],
-                table_words=lam["table_words"]),
-            "shade_kernel": {k: v for k, v in _bound(k2_bytes, k2_ops).items()
-                             if k.startswith("bound")}}
+# phase 13: times. The kernel table of PERF.md section 6, a row a kernel
+# alone at a main path's shape; --times and a whole run time the same rows.
+
+
+def _world512(device):
+    """Phase 4's world and outside rays, for the rows on it: the FULL^3
+    seed-7 terrain's Morton occupancy and material tables and its
+    row-major table (K5's, K6's), the H x W rays, the light, and the
+    lambert and full + shadows + fog settings."""
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.world import procgen
+    from vxtpu_torch.world.packed import (build_material_morton,
+                                          build_packed, build_packed_morton)
+
+    grid = procgen.terrain((FULL,) * 3, seed=7, device=device)
+    light, requests = _main_scene(device, FULL)
+    by_name = {name: (cam, st) for name, cam, st, _ in requests}
+    o, d = generate_rays(by_name["lambert"][0], H, W)
+    lam = by_name["lambert"][1]
+    return SimpleNamespace(
+        dims=grid.dims, accel=build_packed_morton(grid.occupancy, cap=64),
+        mats=build_material_morton(grid.occupancy),
+        packed=build_packed(grid.occupancy), o=o, d=d, n=o.shape[0],
+        light=light, lights_arr=km.pack_lights(light), lambert=lam,
+        full=by_name["full_shadows_fog"][1],
+        k5_rays={"512": (o, d, None)}, k5_ms=lam.resolve_max_steps(grid.dims))
+
+
+def _c3(device):
+    """The c3_256_shadows frame's primary rays and their shadow rays toward
+    the config's light (t_max set), on its row-major table."""
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.app.run import build_scene
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.render import kernel_packed as kp
+    from vxtpu_torch.render.pipeline import shadow_ray_batch
+
+    cfg = CONFIGS["c3_256_shadows"]
+    dims = (C3_D,) * 3
+    _, accel, cam, lights = build_scene(cfg, dims, "packed", device)
+    ms = cfg.settings.resolve_max_steps(dims)
+    o, d = generate_rays(cam, C3_HW, C3_HW)
+    shadow = shadow_ray_batch(kp.march_packed(o, d, accel, dims, ms), o, d,
+                              lights.pos[0])
+    return SimpleNamespace(packed=accel, dims=dims, k5_ms=ms,
+                           k5_rays={"c3": (o, d, None), "c3_shadow": shadow})
+
+
+def _c4(device, masked=False):
+    """The c4 fit's field sampling at its shape (phase 6; phase 10 with
+    ``masked``): the FULL^3 truth's Morton table (0.8 x the truth, masked)
+    and the C4_HW^2 rays' sample segments (masked: C4_S_MASK samples on
+    the bands of the 128^3 mask), four random cotangent planes, the active
+    samples and the distinct table words their corners touch (the
+    bounds'), and torch's grid_sample on the same samples."""
+    import torch
+
+    from vxtpu_torch.app.configs import CONFIGS
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.camera.rays import generate_rays
+    from vxtpu_torch.engine.sharding import (camera_frame_rays,
+                                             compute_mask_bounds)
+    from vxtpu_torch.render import occmask, soft
+    from vxtpu_torch.render.soft_kernel import MortonSoftGrid, _enter_dt_soft
+    from vxtpu_torch.world import procgen
+
+    D = FULL
+    dims = (D,) * 3
+    truth = soft.SoftGrid.from_hard(procgen.terrain(
+        dims, seed=CONFIGS["c4_512_diff"].seed, with_rgb=True,
+        device=device))
+    cam = Camera.make(pos=(-0.7 * D, 0.5 * D, 1.1 * D),
+                      device=device).look_at((0.5 * D, 0.5 * D, 0.27 * D))
+    o, d = generate_rays(cam, C4_HW, C4_HW)
+    S, bounds = C4_S, None
+    if masked:
+        truth = soft.SoftGrid(truth.sigma_raw * 0.8, truth.rgb_raw * 0.8)
+    tab = MortonSoftGrid.from_soft(truth).tab
+    del truth
+    if masked:
+        mask = occmask.occupancy_mask_from_soft(MortonSoftGrid(tab), 4, 0.01,
+                                                1)
+        o_c, d_c = camera_frame_rays(cam, C4_HW, C4_HW)
+        bounds = compute_mask_bounds(mask, occmask.mask_distance_field(mask),
+                                     cam, o_c, d_c, 4)
+        S = C4_S_MASK
+    st, sdt, _ = _enter_dt_soft(o, d, dims, S, bounds)
+    g = torch.Generator().manual_seed(0)
+    x = SimpleNamespace(
+        tab=tab, o=o, d=d, st=st.contiguous(), sdt=sdt.contiguous(), S=S,
+        D=D, n=o.shape[0], active=int((sdt > 0).sum()) * S,
+        cots=tuple(torch.randn(S, o.shape[0], generator=g).to(device)
+                   for _ in range(4)))
+    x.touched = _touched_words(o, d, x.st, x.sdt, S, D)
+    x.lib = library_yardstick(x)
+    x.info = dict(table_words_touched=x.touched, active_samples=x.active,
+                  library_inside_max_abs=x.lib["inside_max_abs"])
+    return x
+
+
+def _ray_sum(device):
+    """The ray sum alone: random [chunks, 8, N] partial sums at the c4
+    step's shape (N rays, C4_S samples in chunks of RAY_CHUNK), the kernel
+    equal to its plain version bit for bit (raises otherwise), and a
+    128 MB buffer whose fill flushes the 50 MB L2 (the partial sums,
+    35.7 MB, stay in it between warm launches)."""
+    import torch
+
+    from vxtpu_torch.render import kernel_sample as ks
+
+    n, chunks = C4_HW ** 2, -(-C4_S // ks.RAY_CHUNK)
+    part = torch.randn(chunks, 8, n, generator=torch.Generator().manual_seed(
+        4)).to(device)
+    if not all(torch.equal(a, b) for a, b in zip(
+            ks.ray_sums(part), ks.ray_sums_reference(part))):
+        raise AssertionError("sample_ray_sum_kernel differs from the "
+                             "chunk-order sum")
+    return SimpleNamespace(part=part, n=n, chunks=chunks, flush=torch.empty(
+        32 << 20, dtype=torch.float32, device=device))
+
+
+def _tv(device):
+    """The TV prior alone: the kernel pair against its plain version on a
+    random FULL^3 table (run_tv_case; raises on a difference; ``info``
+    the value's relative error and the gradient's x max |g|), then a
+    random FULL^3 table (seed 1), the trainer's weights, a unit upstream
+    gradient, and a copy that requires grad for the plain version's
+    backward."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+
+    m = kc.run_tv_case(FULL, device)
+    kc.check_tv_case(m, f"TV prior at {FULL}^3")
+    torch.cuda.empty_cache()
+    tab = kc.tv_table(FULL, device, seed=1)
+    return SimpleNamespace(tab=tab, D=FULL, w=kc.TV_WEIGHTS,
+                           g=torch.ones((), device=device),
+                           q=tab.clone().requires_grad_(True),
+                           info=dict(value_rel=m["value_rel"],
+                                     grad_err=m["grad_err"]))
+
+
+def _adam(device, steps=3):
+    """Adam's update alone: the kernel against torch.optim.Adam's foreach
+    step over ``steps`` steps of a random [FULL^3, 4] table (run_adam_case;
+    raises on a difference; ``info`` the largest |difference| over the
+    table and both moments), then a random [FULL^3, 4] table, gradient and
+    moments, the fit's step arguments, and torch.optim.Adam's foreach
+    step over a copy of the table (the library yardstick)."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.train.loop import ADAM_EPS, BETAS
+
+    chk = kc.run_adam_case(device, shapes=[(FULL ** 3, 4)], steps=steps)
+    kc.check_adam_case(chk, f"Adam at {FULL}^3")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(1)
+    p, g, m, v = (torch.randn((FULL ** 3, 4), generator=gen, device=device)
+                  for _ in range(4))
+    v.square_()
+    q = p.clone().requires_grad_(True)
+    q.grad = g
+    return SimpleNamespace(D=FULL, p=p, g=g, m=m, v=v,
+                           args=(10, 5e-2, BETAS, ADAM_EPS),
+                           foreach=torch.optim.Adam([q], lr=5e-2, betas=BETAS,
+                                                    eps=ADAM_EPS,
+                                                    foreach=True),
+                           info=dict(max_abs_err=chk["max_abs"],
+                                     allclose_excess=chk["excess"],
+                                     unequal=chk["unequal"],
+                                     elements=chk["elements"]))
+
+
+SCENES = {"world512": _world512, "c3": _c3, "c4": _c4,
+          "c4_masked": functools.partial(_c4, masked=True),
+          "ray_sum": _ray_sum, "tv": _tv, "adam": _adam,
+          "device": lambda device: SimpleNamespace(device=device, D=FULL)}
+
+
+def _k1_inputs(mode):
+    """The inputs of K1's row in launch ``mode`` (K1_MODES): K1 against its
+    plain version on every ray (hit, voxel, normal and steps equal, t
+    within rtol 1e-5, rgb within 1e-5 on every pixel; raises otherwise);
+    the steps of the primary and the shadow marches, the hits, the shadow
+    rays and the distinct table words the plain version reads (the
+    bound's); the warp coherence of those steps."""
+
+    def build(w):
+        import torch
+
+        from vxtpu_torch import kernel_check as kc
+        from vxtpu_torch.render import kernel_march as km
+        from vxtpu_torch.render import probe
+
+        st = w.full if mode == "full_shadows_fog" else w.lambert
+        x = SimpleNamespace(**vars(w), ms=st.resolve_max_steps(w.dims),
+                            spec=None if mode == "march" else
+                            km.ShadeSpec.from_settings(st, w.light,
+                                                       shadows=st.shadows))
+        with _logged_fetch(km, w.accel.words) as log:
+            want = km.march_shade_reference(x.o, x.d, x.accel, x.dims, x.ms,
+                                            None, x.spec, x.mats,
+                                            x.lights_arr)
+        got = km.march(x.o, x.d, x.accel, x.dims, x.ms, shade_spec=x.spec,
+                       mats=x.mats, lights_arr=x.lights_arr)
+        shaded = x.spec is not None
+        rec = want[0] if shaded else want
+        rm = kc.record_mismatch(got[0] if shaded else got, rec)
+        im = kc.image_mismatch(got[1], want[1]) if shaded else None
+        kc.check_exact(rm, im, f"K1 {mode} against its plain version")
+        # the steps of each phase a warp runs: the primary march, then one
+        # shadow march per light
+        phases, x.shadow_rays = [rec.steps], 0
+        if shaded and x.spec.runs_shadow_marches:
+            for li in range(w.light.count):
+                p_, ldir, dist, facing = km.shadow_rays(rec, x.o, x.d,
+                                                        w.light.pos[li])
+                phases.append(km.march_reference(
+                    p_, ldir, x.accel, x.dims, x.ms,
+                    torch.where(rec.hit, dist - 2.0 * km.SHADOW_EPS, 0.0),
+                    active=facing).steps)
+                x.shadow_rays += int(facing.sum())
+        steps = [int(s.sum(dtype=torch.int64)) for s in phases]
+        x.steps, x.words, x.hits = sum(steps), log.count(), int(rec.hit.sum())
+        x.info = dict(
+            steps=steps[0], shadow_steps=sum(steps[1:]),
+            shadow_rays=x.shadow_rays, hits=x.hits, table_words=x.words,
+            t_rel=rm["t_rel"], rgb_max_abs=im["max_abs"] if im else None,
+            coherence=probe.warp_coherence(*phases),
+            shadow_coherence=(probe.warp_coherence(*phases[1:])
+                              if x.shadow_rays else None),
+            bound_rays_only_ms=k1_bound(x.n, x.steps, 0, shaded, x.hits,
+                                        x.shadow_rays)["bound_ms"])
+        return x
+
+    return build
+
+
+def _k1r_inputs(w, resume=False):
+    """The inputs of K1''s rows: round 0 (budget 24) on the outside rays
+    or, with ``resume``, the resume of every ray from the plain round 0's
+    state; against its plain version on every field (raises otherwise);
+    the DDA steps it takes and the distinct table words its plain version
+    reads (the bound's)."""
+    import torch
+
+    from vxtpu_torch import kernel_check as kc
+    from vxtpu_torch.render import kernel_march as km
+
+    x = SimpleNamespace(**vars(w), ms=w.lambert.resolve_max_steps(w.dims),
+                        kw=dict(iter_budget=24), resumed=resume)
+    with _logged_fetch(km, w.accel.words) as log:
+        r0, e0 = km.march_reference(x.o, x.d, x.accel, x.dims, x.ms,
+                                    extended=True, **x.kw)
+    want, ext = r0, e0
+    if resume:
+        x.kw = dict(resume_state=(r0.voxel, torch.where(e0["done"], -1,
+                                                        e0["dist"]), r0.steps))
+        with _logged_fetch(km, w.accel.words) as log:
+            want, ext = km.march_reference(x.o, x.d, x.accel, x.dims, x.ms,
+                                           extended=True, **x.kw)
+    bad = kc.resume_mismatch(*km.march(x.o, x.d, x.accel, x.dims, x.ms,
+                                       extended=True, **x.kw), want, ext)
+    if any(bad.values()):
+        raise AssertionError(f"K1' differs from its plain version: {bad}")
+    steps = (want.steps - r0.steps)[~e0["done"]] if resume else want.steps
+    x.steps, x.words = int(steps.sum(dtype=torch.int64)), log.count()
+    x.info = dict(steps=x.steps, table_words=x.words, mismatches=bad,
+                  bound_rays_only_ms=k1r_bound(x.n, x.steps, resume,
+                                               False)["bound_ms"])
+    return x
+
+
+def _k2_inputs(w):
+    """The inputs of K2's row: what the composed full + shadows + fog
+    frame hands the shade kernel on the outside rays: the primary record
+    (K1 march-only) and the shadow visibility (the plain shadow march)."""
+    import torch
+
+    from vxtpu_torch.render import kernel_march as km
+
+    x = SimpleNamespace(**vars(w), ms=w.full.resolve_max_steps(w.dims))
+    x.rec = km.march(x.o, x.d, x.accel, x.dims, x.ms)
+    x.vis = torch.stack([km.shadow_visibility_reference(
+        x.rec, x.o, x.d, x.accel, x.dims, x.ms, w.light.pos[li])
+        for li in range(w.light.count)], dim=-1)
+    x.vspec = km.ShadeSpec.from_settings(w.full, w.light, use_vis=True,
+                                         shadows=False)
+    x.hits = int(x.rec.hit.sum())
+    return x
+
+
+def k2_bound(n, hits, lights) -> dict:
+    """K2, the shade kernel alone, over n rays: each ray's inputs (o, d,
+    hit, t, voxel, normal and the visibility) read once and its rgb
+    written once, plus one material word per hit ray; MARCH_OPS_RAY
+    operations per ray and per light."""
+    return _bound(n * (24 + 29 + 4 * lights + 12) + 4 * hits,
+                  n * MARCH_OPS_RAY * (1 + lights))
+
+
+def _k5_inputs(key):
+    """The inputs of K5's row on the scene's ray set ``key``: K5 against its
+    plain version (hit, voxel, normal and steps equal, |dt| <= 1e-6;
+    raises otherwise), the iterations and the distinct table words the
+    plain march reads (the bound's, at 2 B a word; ``bound_int32_ms`` at
+    4 B, ``bound_rays_only_ms`` without them)."""
+
+    def build(s):
+        import torch
+
+        from vxtpu_torch import kernel_check as kc
+        from vxtpu_torch.render import kernel_packed as kp
+
+        o, d, tm = s.k5_rays[key]
+        x = SimpleNamespace(packed=s.packed, dims=s.dims, ms=s.k5_ms, o=o,
+                            d=d, tm=tm, n=o.shape[0])
+        with _logged_fetch(kp, x.packed.words) as log:
+            ref = kp.march_packed_reference(o, d, x.packed, x.dims, x.ms,
+                                            t_max=tm)
+        m = kc.packed_mismatch(kp.march_packed(o, d, x.packed, x.dims, x.ms,
+                                               t_max=tm), ref)
+        kc.check_packed(m, f"K5 {key}")
+        x.steps, x.words = int(ref.steps.sum(dtype=torch.int64)), log.count()
+        shadow = tm is not None
+        x.info = dict(n=x.n, steps=x.steps, table_words=x.words,
+                      t_abs=m["t_abs"],
+                      bound_int32_ms=k5_bound(x.n, x.steps, shadow, x.words,
+                                              4)["bound_ms"],
+                      bound_rays_only_ms=k5_bound(x.n, x.steps,
+                                                  shadow)["bound_ms"])
+        return x
+
+    return build
+
+
+def tv_bounds(D) -> dict:
+    """The TV prior's kernels on a [D^3, 4] float32 table: the forward
+    reads the table once (TV_FWD_OPS a row), the backward reads it and
+    writes its gradient once (TV_BWD_OPS a row)."""
+    return dict(fwd=_bound(16 * D ** 3, TV_FWD_OPS * D ** 3),
+                bwd=_bound(32 * D ** 3, TV_BWD_OPS * D ** 3))
+
+
+def kernel_rows() -> list:
+    """The kernel table: a Row a row of PERF.md section 6's table, rows of
+    one scene together."""
+    import torch
+
+    from vxtpu_torch.render import kernel_march as km
+    from vxtpu_torch.render import kernel_packed as kp
+    from vxtpu_torch.render import kernel_sample as ks
+    from vxtpu_torch.render import probe
+    from vxtpu_torch.train import kernel_adam, kernel_tv
+    from vxtpu_torch.train.loss import tv_prior_morton
+
+    def k1(x):
+        return km.march(x.o, x.d, x.accel, x.dims, x.ms, shade_spec=x.spec,
+                        mats=x.mats, lights_arr=x.lights_arr)
+
+    def k1_plain(x):
+        return km.march_shade_reference(x.o, x.d, x.accel, x.dims, x.ms,
+                                        None, x.spec, x.mats, x.lights_arr)
+
+    def k1r(x, march=km.march):
+        return march(x.o, x.d, x.accel, x.dims, x.ms, extended=True, **x.kw)
+
+    def k5(x, march=kp.march_packed):
+        return march(x.o, x.d, x.packed, x.dims, x.ms, t_max=x.tm)
+
+    def k3(x, fwd=ks.sample_fields_fwd):
+        return fwd(x.tab, x.o, x.d, x.st, x.sdt, x.S, x.D)
+
+    def k4(ray_grads, bwd=ks.sample_grads):
+        return lambda x: bwd(x.tab, x.o, x.d, x.st, x.sdt, x.cots, x.D,
+                             ray_grads=ray_grads)
+
+    def k3_bound(x):
+        return sample_bounds(x.n, x.S, x.D, x.active, x.touched)["fwd"]
+
+    def k4_bound(ray_grads):
+        return lambda x: sample_bounds(x.n, x.S, x.D, x.active, x.touched,
+                                       ray_grads=ray_grads)["bwd"]
+
+    def same(x):
+        return x
+
+    K3 = dict(launch=k3, kernel="sample_fwd_kernel", bound=k3_bound,
+              plain=functools.partial(
+                  k3, fwd=ks.sample_fields_fwd_reference),
+              library=lambda x: x.lib["fwd"]())
+    K4 = dict(launch=k4(False), kernel="sample_bwd_kernel<false, false>",
+              bound=k4_bound(False),
+              plain=k4(False, ks.sample_fields_bwd_reference),
+              library=lambda x: x.lib["bwd_vol"]())
+    return [
+        *(Row(f"k1.{m}", "world512", _k1_inputs(m), k1, "march_shade_kernel",
+              bound=lambda x: k1_bound(x.n, x.steps, x.words,
+                                       x.spec is not None, x.hits,
+                                       x.shadow_rays),
+              plain=k1_plain, graph=True) for m in K1_MODES),
+        Row("k1r.round0", "world512", _k1r_inputs, k1r,
+            "march_resume_kernel",
+            bound=lambda x: k1r_bound(x.n, x.steps, False, False, x.words),
+            plain=functools.partial(k1r, march=km.march_reference),
+            graph=True),
+        Row("k1r.resume", "world512",
+            functools.partial(_k1r_inputs, resume=True), k1r,
+            "march_resume_kernel",
+            bound=lambda x: k1r_bound(x.n, x.steps, True, False, x.words)),
+        Row("k2", "world512", _k2_inputs,
+            lambda x: km.shade(x.rec, x.o, x.d, x.vis, x.mats, x.lights_arr,
+                               x.vspec), "shade_kernel",
+            bound=lambda x: k2_bound(x.n, x.hits, x.light.count),
+            plain=lambda x: km.shade_reference(x.rec, x.o, x.d, x.vis,
+                                               x.mats, x.lights_arr,
+                                               x.vspec)),
+        Row("k5.512", "world512", _k5_inputs("512"), k5,
+            "march_packed_kernel",
+            bound=lambda x: k5_bound(x.n, x.steps, False, x.words),
+            graph=True),
+        Row("k6", "world512", _k6_inputs, None, "march_probe_kernel",
+            plain=lambda x: probe.march_probe_reference(
+                x.o, x.d, x.tables["morton16"], x.dims),
+            sweep=k6_sweep),
+        *(Row(f"k5.{k}", "c3", _k5_inputs(k), k5, "march_packed_kernel",
+              bound=lambda x: k5_bound(x.n, x.steps, x.tm is not None,
+                                       x.words),
+              plain=(functools.partial(k5, march=kp.march_packed_reference)
+                     if k == "c3" else None), graph=True)
+          for k in ("c3", "c3_shadow")),
+        Row("k3.c4", "c4", same, **K3),
+        Row("k4.scatter", "c4", same, **K4),
+        Row("k4.ray_grads", "c4", same, k4(True),
+            "sample_bwd_kernel<true, false>", bound=k4_bound(True),
+            plain=k4(True, ks.sample_fields_bwd_reference),
+            library=lambda x: x.lib["bwd"]()),
+        Row("k3.masked", "c4_masked", same, **K3),
+        Row("k4.scatter_masked", "c4_masked", same, **K4),
+        # warm, the partial sums in L2: no HBM bound (the cold row's)
+        Row("k4.ray_sum", "ray_sum", same, lambda x: ks.ray_sums(x.part),
+            "sample_ray_sum_kernel",
+            plain=lambda x: ks.ray_sums_reference(x.part),
+            library=lambda x: torch.sum(x.part, dim=0), graph=True),
+        Row("k4.ray_sum_cold", "ray_sum", same,
+            lambda x: (x.flush.fill_(1.0), ks.ray_sums(x.part)),
+            "sample_ray_sum_kernel",
+            bound=lambda x: ray_sum_bound(x.n, x.chunks)),
+        # the wrapper's zero-fill of K4's dense gradient (at::native's
+        # FillFunctor), which K4's own bound leaves out
+        Row("k4.zero_fill", "device", same,
+            lambda x: torch.zeros((x.D ** 3, 4), device=x.device),
+            "FillFunctor", bound=lambda x: zero_fill_bound(x.D)),
+        Row("tv.fwd_kernel", "tv", same,
+            lambda x: kernel_tv.tv_fwd(x.tab, *x.w), "tv_fwd_kernel",
+            bound=lambda x: tv_bounds(x.D)["fwd"],
+            plain=lambda x: tv_prior_morton(x.tab, *x.w)),
+        # the partials read and the value written
+        Row("tv.fwd_finish", "tv", same,
+            lambda x: kernel_tv.tv_fwd(x.tab, *x.w), "tv_fwd_finish_kernel",
+            bound=lambda x: _bound(kernel_tv.FWD_PARTS * 16 + 4,
+                                   kernel_tv.FWD_PARTS * 4)),
+        Row("tv.bwd", "tv", same,
+            lambda x: kernel_tv.tv_bwd(x.tab, x.g, *x.w), "tv_bwd_kernel",
+            bound=lambda x: tv_bounds(x.D)["bwd"],
+            plain=lambda x: torch.autograd.grad(tv_prior_morton(x.q, *x.w),
+                                                [x.q])),
+        Row("adam", "adam", same,
+            lambda x: kernel_adam.adam_step(x.p, x.g, x.m, x.v, *x.args),
+            "adam_step_kernel", bound=lambda x: adam_bound(x.D),
+            plain=lambda x: kernel_adam.adam_step_reference(
+                x.p, x.g, x.m, x.v, *x.args),
+            library=lambda x: x.foreach.step()),
+    ]
+
+
+def select_rows(names) -> list:
+    """The rows of kernel_rows() named in ``names`` (a row's name, or its
+    kernel's part before the dot: "k4" takes every K4 row; empty or None:
+    all of them), in the table's order; an unknown name raises."""
+    rows = kernel_rows()
+    known = {r.name for r in rows} | {r.name.split(".")[0] for r in rows}
+    unknown = sorted(set(names or ()) - known)
+    if unknown:
+        raise SystemExit(f"--times: no row {unknown}; the rows: "
+                         + " ".join(r.name for r in rows))
+    return [r for r in rows if not names or r.name in names
+            or r.name.split(".")[0] in names]
+
+
+def phase_times(device, rows) -> dict:
+    """Phase 13: each of ``rows`` timed alone (time_row; K6 its sweep), a
+    scene built once for its rows and dropped after them; row name -> its
+    times."""
+    import torch
+
+    t0 = time.perf_counter()
+    out, scene, built = {}, None, None
+    for row in rows:
+        if built is None or row.scene != scene:
+            built = None
+            torch.cuda.empty_cache()
+            scene, built = row.scene, SCENES[row.scene](device)
+        x = row.inputs(built)
+        out[row.name] = (row.sweep or time_row)(row, x, device)
+        del x
+    del built
+    torch.cuda.empty_cache()
+    print(f"phase 13 times: {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+TIME_KEYS = ("device_ms", "device_ms_clock", "device_ms_rounds", "graph_ms",
+             "graph_ms_clock", "plain_ms", "plain_ms_clock", "library_ms",
+             "library_ms_clock", "bound_ms", "bound_by", "bytes", "ops",
+             "share")
+
+
+def _timed(t: dict, *extra) -> dict:
+    """A row's times and bound (and ``extra`` keys) for the kernels line."""
+    return {k: t[k] for k in (*TIME_KEYS, *extra) if k in t}
+
+
+def kernels_line(main_run, pipe, resume, mask, train, bench_run, scale,
+                 times) -> list:
+    """The kernels line of a whole run: each kernel's launches and errors
+    from the phases, its times and bounds from phase 13's rows."""
+    T = times
+    bench_launches = bench_run["commands"]["launches"]
+    kernels = [
+        {"name": "march_shade_kernel", "route": "cuda",
+         "source": "vxtpu_torch/csrc/march.cu",
+         "replaces": "vxtpu/render/kernel_pallas_v2.py:434",
+         "launches": main_run["launches"]["march_shade_kernel"],
+         "variant_launches": main_run["variant_launches"],
+         "max_abs_err": main_run["err"]["march_shade_kernel"],
+         **_timed(T["k1.lambert"], "bound_rays_only_ms", "table_words"),
+         "modes": {m: _timed(T[f"k1.{m}"]) for m in K1_MODES},
+         "occupancy": pipe["times"]["k1_occupancy"],
+         "sharded": {"launches": scale["fused"]["launches"],
+                     "mismatched_pixels": scale["fused"]["mismatches"]},
+         "bench": {"launches": bench_launches["march_shade_kernel"],
+                   "variant_launches": bench_launches["variants"]}},
+        {"name": "shade_kernel", "route": "cuda",
+         "source": "vxtpu_torch/csrc/march.cu",
+         "replaces": "vxtpu/render/kernel_pallas_v2.py:1219",
+         "launches": main_run["launches"]["shade_kernel"],
+         "max_abs_err": main_run["err"]["shade_kernel"], **_timed(T["k2"])},
+    ]
+    # K3 and K4's pure scatter: launches of the five c4 steps; K4 with
+    # kRayGrads and its ray sums: launches of the camera refinement
+    for k, line, run, row, masked in (
+            ("sample_fwd_kernel", "213", train["launches"], "k3.c4",
+             "k3.masked"),
+            (BWD[False], "434", train["launches"], "k4.scatter",
+             "k4.scatter_masked"),
+            (BWD[True], "434", train["cam_launches"], "k4.ray_grads", None),
+            ("sample_ray_sum_kernel", "434 (its per-ray sums)",
+             train["cam_launches"], "k4.ray_sum", None)):
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": "vxtpu_torch/csrc/sample.cu",
+            "replaces": f"vxtpu/render/kernel_sample.py:{line}",
+            "launches": run[k], "max_abs_err": train["err"][k],
+            **_timed(T[row]),
+            "bench": {"launches": bench_launches[k], "field_step_vs_plain": {
+                n: {e: r[e] for e in ("loss_rel", "table", "camera", "rays")}
+                for n, r in bench_run["field_step"].items()}}})
+        if k in BWD.values():
+            kernels[-1]["zero_fill"] = _timed(T["k4.zero_fill"])
+        if k == "sample_ray_sum_kernel":
+            kernels[-1]["cold"] = _timed(T["k4.ray_sum_cold"])
+        if k in scale["train"]["launches"]:
+            # phase 11's sharded field-kernel and masked steps
+            kernels[-1]["sharded"] = {
+                "launches": scale["train"]["launches"][k],
+                "grad_excess": {n: e["excess"] for n, e in
+                                scale["train"]["err"].items()}}
+        if masked:
+            # phase 10's masked fit: its launches, and the kernel alone at
+            # the masked step's shape (C4_S_MASK samples on the bands)
+            kernels[-1]["masked"] = {
+                "launches": mask["launches"][k],
+                "max_abs_err": mask["err"][k], **_timed(T[masked])}
+    # the TV prior's pair and Adam's kernel: launches of the five c4
+    # steps, errors against their plain versions at FULL^3 (the rows'
+    # inputs; tests/test_torch_cuda.py runs every case)
+    for k, row, e in (("tv_fwd_kernel", "tv.fwd_kernel", "value_rel"),
+                      ("tv_fwd_finish_kernel", "tv.fwd_finish", "value_rel"),
+                      ("tv_bwd_kernel", "tv.bwd", "grad_err")):
+        kernels.append({
+            "name": k, "route": "cuda", "source": "vxtpu_torch/csrc/tv.cu",
+            "replaces": "none (vxtpu/train/loss.py:tv_loss_morton is plain "
+                        "jnp that XLA fuses)",
+            "launches": train["tv_launches"][k],
+            "max_abs_err": T[row][e],
+            "max_abs_err_is": ("the value's relative error" if "fwd" in k
+                               else "the gradient's error x max |g|"),
+            **_timed(T[row]),
+            "call_device_ms": (T["tv.bwd"]["device_ms"] if k == "tv_bwd_kernel"
+                               else T["tv.fwd_kernel"]["device_ms"]
+                               + T["tv.fwd_finish"]["device_ms"])})
+    kernels.append({
+        "name": "adam_step_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/adam.cu",
+        "replaces": "none (vxtpu's optax.adam is plain jnp that XLA fuses)",
+        "launches": train["adam_launches"]["adam_step_kernel"],
+        "max_abs_err": T["adam"]["max_abs_err"],
+        "max_abs_err_is": "against torch.optim.Adam's foreach step over 3 "
+                          "steps of the FULL^3 table, over the parameters "
+                          "and both moments",
+        **_timed(T["adam"]),
+        "plain_ms_is": "torch's single-tensor ops, a call",
+        "library_ms_is": "torch.optim.Adam's foreach step, a call"})
+    kernels.append({
+        "name": "march_packed_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/march_packed.cu",
+        "replaces": "vxtpu/render/kernel_pallas.py:85",
+        "launches": pipe["launches"]["march_packed_kernel"],
+        "max_abs_err": max(T[k]["t_abs"] for k in ("k5.c3", "k5.c3_shadow",
+                                                    "k5.512")),
+        **_timed(T["k5.c3"], "bound_int32_ms", "bound_rays_only_ms",
+                 "table_words"),
+        "shadow": _timed(T["k5.c3_shadow"]), "big": _timed(T["k5.512"]),
+        "blocks_per_sm": pipe["times"].get("blocks_per_sm")})
+    kernels.append({
+        "name": "march_resume_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/march.cu",
+        "replaces": "vxtpu/render/kernel_pallas_v2.py:434 (resume mode) "
+                    "and :1105 (march_pallas_v2_sorted)",
+        "launches": resume["times"]["launches"]["march_resume_kernel"],
+        "max_abs_err": resume["err"]["march_resume_kernel"],
+        **_timed(T["k1r.round0"], "bound_rays_only_ms"),
+        "resume": _timed(T["k1r.resume"])})
+    k6 = T["k6"]
+    kernels.append({
+        "name": "march_probe_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/probe.cu",
+        "replaces": ", ".join(f"tools/{f}" for f in (
+            "probe_pallas2_cost.py:164", "probe_pallas2_fixed.py:122",
+            "probe_r5_fetch.py:175", "probe_r5_fetch2.py:177",
+            "probe_r5_fetch3.py:152", "probe_r4_tune.py:181",
+            "probe_r4_tile16.py:133", "probe_r4_matfetch.py:96",
+            "probe_r4_matfetch.py:102")),
+        "launches": k6["launches"], "max_abs_err": k6["err"],
+        **_timed(k6, "parent_form_ms", "parent_form_ms_clock",
+                 "reads_per_ray_iter"),
+        "occupancy": k6["occupancy"]["full/morton16/k1"]})
+    return kernels
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--save", default=None,
                    help="directory for the main-path frames as PNGs")
-    p.add_argument("--k5-times", action="store_true",
-                   help="phases 1 and 2, then K5 alone on its three ray "
-                        "sets (k5_rays, k5_times) and a JSON line of the "
-                        "results; copied into a checkout of another commit, "
-                        "it times that commit's K5 the same way")
-    p.add_argument("--k1-times", action="store_true",
-                   help="phases 1 and 2, then K1 alone in each launch mode "
-                        "and K1' round 0 on phase 4's 512^3 1080x1920 rays "
-                        "(k1_world, k1_times), the blocks an SM of each K1 "
-                        "instantiation and a JSON line of the results; "
-                        "copied into a checkout of another commit, it times "
-                        "that commit's K1 the same way")
-    p.add_argument("--k6-times", action="store_true",
-                   help="phases 1 and 2, then phase 9's K6 part alone "
-                        "(k6_probe) on phase 4's 512^3 world and 1080x1920 "
-                        "rays, and a JSON line of its results")
-    p.add_argument("--tv-times", action="store_true",
-                   help="phases 1 and 2, then the TV prior's kernel pair "
-                        "against its plain version at 64^3 and 512^3 and "
-                        "its device time a call at 512^3 beside its bounds "
-                        "and the plain version's (tv_times), and a JSON "
-                        "line of the results")
-    p.add_argument("--adam-times", action="store_true",
-                   help="phases 1 and 2, then Adam's kernel against "
-                        "torch's foreach step in kernel_check.ADAM_CASES "
-                        "and on a 512^3 table, and its device time a launch "
-                        "at 512^3 beside its bound, the plain version's and "
-                        "the foreach step's (adam_times), and a JSON line "
-                        "of the results")
+    p.add_argument("--times", nargs="*", default=None, metavar="ROW",
+                   help="phases 1 and 2, then phase 13 alone on the named "
+                        "rows of the kernel table (a row, or its kernel: "
+                        "k1 k1r k2 k3 k4 k5 k6 tv adam; none: every row) "
+                        "and a JSON line of their times; copied into a "
+                        "checkout of another commit, it times that "
+                        "commit's kernels the same way")
     p.add_argument("--scale-out", action="store_true",
                    help="phases 1 and 2, then phase 11 alone (the sharded "
                         "paths, config 5 at full size) and a JSON line of "
@@ -4187,13 +3870,14 @@ def main(argv=None) -> int:
                         "and wavefront marches and the bench) and a JSON "
                         "line of its results")
     p.add_argument("--sass", default=None, metavar="FILE",
-                   help="with --k5-times, --k1-times or --k6-times: write "
-                        "that kernel's SASS listing to FILE (and with the "
-                        "first two print its opcodes by count)")
+                   help="with --times: write the SASS listing of the K1, K5 "
+                        "and K6 kernels among the rows to FILE and print "
+                        "each instantiation's opcodes by count")
     args = p.parse_args(argv)
     _require_checkout()
+    rows = select_rows(args.times) if args.times is not None else None
     device, name, smi = phase_device()
-    usage = phase_build()
+    phase_build()
     if args.scale_out:
         out = phase_scale_out(device, card=smi)
         print(json.dumps({"scale_out": {k: v for k, v in out.items()
@@ -4204,55 +3888,18 @@ def main(argv=None) -> int:
         out = phase_bench(device, card=smi)
         print(json.dumps({"bench": out, "gpu": smi}, default=str))
         return 0
-    if args.tv_times:
-        out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
-                                     if k.startswith("tv_")},
-               "tv_times": tv_times(device)}
-        print(json.dumps(out, default=str))
-        return 0
-    if args.adam_times:
-        out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
-                                     if k.startswith("adam_")},
-               "adam_times": adam_times(device)}
-        print(json.dumps(out, default=str))
-        return 0
-    if args.k6_times:
-        from vxtpu_torch.world import procgen
-
-        if args.sass:
-            sass_functions("march_probe_kernel", Path(args.sass))
-        out = k6_probe(device, procgen.terrain((FULL,) * 3, seed=7,
-                                               device=device))
-        print(json.dumps({"k6": out, "gpu": smi}, default=str))
-        return 0
-    if args.k1_times:
-        out = {"gpu": smi, "ptxas": {k: v for k, v in (usage or {}).items()
-                                     if "march_shade" in k},
-               "occupancy": k1_occupancy()}
-        print(f"K1 blocks an SM at {FULL}^3 (CUDA occupancy API): "
-              f"{out['occupancy']}")
-        if args.sass:
-            out["sass"] = sass_functions("march_shade_kernel",
-                                         Path(args.sass))
+    if rows is not None:
+        out = {"gpu": smi}
+        kernels = sorted({r.kernel for r in rows
+                          if r.name.split(".")[0] in ("k1", "k5", "k6")})
+        if args.sass and kernels:
+            out["sass"] = sass_functions(kernels, Path(args.sass))
             for fn, ops in out["sass"].items():
-                print(f"K1 SASS {fn}: {sum(ops.values())} instructions; "
+                print(f"SASS {fn}: {sum(ops.values())} instructions; "
                       + ", ".join(f"{k} {v}" for k, v in ops.items()))
-        out["k1_times"] = k1_times(k1_world(device), device, record=True)
-        print(json.dumps(out))
+        out["times"] = phase_times(device, rows)
+        print(json.dumps(out, default=str))
         return 0
-    if args.k5_times:
-        from vxtpu_torch import _build
-
-        blocks = getattr(_build.load(), "vx_march_packed_blocks_per_sm", None)
-        out = {"blocks_per_sm": blocks() if blocks else None, "gpu": smi}
-        if args.sass:
-            out["sass"] = sass_opcodes("march_packed_kernel", Path(args.sass))
-            print(f"K5 SASS: {sum(out['sass'].values())} instructions; "
-                  + ", ".join(f"{k} {v}" for k, v in out["sass"].items()))
-        out["k5_times"] = k5_times(k5_rays(device), device)
-        print(json.dumps(out))
-        return 0
-    err3 = phase_kernels(device)
     main_run = phase_main(device, save=args.save)
     cross_fingerprint(main_run["grid"], main_run["accel"])
     del main_run["accel"]
@@ -4260,6 +3907,7 @@ def main(argv=None) -> int:
     pipe = phase_pipeline(device, grid, save=args.save)
     resume = phase_resume(device, grid)
     del grid
+    times = phase_times(device, select_rows(None))
     phase_xla(device, save=args.save, card=smi)
     mask = phase_mask(device, card=smi)
     cross_entry_frame(device)
@@ -4270,188 +3918,9 @@ def main(argv=None) -> int:
 
     import torch
 
-    times = main_run["times"]
-    tt = train["times"]
-    # the launches of the bench's fused and field-kernel train sections;
-    # its field step against the kernels' plain versions (allclose excess)
-    bench_launches = bench_run["commands"]["launches"]
-    bounds = k1_k2_bounds(times, H, W)
-    k1 = pipe["times"]["k1"]
-    kernels = [
-        {"name": "march_shade_kernel", "route": "cuda",
-         "source": "vxtpu_torch/csrc/march.cu",
-         "replaces": "vxtpu/render/kernel_pallas_v2.py:434",
-         "launches": main_run["launches"]["march_shade_kernel"],
-         "variant_launches": main_run["variant_launches"],
-         "max_abs_err": max(err3["march_shade_kernel"],
-                            main_run["err"]["march_shade_kernel"]),
-         "ms": times["lambert"]["kernel_ms"], "ms_clock": "events",
-         "device_ms": times["lambert"].get("kernel_device_ms"),
-         "device_ms_clock": times["lambert"].get("kernel_device_ms_clock"),
-         "plain_ms": times["lambert"]["plain_ms"],
-         **bounds["march_shade_kernel"],
-         "modes": {m: {k: k1[m][k] for k in ("device_ms", "graph_ms",
-                                               "bound_ms", "bound_by",
-                                               "share")}
-                   for m in K1_MODES},
-         "occupancy": pipe["times"]["k1_occupancy"],
-         "sharded": {"launches": scale["fused"]["launches"],
-                     "mismatched_pixels": scale["fused"]["mismatches"]},
-         "bench": {"launches": bench_launches["march_shade_kernel"],
-                   "variant_launches": bench_launches["variants"]},
-         "library_ms": None},
-        {"name": "shade_kernel", "route": "cuda",
-         "source": "vxtpu_torch/csrc/march.cu",
-         "replaces": "vxtpu/render/kernel_pallas_v2.py:1219",
-         "launches": main_run["launches"]["shade_kernel"],
-         "max_abs_err": max(err3["shade_kernel"],
-                            main_run["err"]["shade_kernel"]),
-         "ms": times["shade_kernel"]["ms"], "ms_clock": "events",
-         "device_ms": times["shade_kernel"].get("device_ms"),
-         "device_ms_clock": times["shade_kernel"].get("device_ms_clock"),
-         "plain_ms": times["shade_kernel"]["plain_ms"],
-         **bounds["shade_kernel"], "library_ms": None},
-    ]
-    # K3 and K4's pure scatter: launches of the five c4 steps; K4 with
-    # kRayGrads and its ray sums: launches of the camera refinement
-    for k, line, run in (
-            ("sample_fwd_kernel", "213", train["launches"]),
-            (BWD[False], "434", train["launches"]),
-            (BWD[True], "434", train["cam_launches"]),
-            ("sample_ray_sum_kernel", "434 (its per-ray sums)",
-             train["cam_launches"])):
-        kernels.append({
-            "name": k, "route": "cuda",
-            "source": "vxtpu_torch/csrc/sample.cu",
-            "replaces": f"vxtpu/render/kernel_sample.py:{line}",
-            "launches": run[k],
-            "max_abs_err": max(err3.get(k, 0.0), train["err"][k]),
-            "ms": tt[k]["ms"], "ms_clock": "events",
-            "device_ms": tt[k]["device_ms"],
-            "device_ms_clock": tt[k]["device_ms_clock"],
-            "bench": {"launches": bench_launches[k], "field_step_vs_plain": {
-                n: {e: r[e] for e in ("loss_rel", "table", "camera", "rays")}
-                for n, r in bench_run["field_step"].items()}},
-            "plain_ms": tt[k]["plain_ms"],
-            "bound_ms": tt[k]["bound_ms"], "bound_by": tt[k]["bound_by"],
-            "library_ms": tt[k]["library_ms"]})
-        if k in BWD.values():
-            kernels[-1]["zero_fill"] = tt["zero_fill"]
-        if k == "sample_ray_sum_kernel":
-            kernels[-1].update({x: tt[k].get(x) for x in (
-                "warm_graph_ms", "warm_graph_ms_clock", "cold_device_ms",
-                "cold_device_ms_clock")})
-        if k in scale["train"]["launches"]:
-            # phase 11's sharded field-kernel and masked steps
-            kernels[-1]["sharded"] = {
-                "launches": scale["train"]["launches"][k],
-                "grad_excess": {n: e["excess"] for n, e in
-                                scale["train"]["err"].items()}}
-        if k in mask["alone"]:
-            # phase 10's masked fit: its launches, and the kernel alone at
-            # the masked step's shape (S = 64 on the occupied bands)
-            kernels[-1]["masked"] = {
-                "launches": mask["launches"][k],
-                "max_abs_err": mask["err"][k], **mask["alone"][k]}
-    # the TV prior's pair: launches of the five c4 steps, errors of phase
-    # 3 (64^3) and phase 6 (64^3 and 512^3, every case), times at 512^3
-    tv = tt["tv"]
-    for k, row, plain in (("tv_fwd_kernel", "fwd_kernel", "plain_fwd"),
-                          ("tv_fwd_finish_kernel", "fwd_finish", "plain_fwd"),
-                          ("tv_bwd_kernel", "bwd", "plain_fwd_bwd")):
-        r = tv[row]
-        kernels.append({
-            "name": k, "route": "cuda", "source": "vxtpu_torch/csrc/tv.cu",
-            "replaces": "none (vxtpu/train/loss.py:tv_loss_morton is plain "
-                        "jnp that XLA fuses)",
-            "launches": train["tv_launches"][k],
-            "max_abs_err": max(err3[k], tv["err"][k]),
-            "max_abs_err_is": ("the value's relative error" if "fwd" in k
-                               else "the gradient's error x max |g|"),
-            "device_ms": r["device_ms"], "device_ms_clock": r["clock"],
-            "call_device_ms": tv["fwd" if "fwd" in k else "bwd"]["device_ms"],
-            "plain_ms": tv[plain]["device_ms"],
-            "plain_ms_is": ("the plain forward" if plain == "plain_fwd"
-                            else "the plain forward and backward"),
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None})
-    # Adam's kernel: launches of the five c4 steps, errors against torch's
-    # foreach step of phase 3 and phase 6 (its cases and the 512^3 table),
-    # times at 512^3 (the foreach step as the library yardstick)
-    ad = tt["adam"]
-    kernels.append({
-        "name": "adam_step_kernel", "route": "cuda",
-        "source": "vxtpu_torch/csrc/adam.cu",
-        "replaces": "none (vxtpu's optax.adam is plain jnp that XLA fuses)",
-        "launches": train["adam_launches"]["adam_step_kernel"],
-        "max_abs_err": max(err3["adam_step_kernel"], ad["err"]),
-        "max_abs_err_is": "against torch.optim.Adam's foreach step, over "
-                          "the parameters and both moments",
-        "device_ms": ad["kernel"]["device_ms"],
-        "device_ms_clock": ad["kernel"]["clock"],
-        "plain_ms": ad["plain"]["device_ms"],
-        "plain_ms_is": "torch's single-tensor ops, a call",
-        "bound_ms": ad["kernel"]["bound_ms"],
-        "bound_by": ad["kernel"]["bound_by"],
-        "library_ms": ad["foreach"]["device_ms"],
-        "library_ms_is": "torch.optim.Adam's foreach step, a call"})
-    pt = pipe["times"]
-    c3, c3s, big = pt["c3"], pt["c3_shadow"], pt["big"]["k5"]
-    kernels.append({
-        "name": "march_packed_kernel", "route": "cuda",
-        "source": "vxtpu_torch/csrc/march_packed.cu",
-        "replaces": "vxtpu/render/kernel_pallas.py:85",
-        "launches": pipe["launches"]["march_packed_kernel"],
-        "max_abs_err": pipe["err"], "ms": pt["ms"], "ms_clock": "events",
-        "device_ms": c3.get("device_ms"),
-        "device_ms_clock": c3.get("device_ms_clock"),
-        "graph_ms": c3.get("graph_ms"), "graph_ms_clock": "events",
-        "plain_ms": pt["plain_ms"], "bound_ms": c3["bound_ms"],
-        "bound_by": c3["bound_by"], "bound_int32_ms": c3["bound_int32_ms"],
-        "bound_rays_only_ms": c3["bound_rays_only_ms"],
-        "table_words": c3["table_words"],
-        "shadow_device_ms": c3s.get("device_ms"),
-        "shadow_bound_ms": c3s["bound_ms"],
-        "big_device_ms": big.get("device_ms"),
-        "big_graph_ms": big.get("graph_ms"), "big_bound_ms": big["bound_ms"],
-        "blocks_per_sm": pt.get("blocks_per_sm"), "library_ms": None})
-    rt = resume["times"]
-    kernels.append({
-        "name": "march_resume_kernel", "route": "cuda",
-        "source": "vxtpu_torch/csrc/march.cu",
-        "replaces": "vxtpu/render/kernel_pallas_v2.py:434 (resume mode) "
-                    "and :1105 (march_pallas_v2_sorted)",
-        "launches": rt["launches"]["march_resume_kernel"],
-        "max_abs_err": resume["err"]["march_resume_kernel"],
-        "ms": rt["round0_ms"], "ms_clock": rt["round0_ms_clock"],
-        "plain_ms": rt["round0_plain_ms"],
-        "bound_ms": rt["bound0"]["bound_ms"],
-        "bound_by": rt["bound0"]["bound_by"],
-        "bound_rays_only_ms": rt["bound0_rays_only_ms"],
-        "resume_ms": rt["resume_all_ms"],
-        "resume_bound_ms": rt["bound1"]["bound_ms"], "library_ms": None})
-    k6 = rt["k6"]
-    kernels.append({
-        "name": "march_probe_kernel", "route": "cuda",
-        "source": "vxtpu_torch/csrc/probe.cu",
-        "replaces": ", ".join(f"tools/{f}" for f in (
-            "probe_pallas2_cost.py:164", "probe_pallas2_fixed.py:122",
-            "probe_r5_fetch.py:175", "probe_r5_fetch2.py:177",
-            "probe_r5_fetch3.py:152", "probe_r4_tune.py:181",
-            "probe_r4_tile16.py:133", "probe_r4_matfetch.py:96",
-            "probe_r4_matfetch.py:102")),
-        "launches": k6["launches"],
-        "max_abs_err": resume["err"]["march_probe_kernel"],
-        "ms": k6["full_ms"], "ms_clock": k6["full_clock"],
-        "parent_form_ms": k6["parent_ms"],
-        "parent_form_ms_clock": k6["parent_clock"],
-        "reads_per_ray_iter": k6["reads_per_ray_iter"],
-        "plain_ms": k6["plain_ms"],
-        "bound_ms": k6["bound"]["bound_ms"],
-        "bound_by": k6["bound"]["bound_by"],
-        "occupancy": k6["occupancy"]["full/morton16/k1"],
-        "library_ms": None})
-    print(json.dumps({"kernels": kernels, "gpu": smi}))
+    print(json.dumps({"kernels": kernels_line(main_run, pipe, resume, mask,
+                                              train, bench_run, scale, times),
+                      "gpu": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
