@@ -79,8 +79,9 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              (b) the occupancy-masked c4 fit: 512^3 truth (seed 7,
              from_hard), one 256x256 target at S = 256, the warm state
              (0.8 x the truth), its 128^3 mask (G = 4, tau 0.01, dilate
-             1), its distance field and compute_mask_bounds: the occupied
-             share, band over full segment, the bounds pass alone; the
+             1), its distance field and compute_mask_bounds (one
+             mask_bounds_kernel launch, counted): the occupied share,
+             band over full segment, the bounds pass alone; the
              bounds conservative on all 65,536 rays; S = 64 on the bands
              against S = 256 on the whole segment (mean |d rgb| < 0.015);
              one masked step through K3/K4 against their plain versions;
@@ -88,7 +89,8 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              memory, loss, K3/K4 launches); K3 and K4's scatter against
              their plain versions at the masked shape; five fit_soft
              steps from zeros with the mask rebuilt at steps 2 and 4
-             (counted: K3 and K4 once a step; losses finite and falling);
+             (counted: K3, K4 and the bounds kernel once a step; losses
+             finite and falling);
              and train --field-kernel --occmask at c4's size.
  11. scale-out the platform checks and the sharded paths (run last, on a
              1-rank NCCL process group of this process: NCCL cannot put
@@ -162,7 +164,10 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              SASS loops); K3 and K4's scatter at the c4 step's shape and
              at the masked one, K4 with kRayGrads, the ray sum warm and
              with the L2 flushed, K4's zero-fill of the dense gradient;
-             the TV prior's three kernels and Adam's at 512^3. Where a
+             the bounds pass (mask_bounds_kernel) on the masked step's
+             mask and rays, first held to the batched path bit for bit,
+             with its registers and spills; the TV prior's three kernels
+             and Adam's at 512^3. Where a
              bound counts the table words the plain version reads (K1,
              K1', K5, K6), the row first holds the kernel to its plain
              version on every ray; the TV rows first hold the pair to
@@ -1602,6 +1607,15 @@ def zero_fill_bound(D) -> dict:
     return _bound(16 * D ** 3, 0)
 
 
+def mask_bounds_bound(n, cells) -> dict:
+    """The bounds pass on n rays over a mask of ``cells`` cells: the rays
+    read (o, d: 24 B a ray), the bounds written (8 B a ray) and the
+    mask's distance field read once (a byte a cell). Its float work, some
+    forty operations a step of dependent steps, is latency and not
+    counted."""
+    return _bound(32 * n + cells, 0)
+
+
 def ray_sum_bound(n, chunks) -> dict:
     """sample_ray_sum_kernel: reads the [chunks, 8, N] partial sums, writes
     32 B per ray, one add per partial."""
@@ -2115,6 +2129,7 @@ def phase_mask(device, D=FULL, h=C4_HW, w=C4_HW, S=C4_S, S_mask=C4_S_MASK,
     from vxtpu_torch.camera.rays import generate_rays
     from vxtpu_torch.engine.sharding import (camera_frame_rays,
                                              compute_mask_bounds)
+    from vxtpu_torch.render import kernel_bounds
     from vxtpu_torch.render import kernel_sample as ks
     from vxtpu_torch.render import occmask, soft
     from vxtpu_torch.render.soft_kernel import (MortonSoftGrid,
@@ -2142,8 +2157,13 @@ def phase_mask(device, D=FULL, h=C4_HW, w=C4_HW, S=C4_S, S_mask=C4_S_MASK,
     mask = occmask.occupancy_mask_from_soft(warm, G, 0.01, 1)
     mask_df = occmask.mask_distance_field(mask)
     o_c, d_c = camera_frame_rays(cam, h, w)
+    kernel_bounds.reset_launch_counts()
     bounds = compute_mask_bounds(mask, mask_df, cam, o_c, d_c, G)
     _sync(device)
+    if device.type == "cuda" and (
+            kernel_bounds.LAUNCHES["mask_bounds_kernel"] != 1):
+        raise AssertionError(f"the bounds pass: launches "
+                             f"{kernel_bounds.LAUNCHES}, not one")
     t_full, dt_full, valid = _enter_dt_soft(o, d, dims, 1, None)
     t_band, dt_band, _ = _enter_dt_soft(o, d, dims, 1, bounds)
     seg = valid & (dt_full > 0)
@@ -2277,19 +2297,21 @@ def phase_mask(device, D=FULL, h=C4_HW, w=C4_HW, S=C4_S, S_mask=C4_S_MASK,
                               num_samples=S_mask, ray_batch=0, steps=steps,
                               seed=cfg4.seed, mask_refresh=2)
     ks.reset_launch_counts()
+    kernel_bounds.reset_launch_counts()
     _, _, losses, _ = loop.fit_soft(
         soft.SoftGrid.zeros(dims, device=device), cam, target.reshape(h, w, 3),
         settings, tc_fit)
     _sync(device)
-    launches = dict(ks.LAUNCHES)
+    launches = dict(ks.LAUNCHES, **kernel_bounds.LAUNCHES)
     print(f"phase 10 xla+mask: masked fit, {steps} steps from zeros at S = "
           f"{S_mask}, mask rebuilt at steps 2 and 4: launches {launches}; "
           f"losses {losses}")
     if device.type == "cuda" and not (
             launches["sample_fwd_kernel"] == steps
-            and launches[BWD[False]] == steps):
-        raise AssertionError(f"the masked fit did not run K3 and K4 once a "
-                             f"step: {launches}")
+            and launches[BWD[False]] == steps
+            and launches["mask_bounds_kernel"] == steps):
+        raise AssertionError(f"the masked fit did not run K3, K4 and the "
+                             f"bounds kernel once a step: {launches}")
     _check_losses(losses)
 
     # the command
@@ -3248,9 +3270,10 @@ def _c4(device, masked=False):
     """The c4 fit's field sampling at its shape (phase 6; phase 10 with
     ``masked``): the FULL^3 truth's Morton table (0.8 x the truth, masked)
     and the C4_HW^2 rays' sample segments (masked: C4_S_MASK samples on
-    the bands of the 128^3 mask), four random cotangent planes, the active
-    samples and the distinct table words their corners touch (the
-    bounds'), and torch's grid_sample on the same samples."""
+    the bands of the 128^3 mask, kept with its distance field), four
+    random cotangent planes, the active samples and the distinct table
+    words their corners touch (the bounds'), and torch's grid_sample on
+    the same samples."""
     import torch
 
     from vxtpu_torch.app.configs import CONFIGS
@@ -3270,7 +3293,7 @@ def _c4(device, masked=False):
     cam = Camera.make(pos=(-0.7 * D, 0.5 * D, 1.1 * D),
                       device=device).look_at((0.5 * D, 0.5 * D, 0.27 * D))
     o, d = generate_rays(cam, C4_HW, C4_HW)
-    S, bounds = C4_S, None
+    S, bounds, mask, mask_df = C4_S, None, None, None
     if masked:
         truth = soft.SoftGrid(truth.sigma_raw * 0.8, truth.rgb_raw * 0.8)
     tab = MortonSoftGrid.from_soft(truth).tab
@@ -3278,15 +3301,16 @@ def _c4(device, masked=False):
     if masked:
         mask = occmask.occupancy_mask_from_soft(MortonSoftGrid(tab), 4, 0.01,
                                                 1)
+        mask_df = occmask.mask_distance_field(mask)
         o_c, d_c = camera_frame_rays(cam, C4_HW, C4_HW)
-        bounds = compute_mask_bounds(mask, occmask.mask_distance_field(mask),
-                                     cam, o_c, d_c, 4)
+        bounds = compute_mask_bounds(mask, mask_df, cam, o_c, d_c, 4)
         S = C4_S_MASK
     st, sdt, _ = _enter_dt_soft(o, d, dims, S, bounds)
     g = torch.Generator().manual_seed(0)
     x = SimpleNamespace(
         tab=tab, o=o, d=d, st=st.contiguous(), sdt=sdt.contiguous(), S=S,
-        D=D, n=o.shape[0], active=int((sdt > 0).sum()) * S,
+        D=D, n=o.shape[0], mask=mask, mask_df=mask_df,
+        active=int((sdt > 0).sum()) * S,
         cots=tuple(torch.randn(S, o.shape[0], generator=g).to(device)
                    for _ in range(4)))
     x.touched = _touched_words(o, d, x.st, x.sdt, S, D)
@@ -3499,6 +3523,27 @@ def k2_bound(n, hits, lights) -> dict:
                   n * MARCH_OPS_RAY * (1 + lights))
 
 
+def _bounds_inputs(x):
+    """The bounds pass on the masked c4 step's rays and 128^3 mask: the
+    kernel equal to the batched path bit for bit (raises otherwise);
+    ``info`` the bands and the kernel's registers and spills (ptxas)."""
+    from vxtpu_torch import kernel_check as kc
+
+    m = kc.compare_bounds(x.mask, 4, x.mask_df, x.o, x.d)
+    if m["bits_unequal"] or m["empty_unequal"]:
+        raise AssertionError(f"mask_bounds_kernel against the batched path: "
+                             f"{m}")
+    usage = ptxas_usage().get("mask_bounds_kernel", {})
+    return SimpleNamespace(
+        mask=x.mask, mask_df=x.mask_df, o=x.o, d=x.d, n=x.n,
+        cells=x.mask.numel(),
+        info=dict(max_abs_err=m["max_abs"], bits_unequal=m["bits_unequal"],
+                  bands=m["bands"],
+                  registers=usage.get("registers"),
+                  spill_stores=usage.get("spill_stores"),
+                  spill_loads=usage.get("spill_loads")))
+
+
 def _k5_inputs(key):
     """The inputs of K5's row on the scene's ray set ``key``: K5 against its
     plain version (hit, voxel, normal and steps equal, |dt| <= 1e-6;
@@ -3550,7 +3595,7 @@ def kernel_rows() -> list:
     from vxtpu_torch.render import kernel_march as km
     from vxtpu_torch.render import kernel_packed as kp
     from vxtpu_torch.render import kernel_sample as ks
-    from vxtpu_torch.render import probe
+    from vxtpu_torch.render import occmask, probe
     from vxtpu_torch.train import kernel_adam, kernel_tv
     from vxtpu_torch.train.loss import tv_prior_morton
 
@@ -3637,6 +3682,13 @@ def kernel_rows() -> list:
             library=lambda x: x.lib["bwd"]()),
         Row("k3.masked", "c4_masked", same, **K3),
         Row("k4.scatter_masked", "c4_masked", same, **K4),
+        Row("bounds.c4_masked", "c4_masked", _bounds_inputs,
+            lambda x: occmask.mask_segment_bounds(x.mask, 4, x.o, x.d,
+                                                  df_flat=x.mask_df),
+            "mask_bounds_kernel",
+            bound=lambda x: mask_bounds_bound(x.n, x.cells),
+            plain=lambda x: occmask.mask_segment_bounds_batched(
+                x.mask, 4, x.o, x.d, df_flat=x.mask_df)),
         # warm, the partial sums in L2: no HBM bound (the cold row's)
         Row("k4.ray_sum", "ray_sum", same, lambda x: ks.ray_sums(x.part),
             "sample_ray_sum_kernel",
@@ -3814,6 +3866,20 @@ def kernels_line(main_run, pipe, resume, mask, train, bench_run, scale,
         "plain_ms_is": "torch's single-tensor ops, a call",
         "library_ms_is": "torch.optim.Adam's foreach step, a call"})
     kernels.append({
+        "name": "mask_bounds_kernel", "route": "cuda",
+        "source": "vxtpu_torch/csrc/bounds.cu",
+        "replaces": "none (vxtpu/render/occmask.py:mask_segment_bounds is "
+                    "two batched marches of plain jnp)",
+        "launches": mask["launches"]["mask_bounds_kernel"],
+        "max_abs_err": T["bounds.c4_masked"]["max_abs_err"],
+        "max_abs_err_is": "against the batched path on the masked step's "
+                          "rays, over t0 and t1 (the row raises unless "
+                          "they are equal bit for bit)",
+        **_timed(T["bounds.c4_masked"], "bands", "registers", "spill_stores",
+                 "spill_loads"),
+        "plain_ms_is": "the batched path (two march_xla_df marches), a "
+                       "call"})
+    kernels.append({
         "name": "march_packed_kernel", "route": "cuda",
         "source": "vxtpu_torch/csrc/march_packed.cu",
         "replaces": "vxtpu/render/kernel_pallas.py:85",
@@ -3857,8 +3923,8 @@ def main(argv=None) -> int:
     p.add_argument("--times", nargs="*", default=None, metavar="ROW",
                    help="phases 1 and 2, then phase 13 alone on the named "
                         "rows of the kernel table (a row, or its kernel: "
-                        "k1 k1r k2 k3 k4 k5 k6 tv adam; none: every row) "
-                        "and a JSON line of their times; copied into a "
+                        "k1 k1r k2 k3 k4 k5 k6 bounds tv adam; none: every "
+                        "row) and a JSON line of their times; copied into a "
                         "checkout of another commit, it times that "
                         "commit's kernels the same way")
     p.add_argument("--scale-out", action="store_true",

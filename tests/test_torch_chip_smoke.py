@@ -31,3 +31,13 @@ def test_closed_form_bound_at_512(rows, row, nbytes, bound_ms):
     assert b["bytes"] == nbytes
     assert round(b["bound_ms"], 4) == bound_ms
     assert b["bound_by"] == "bytes"
+
+
+def test_bounds_pass_bound_at_c4(rows):
+    """The masked c4 step's bounds pass: 65,536 rays in and out (32 B a
+    ray) and the 128^3 mask's distance field once (a byte a cell)."""
+    b = rows["bounds.c4_masked"].bound(SimpleNamespace(n=65536,
+                                                       cells=128 ** 3))
+    assert b["bytes"] == 4_194_304
+    assert round(b["bound_ms"], 6) == 0.001252
+    assert b["bound_by"] == "bytes"

@@ -571,6 +571,65 @@ def test_mask_bounds_on_card_match_cpu(cuda):
     assert float((t1g - t1c).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("name", kc.BOUNDS_CASES)
+def test_bounds_kernel_matches_batched_path(cuda, name):
+    """mask_bounds_kernel against the batched path on the card, in each of
+    kernel_check.BOUNDS_CASES over a 512^3 world's mask (128^3 at G = 4,
+    64^3 at G = 8; a 510^3 world's 170^3 at G = 3), 16,384 rays: t0 and t1 equal bit for bit, so the
+    empty bands too; one launch a pass."""
+    kc.check_bounds_case(kc.run_bounds_case(name, cuda), f"bounds ({name})")
+
+
+def test_bounds_kernel_on_the_c4_view(cuda):
+    """The c4 fit's 65,536 rays (256 x 256) over the 512^3 terrain's 128^3
+    mask: bit for bit the batched path's bounds, one launch."""
+    m = kc.run_bounds_case("terrain-c4-g4", cuda, D=512, n=256 * 256)
+    kc.check_bounds_case(m, "bounds (c4 view)")
+    assert m["n"] == 65536 and m["bands"] > 0
+
+
+def test_masked_fit_launches_the_bounds_kernel(cuda, monkeypatch):
+    """Three masked field-kernel steps at 32^3 launch mask_bounds_kernel
+    once a step and never reach march_xla_df (patched to raise); a bounds
+    pass runs clean under torch.cuda.set_sync_debug_mode("error")."""
+    from vxtpu_torch.camera.camera import Camera
+    from vxtpu_torch.render import kernel_bounds, occmask, soft
+    from vxtpu_torch.render.settings import RenderSettings
+    from vxtpu_torch.train import loop
+
+    def boom(*a, **k):
+        raise AssertionError("the batched march called for CUDA tensors")
+
+    monkeypatch.setattr(occmask, "march_xla_df", boom)
+    truth = soft.SoftGrid.from_hard(procgen.terrain(
+        (32,) * 3, seed=7, with_rgb=True, device=cuda))
+    cam = Camera.make(pos=(-22.4, 16.0, 35.2), device=cuda).look_at(
+        (16.0, 16.0, 8.64))
+    with torch.no_grad():
+        target = soft.render_soft_image(truth, cam, RenderSettings(), 32, 32,
+                                        32)
+    kernel_bounds.reset_launch_counts()
+    _, _, losses, _ = loop.fit_soft(
+        soft.SoftGrid.zeros((32,) * 3, device=cuda), cam, target,
+        RenderSettings(), loop.TrainConfig(
+            steps=3, num_samples=16, seed=7, occ_mask=True, mask_refresh=2,
+            field_kernel=True))
+    assert kernel_bounds.LAUNCHES == {"mask_bounds_kernel": 3}
+    assert losses[-1] < losses[0]
+    mask = occmask.occupancy_mask_from_soft(truth, 4, 0.01, 1)
+    df = occmask.mask_distance_field(mask)
+    o, d = generate_rays(cam, 32, 32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0, t1 = occmask.mask_segment_bounds(mask, 4, o, d, df_flat=df)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kernel_bounds.LAUNCHES == {"mask_bounds_kernel": 4}
+    assert bool((t0 < t1).any()) and bool((t1 >= t0).all())
+
+
 def test_masked_fit_runs_the_kernels(cuda):
     """Three masked field-kernel steps at 32^3 (the mask rebuilt before
     step 2) launch K3 and K4's scatter once a step, and their losses

@@ -5,7 +5,9 @@ vxtpu's, and the masked model's own checks on the port alone.
 Tolerances: masks equal byte for byte (the wrap of ``jnp.roll`` at the
 borders included, and the Morton table's mask equal to the planar
 grid's); band bounds within 1e-4 where both packages find a band, and the
-same empty bands; a masked four-step fit's losses within rel 1e-5."""
+same empty bands (kernel_check.BOUNDS_CASES' edge cases too, which on
+the CPU run the batched path and never load the CUDA library); a masked
+four-step fit's losses within rel 1e-5."""
 
 import functools
 
@@ -23,9 +25,10 @@ from vxtpu.render import soft as jsoft
 from vxtpu.render.settings import RenderSettings as JSettings
 from vxtpu.train import loop as jloop
 from vxtpu.world import procgen as jprocgen
-from vxtpu_torch import convert
+from vxtpu_torch import _build, convert
+from vxtpu_torch import kernel_check as kc
 from vxtpu_torch.engine import sharding
-from vxtpu_torch.render import dda, occmask, soft
+from vxtpu_torch.render import dda, kernel_bounds, occmask, soft
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft_kernel import MortonSoftGrid
 from vxtpu_torch.train import loop
@@ -119,6 +122,28 @@ def test_mask_segment_bounds_match_vxtpu(dilate):
                                     jnp.asarray(d))
     got = occmask.mask_segment_bounds(t(m), G, t(o), t(d))
     assert 0.2 < _compare_bounds(got, want) < 1.0
+
+
+@pytest.mark.parametrize("name", kc.BOUNDS_CASES)
+def test_bounds_cases_match_vxtpu(name, monkeypatch):
+    """kernel_check.BOUNDS_CASES at 32^3 (30^3 at G = 3; 576 rays): the port's bounds pass
+    on CPU tensors, the batched path, against vxtpu's within 1e-4 and the
+    same empty bands, with the bands the case expects; it never loads the
+    CUDA library nor counts a kernel launch."""
+    def no_library():
+        raise AssertionError("the CPU bounds pass loaded the CUDA library")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    kernel_bounds.reset_launch_counts()
+    mask, G, df, o, d = kc.bounds_inputs(name, CPU, D=32, n=576)
+    got = occmask.mask_segment_bounds(mask, G, o, d, df_flat=df)
+    assert kernel_bounds.LAUNCHES["mask_bounds_kernel"] == 0
+    want = jocc.mask_segment_bounds(jnp.asarray(mask.numpy()), G,
+                                    jnp.asarray(o.numpy()),
+                                    jnp.asarray(d.numpy()))
+    band = _compare_bounds(got, want)
+    mkind, rkind, _ = name.split("-")
+    assert (band > 0) == (mkind != "empty" and rkind != "miss")
 
 
 def test_compute_mask_bounds_matches_vxtpu():

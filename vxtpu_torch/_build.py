@@ -139,6 +139,9 @@ def load() -> ctypes.CDLL:
     lib.vx_adam_step.argtypes = [_P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F,
                                  _P]
     lib.vx_adam_step.restype = _I
+    lib.vx_mask_bounds.argtypes = [_P, _P, _L, _P, _I, _I, _I, _F, _I, _P, _P,
+                                   _P]
+    lib.vx_mask_bounds.restype = _I
     lib.vx_error_string.argtypes = [_I]
     lib.vx_error_string.restype = ctypes.c_char_p
     return lib

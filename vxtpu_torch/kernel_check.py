@@ -47,6 +47,13 @@ round; the margin takes a last-bit difference where m sums to near 0),
 equal bit for bit on a second run, one launch a parameter a step; in each
 of ADAM_CASES (sizes with and without a float4 tail, a view that is not
 16-byte aligned, a state resumed at count 7, the camera's four tensors).
+
+Bounds pass (mask_bounds_kernel, render/kernel_bounds.py): occmask.
+mask_segment_bounds against its batched path (mask_segment_bounds_batched)
+on the same rays: t0 and t1 equal bit for bit (the kernel makes the
+batched path's float operations in its order), so the empty bands too,
+one launch a pass; in each of BOUNDS_CASES (three masks, seven ray sets,
+three mask scales, one not a power of two).
 """
 
 from __future__ import annotations
@@ -59,7 +66,7 @@ from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.render import kernel_march as km
 from vxtpu_torch.render import kernel_packed as kp
 from vxtpu_torch.render import kernel_sample as ks
-from vxtpu_torch.render import occmask, probe
+from vxtpu_torch.render import dda, kernel_bounds, occmask, probe, soft
 from vxtpu_torch.render.fused import render_rays_fused
 from vxtpu_torch.render.pipeline import shadow_ray_batch
 from vxtpu_torch.render.settings import RenderSettings
@@ -970,3 +977,160 @@ def check_adam_case(m: dict, what: str) -> None:
     if m["device"] == "cuda" and m["launches"] != want:
         raise AssertionError(f"{what}: {m['launches']} adam_step_kernel "
                              f"launches, not {want} (one a parameter a step)")
+
+
+# The bounds pass: case "<mask>-<rays>-g<G>", the rays over the mask of a
+# D^3 world at scale G (D cut down to a multiple of G: 510 for 512 at
+# G = 3, where o / G is no longer exact). Masks: every cell occupied, none, the D^3 terrain's
+# (seed 7: the c4 fit's) as the masked fit builds it (tau 0.01, dilated
+# once). Rays (bounds_rays): a view from outside, the c4 fit's view, from
+# inside, axis-aligned, with zero direction components, from occupied
+# cells, missing the grid.
+BOUNDS_MASKS = ("ones", "empty", "terrain")
+BOUNDS_RAYS = ("outside", "c4", "inside", "axis", "zero", "occupied", "miss")
+BOUNDS_CASES = ([f"{m}-{r}-g4" for m in BOUNDS_MASKS for r in BOUNDS_RAYS]
+                + [f"terrain-{r}-g{G}" for G in (8, 3) for r in BOUNDS_RAYS])
+_TERRAIN_MASKS: dict = {}
+
+
+def bounds_mask(kind, D, G, device) -> torch.Tensor:
+    """The uint8 mask [D/G]^3 of BOUNDS_MASKS' ``kind`` (the terrain's made
+    once a size, scale and device)."""
+    dims = (D,) * 3
+    if kind == "ones":
+        return occmask.mask_all_ones(dims, G, device)
+    if kind == "empty":
+        return torch.zeros_like(occmask.mask_all_ones(dims, G, device))
+    key = (D, G, str(device))
+    if key not in _TERRAIN_MASKS:
+        truth = soft.SoftGrid.from_hard(procgen.terrain(dims, seed=7,
+                                                        device=device))
+        _TERRAIN_MASKS[key] = occmask.occupancy_mask_from_soft(truth, G, 0.01,
+                                                               1)
+    return _TERRAIN_MASKS[key]
+
+
+def bounds_rays(kind, D, n, device, mask, G, seed=3):
+    """n rays o, d [n, 3] (world units, float32, contiguous) of
+    BOUNDS_RAYS' ``kind`` over a D^3 world whose mask (scale G) is
+    ``mask``: 'outside' and 'c4' camera views (sqrt(n) rays a side; c4's
+    from (-0.7D, 0.5D, 1.1D) to (0.5D, 0.5D, 0.27D)); 'inside' random
+    origins in the grid; 'axis' the six axis directions from random
+    origins, a quarter of them on mask-cell corners, a quarter outside
+    the grid; 'zero' random directions with one or two components +0 or
+    -0 (and a few zero vectors); 'occupied' origins in random occupied
+    cells (anywhere in the grid where none is); 'miss' rays from outside
+    pointing away, and rays above the grid parallel to its top face."""
+    g = torch.Generator().manual_seed(seed)
+
+    def unit(k):
+        return torch.nn.functional.normalize(torch.randn(k, 3, generator=g),
+                                             dim=1)
+
+    if kind in ("outside", "c4"):
+        cam = (_cameras(D, device)["outside"] if kind == "outside" else
+               Camera.make(pos=(-0.7 * D, 0.5 * D, 1.1 * D),
+                           device=device).look_at((0.5 * D, 0.5 * D,
+                                                   0.27 * D)))
+        side = int(round(n ** 0.5))
+        return generate_rays(cam, side, n // side)
+    i = torch.arange(n)
+    if kind == "inside":
+        o, d = (torch.rand(n, 3, generator=g) * 0.9 + 0.05) * D, unit(n)
+    elif kind == "axis":
+        d = torch.zeros(n, 3)
+        d[i, (i % 6) // 2] = torch.where(i % 2 == 0, 1.0, -1.0)
+        o = (torch.rand(n, 3, generator=g) * 0.9 + 0.05) * D
+        corner = i % 4 == 1
+        o[corner] = torch.floor(o[corner] / G) * G
+        outside = i % 4 == 3
+        o[outside] = torch.rand(int(outside.sum()), 3, generator=g) * 2 * D \
+            - 0.5 * D
+    elif kind == "zero":
+        d = unit(n)
+        sign = torch.where(i % 2 == 0, 1.0, -1.0)
+        d[i, i % 3] = 0.0 * sign
+        two = i % 3 == 1
+        d[two, ((i + 1) % 3)[two]] = 0.0 * sign[two]
+        d[i % 17 == 0] = 0.0
+        o = torch.rand(n, 3, generator=g) * 1.6 * D - 0.3 * D
+    elif kind == "occupied":
+        cells = torch.nonzero(mask.cpu()).to(torch.float32)
+        if cells.shape[0]:
+            pick = torch.randint(0, cells.shape[0], (n,), generator=g)
+            o = (cells[pick] + torch.rand(n, 3, generator=g)) * G
+        else:
+            o = torch.rand(n, 3, generator=g) * D
+        d = unit(n)
+    elif kind == "miss":
+        u = unit(n)
+        o = 0.5 * D + u * D
+        d = u.clone()
+        side = i % 2 == 1
+        k = int(side.sum())
+        ang = torch.rand(k, generator=g) * 6.2831853
+        o[side] = torch.stack([torch.rand(k, generator=g) * D,
+                               torch.rand(k, generator=g) * D,
+                               D + 1.0 + torch.rand(k, generator=g) * D], 1)
+        d[side] = torch.stack([torch.cos(ang), torch.sin(ang),
+                               torch.zeros(k)], 1)
+    else:
+        raise ValueError(f"bounds rays: no kind {kind!r}")
+    return o.contiguous().to(device), d.contiguous().to(device)
+
+
+def bounds_inputs(name, device, D=512, n=16384):
+    """(mask, G, its distance field, o, d) of BOUNDS_CASES' ``name``, over
+    a world of D - D % G a side."""
+    mkind, rkind, g = name.split("-")
+    G = int(g[1:])
+    D -= D % G
+    mask = bounds_mask(mkind, D, G, device)
+    o, d = bounds_rays(rkind, D, n, device, mask, G)
+    return mask, G, occmask.mask_distance_field(mask), o, d
+
+
+def compare_bounds(mask, G, df, o, d) -> dict:
+    """occmask.mask_segment_bounds (the kernel on CUDA tensors) against
+    mask_segment_bounds_batched on the same inputs: the launches of the
+    pass, the elements of t0 and t1 whose bits differ, the empty bands
+    that differ, the largest |difference| and the bands."""
+    kernel_bounds.reset_launch_counts()
+    got = occmask.mask_segment_bounds(mask, G, o, d, df_flat=df)
+    launches = kernel_bounds.LAUNCHES["mask_bounds_kernel"]
+    want = occmask.mask_segment_bounds_batched(mask, G, o, d, df_flat=df)
+    return dict(
+        launches=launches,
+        bits_unequal=sum(int((a.view(torch.int32) != b.view(torch.int32))
+                             .sum()) for a, b in zip(got, want)),
+        empty_unequal=int(((got[0] == got[1]) != (want[0] == want[1]))
+                          .sum()),
+        max_abs=max(float((a - b).abs().max()) for a, b in zip(got, want)),
+        bands=int((want[0] < want[1]).sum()))
+
+
+def run_bounds_case(name: str, device, D: int = 512, n: int = 16384) -> dict:
+    """compare_bounds on one case's inputs, and the rays that cross the
+    grid."""
+    mask, G, df, o, d = bounds_inputs(name, device, D, n)
+    _, _, valid = dda.ray_grid_clip(o / G, d, tuple(mask.shape))
+    return dict(name=name, device=torch.device(device).type, n=n,
+                crossing=int(valid.sum()),
+                **compare_bounds(mask, G, df, o, d))
+
+
+def check_bounds_case(m: dict, what: str) -> None:
+    mkind, rkind, _ = m["name"].split("-")
+    if m["bits_unequal"] or m["empty_unequal"]:
+        raise AssertionError(f"{what}: {m['bits_unequal']} bounds differ in "
+                             f"their bits from the batched path's (max |d| "
+                             f"{m['max_abs']:.3g}), {m['empty_unequal']} "
+                             f"empty bands differ")
+    if m["device"] == "cuda" and m["launches"] != 1:
+        raise AssertionError(f"{what}: {m['launches']} mask_bounds_kernel "
+                             f"launches, not 1")
+    if rkind == "miss" and m["crossing"]:
+        raise AssertionError(f"{what}: {m['crossing']} 'miss' rays cross "
+                             f"the grid")
+    if (m["bands"] > 0) != (mkind != "empty" and rkind != "miss"):
+        raise AssertionError(f"{what}: {m['bands']} bands, of {m['n']} rays")

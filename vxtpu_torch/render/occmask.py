@@ -23,6 +23,7 @@ import torch
 
 from vxtpu_torch.device import DEFAULT, resolve
 from vxtpu_torch.render import dda
+from vxtpu_torch.render import kernel_bounds
 from vxtpu_torch.render import kernel_sample as ks
 from vxtpu_torch.render.kernel_xla import march_xla_df
 # mask_at is defined once, in render/soft.py, and read here as vxtpu reads
@@ -78,6 +79,12 @@ def mask_distance_field(mask: torch.Tensor) -> torch.Tensor:
                                 cap=max(mask.shape)).reshape(-1)
 
 
+# steps between two checks of the batched marches for rays still going
+# (each a host sync); a march runs whole chunks, so it stops after at most
+# ceil(max_steps / STEP_CHUNK) * STEP_CHUNK steps, and so does the kernel's
+STEP_CHUNK = 32
+
+
 @torch.no_grad()
 def mask_segment_bounds(mask: torch.Tensor, scale: int, o: torch.Tensor,
                         d: torch.Tensor, df_flat: torch.Tensor | None = None):
@@ -87,7 +94,26 @@ def mask_segment_bounds(mask: torch.Tensor, scale: int, o: torch.Tensor,
 
     Two distance-field marches over the mask grid: forward from the
     origin (the first occupied cell), and along -d from beyond the exit
-    (the last one)."""
+    (the last one). On CUDA tensors one launch of ``mask_bounds_kernel``
+    (render/kernel_bounds.py) runs both, one thread a ray, with the
+    batched path's bits; CPU tensors run the batched path
+    (``mask_segment_bounds_batched``)."""
+    if o.device.type != "cuda":
+        return mask_segment_bounds_batched(mask, scale, o, d, df_flat)
+    md = tuple(int(x) for x in mask.shape)
+    if df_flat is None:
+        df_flat = mask_distance_field(mask)
+    return kernel_bounds.mask_bounds(md, scale, o.contiguous(),
+                                     d.contiguous(), df_flat)
+
+
+@torch.no_grad()
+def mask_segment_bounds_batched(mask: torch.Tensor, scale: int,
+                                o: torch.Tensor, d: torch.Tensor,
+                                df_flat: torch.Tensor | None = None):
+    """``mask_segment_bounds`` as vxtpu computes it, every ray in lock-step:
+    two ``kernel_xla.march_xla_df`` marches (the plain version that the
+    kernel is held to)."""
     G = float(scale)
     md = tuple(int(x) for x in mask.shape)
     if df_flat is None:
@@ -95,9 +121,9 @@ def mask_segment_bounds(mask: torch.Tensor, scale: int, o: torch.Tensor,
     max_steps = sum(md) + 2
     om = o / G
     _, t_exit_m, valid = dda.ray_grid_clip(om, d, md)
-    fwd = march_xla_df(om, d, df_flat, md, max_steps)
+    fwd = march_xla_df(om, d, df_flat, md, max_steps, STEP_CHUNK)
     o_back = om + (t_exit_m[:, None] + 1.0) * d
-    bwd = march_xla_df(o_back, -d, df_flat, md, max_steps)
+    bwd = march_xla_df(o_back, -d, df_flat, md, max_steps, STEP_CHUNK)
     hit_any = fwd.hit & bwd.hit & valid
     t0 = G * torch.where(hit_any, fwd.t, 0.0)
     t1 = torch.maximum(G * torch.where(hit_any, (t_exit_m + 1.0) - bwd.t,
