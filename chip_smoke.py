@@ -100,11 +100,10 @@ Phases, each printing what it found (any failure raises, exit code != 0):
              per-voxel RGB; 1080x1920, S = 192, full shading with one
              light, the custom backward of render/vjp.py), its first 3
              of 24 frames x 2 steps: losses finite, yaw and pitch errors
-             below 0.03, frame ms, peak memory; then from its final
-             state the step's time (events), the forward and the
-             backward alone, a profiled step's device time by group and
-             the target render; and the custom backward against autograd
-             through the plain renderer on 4,096 of the frame's rays;
+             below 0.03, peak memory; then from its final state the
+             custom backward against autograd through the plain
+             renderer on 4,096 of the frame's rays (its step and frame
+             times are the benchmark cell c5_1080p_pod.anim_fit's);
              (c) phase 4's 512^3/1080p lambert and full + shadows + fog
              frames through render_frame_fused_sharded, equal to
              render_frame_fused on every pixel (K1 launches counted);
@@ -1399,32 +1398,6 @@ def phase_resume(device, big_grid, h=H, w=W, runs=RUNS, drain_r0=8,
     secs = time.perf_counter() - t_phase
     print(f"phase 9 resume: {secs:.1f} s")
     return {"err": err, "times": times, "seconds": secs}
-
-
-class StepTimer:
-    """Marks the end of each step: CUDA events on the card, the host clock
-    after a synchronise on the CPU. ``ms()``: the time between marks."""
-
-    def __init__(self, device):
-        self.device = device
-        self.marks = []
-
-    def __call__(self, i=None, loss=None) -> None:
-        import torch
-
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append(ev)
-        else:
-            self.marks.append(time.perf_counter())
-
-    def ms(self) -> list:
-        if self.device.type == "cuda":
-            self.marks[-1].synchronize()
-            return [a.elapsed_time(b)
-                    for a, b in zip(self.marks, self.marks[1:])]
-        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
 CHUNK = 8192
@@ -2732,20 +2705,6 @@ C5_SUBSET = 4096        # rays of the custom-backward-vs-autograd check
 VJP_RTOL, VJP_ATOL_REL = 2e-4, 2e-5
 
 
-class _FrameClock:
-    """A MetricsSink for run_config5: the host time of each frame's
-    emission (after the frame's last synchronising read)."""
-
-    def __init__(self):
-        self.t = [time.perf_counter()]
-
-    def emit(self, **kv):
-        self.t.append(time.perf_counter())
-
-    def frame_ms(self) -> list:
-        return [(b - a) * 1e3 for a, b in zip(self.t, self.t[1:])]
-
-
 def _vjp_excess(got, want) -> float:
     from vxtpu_torch import kernel_check as kc
 
@@ -2781,15 +2740,16 @@ def _subset_grads(fast, soft_grid, cam, o_c, d_c, target, settings, S,
 def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
                   subset=C5_SUBSET, card="") -> dict:
     """(b) config 5 through run_config5 on the 1-rank group: its first
-    ``frames`` frames, the step's time and where it goes, and the custom
-    backward against autograd on a subset of the last frame's rays."""
+    ``frames`` frames (losses finite, the pose error falling), and the
+    custom backward against autograd on a subset of the last frame's
+    rays. Its step and frame times are the benchmark cell's
+    (``c5_1080p_pod.anim_fit``)."""
     import torch
 
     from vxtpu_torch.app.configs import CONFIGS
     from vxtpu_torch.camera import paths
     from vxtpu_torch.engine import sharding
     from vxtpu_torch.render.soft import SoftGrid
-    from vxtpu_torch.render.vjp import render_soft_rays_fast
     from vxtpu_torch.train.config5 import Config5, run_config5
     from vxtpu_torch.world import procgen
     from vxtpu_torch.world.lights import Lights
@@ -2798,30 +2758,17 @@ def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
                   ckpt_every=0)
     settings = CONFIGS["c5_1080p_pod"].settings
     mesh = sharding.make_mesh()
-    clock = _FrameClock()
-    marks = {}
-
-    def mark(name):
-        _sync(device)
-        marks[name] = time.perf_counter()
-
-    mark("start")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    res = run_config5(cfg, settings, mesh=mesh, sink=clock,
-                      end_frame=frames)
-    mark("run")
+    res = run_config5(cfg, settings, mesh=mesh, end_frame=frames)
     peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
             if device.type == "cuda" else None)
-    frame_ms = clock.frame_ms()
     print(f"phase 11 scale-out: config 5 at {D}^3, {h}x{w}, S = {S}, lit "
           f"({settings.shading}), custom backward, {mesh.size} rank, first "
           f"{frames} of {cfg.frames} frames x {cfg.steps_per_frame} steps: "
           f"losses {res['losses']}; PSNR {res['psnrs']}; yaw error "
           f"{res['yaw_err']:.5f}, pitch error {res['pitch_err']:.5f} (from "
-          f"{cfg.pose_error}, -{cfg.pose_error}); frame ms [{card}] (target "
-          f"render + steps + PSNR render; the first with first-use costs) "
-          f"{[round(x, 1) for x in frame_ms]}; peak "
+          f"{cfg.pose_error}, -{cfg.pose_error}); peak [{card}] "
           f"{peak if peak is None else round(peak, 2)} GiB")
     if not all(math.isfinite(v) for v in res["losses"]):
         raise AssertionError(f"config 5: non-finite loss {res['losses']}")
@@ -2830,12 +2777,12 @@ def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
         raise AssertionError("config 5: the pose error did not fall below "
                              f"{cfg.pose_error}")
 
-    # the last frame again, for the times (not counted): its target, the
-    # step from the run's final state, forward and backward alone
-    dims = cfg.dims
-    X, Y, Z = dims
+    # the last frame's target, then the custom backward against autograd
+    # through the plain renderer on a subset of the frame's rays from the
+    # run's final state (plain autograd cannot hold them all)
+    X, Y, Z = cfg.dims
     truth = SoftGrid.from_hard(procgen.terrain(
-        dims, seed=cfg.seed, with_rgb=True, device=device),
+        cfg.dims, seed=cfg.seed, with_rgb=True, device=device),
         sigma_solid=cfg.sigma_solid)
     lights = Lights.single((0.2 * X, -0.3 * Y, 1.4 * Z), intensity=2.0,
                            device=device)
@@ -2843,68 +2790,11 @@ def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
         center=(0.5 * X, 0.5 * Y, 0.3 * Z), radius=0.9 * X, height=1.1 * Z,
         period=cfg.frames / cfg.fps, fov_y_deg=55.0, device=device)(
             (frames - 1) / cfg.fps)
-    mark("truth")
-    ev = StepTimer(device)
-    ev()
     target = sharding.render_soft_image_sharded(
         truth, cam_true, settings, h, w, S, mesh, lights=lights).reshape(-1, 3)
-    ev()
-    target_ms = ev.ms()[0]
     del truth
     soft_f, cam_f = res["soft"], res["cam"]
-    init_fn, step_fn = sharding.make_sharded_train_step(
-        settings, S, mesh, lr=cfg.lr, cam_lr=cfg.cam_lr, optimize_camera=True,
-        grad_buckets=1, lights=lights, use_custom_vjp=True)
-    state = init_fn(soft_f, cam_f)
     o_c, d_c = sharding.camera_frame_rays(cam_f, h, w)
-    timer = StepTimer(device)
-    timer()
-    s, c = soft_f, cam_f
-    for _ in range(2):
-        s, c, state, _ = step_fn(s, c, state, o_c, d_c, target)
-        timer()
-    step_ms = timer.ms()
-    mark("steps")
-
-    o_w, d_w = sharding._world_rays(cam_f, o_c, d_c)
-    sg = SoftGrid(soft_f.sigma_raw.detach().clone().requires_grad_(True),
-                  soft_f.rgb_raw.detach().clone().requires_grad_(True))
-    ev = StepTimer(device)
-    ev()
-    pred = render_soft_rays_fast(sg, o_w, d_w, settings, S, lights)
-    ev()
-    (torch.sum((pred - target) ** 2) / (pred.numel())).backward()
-    ev()
-    fwd_ms, bwd_ms = ev.ms()
-    del sg, pred
-    mark("alone")
-
-    def one_step():
-        nonlocal s, c, state
-        s, c, state, _ = step_fn(s, c, state, o_c, d_c, target)
-
-    groups, wall = {}, None
-    if device.type == "cuda":
-        prof = profile_kernels(one_step, device)
-        kernels, wall = prof["kernels"], prof["wall_ms"]
-        for name, ms in kernels.items():
-            key = next((g for g, subs in C5_GROUPS if any(
-                x in name for x in subs)), "other elementwise")
-            groups[key] = groups.get(key, 0.0) + ms
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
-        print(f"phase 11 scale-out: config 5 step profiled [{card}]: wall "
-              f"{wall:.1f} ms, device ms by group "
-              f"{ {k: round(v, 2) for k, v in groups.items()} }; top kernels "
-              + "; ".join(f"{ms:.2f} {n[:60]}" for n, ms in top))
-    del state
-    mark("profile")
-    print(f"phase 11 scale-out: config 5 step ms [{card}] (events, from the "
-          f"run's final state, 1 bucket) {[round(x, 1) for x in step_ms]}; "
-          f"forward alone {fwd_ms:.1f}, backward alone {bwd_ms:.1f}; the "
-          f"target render {target_ms:.1f}")
-
-    # the custom backward against autograd through the plain renderer on a
-    # subset of the frame's rays (plain autograd cannot hold them all)
     idx = torch.linspace(0, h * w - 1, subset, device=device).long()
     got = _subset_grads(True, soft_f, cam_f, o_c[idx], d_c[idx], target[idx],
                         settings, S, lights)
@@ -2920,26 +2810,9 @@ def scale_config5(device, D=FULL, h=H, w=W, S=192, frames=C5_FRAMES,
     if rel > 1e-5 or ex > 1.0:
         raise AssertionError("config 5: the custom backward and autograd "
                              "differ")
-    mark("subset")
-    names = list(marks)
-    parts = {b: round(marks[b] - marks[a], 1)
-             for a, b in zip(names, names[1:])}
-    print(f"phase 11 scale-out: config 5 part seconds {parts}")
     return dict(losses=res["losses"], psnrs=res["psnrs"],
                 yaw_err=res["yaw_err"], pitch_err=res["pitch_err"],
-                frame_ms=frame_ms, step_ms=step_ms, fwd_ms=fwd_ms,
-                bwd_ms=bwd_ms, target_ms=target_ms, peak_gib=peak,
-                groups=groups, profiled_wall_ms=wall, vjp_excess=ex,
-                vjp_loss_rel=rel)
-
-
-# device-time groups of the profiled config-5 step (kernel-name parts)
-C5_GROUPS = (("index_add_", ("index_add", "indexFunc")),
-             ("Adam", ("multi_tensor", "adam", "Adam")),
-             ("gather", ("index_elementwise", "gather", "indexSelect",
-                         "index_kernel")),
-             ("copy and cat", ("CatArray", "copy", "Copy")),
-             ("fill", ("fill", "Fill")))
+                peak_gib=peak, vjp_excess=ex, vjp_loss_rel=rel)
 
 
 def scale_fused(device, D=FULL, h=H, w=W) -> dict:

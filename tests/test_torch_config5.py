@@ -1,7 +1,7 @@
 """vxtpu_torch's config-5 run (train/config5.py) against vxtpu's
 run_config5 at tests/test_config5.py's CFG (16^3, 8x8 rays, 3 frames x 2
 steps), its resume (from its own checkpoint and from the one vxtpu's run
-wrote), 2 gloo ranks against 1, and the config5 command
+wrote), 2 gloo ranks against 1, the step hook, and the config5 command
 (dryrun_multichip(2) is in tests/test_torch_platform.py).
 
 Tolerances (vxtpu's own sharded-against-single-device ones): losses rtol
@@ -136,6 +136,35 @@ def test_two_gloo_ranks_equal_one_rank(lit_run):
                               timeout=60)
     for out in outs:
         _agree(out, one, rtol=1e-5)
+
+
+def test_step_hook_sees_every_step_and_changes_nothing(lit_run):
+    """The hook is called after each of the 2 x frames steps with the
+    step's state; the run's losses are bit-equal to the run without it."""
+    from vxtpu_torch.engine.sharding import make_mesh
+    from vxtpu_torch.train.config5 import Config5Step
+
+    seen = []
+
+    def hook(info):
+        assert isinstance(info, Config5Step)
+        assert info.target.shape == (CFG.height * CFG.width, 3)
+        assert info.soft.sigma_raw.data_ptr() == \
+            info.state.params[0].data_ptr()
+        seen.append((info.frame, info.step, float(info.loss)))
+
+    platform.init_multihost(device=CPU)
+    try:
+        res = run_config5(CFG, RenderSettings(), mesh=make_mesh(),
+                          step_hook=hook)
+    finally:
+        platform.shutdown()
+    assert [(f, k) for f, k, _ in seen] == [
+        (f, k) for f in range(CFG.frames)
+        for k in range(CFG.steps_per_frame)]
+    assert res["losses"] == lit_run["losses"]
+    assert [x for _, k, x in seen if k == CFG.steps_per_frame - 1] == \
+        res["losses"]
 
 
 def test_config5_command(tmp_path, capsys):

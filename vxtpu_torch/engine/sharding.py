@@ -14,6 +14,10 @@ and runs the same Adam update on every rank.
 
 A collective the backend cannot run raises; nothing is copied to the CPU
 or run unsharded in its place.
+
+While a profiler runs, a train step records the spans ``SPAN +
+"allreduce"`` (starting each bucket's all-reduce, and waiting for them
+and summing) and ``SPAN + "adam"`` (the update).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch.distributed as dist
 from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.camera.rays import generate_rays
 from vxtpu_torch.engine import platform
+from vxtpu_torch.obs.spans import span
 from vxtpu_torch.render.occmask import mask_segment_bounds
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft import SoftGrid, render_soft_rays
@@ -40,6 +45,7 @@ from vxtpu_torch.train.loop import (ADAM_EPS, BETAS, CAM_FIELDS,
 # rays x samples of one chunk of the plain soft renderer in
 # render_soft_image_sharded (its [N, S] tensors stay ~tens of MB each)
 SOFT_CHUNK_SAMPLES = 1 << 22
+SPAN = "vxtpu_torch.sharding."
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,12 +365,14 @@ def make_sharded_train_step(settings: RenderSettings, num_samples: int,
             buf = torch.cat([g.reshape(-1) for g in grads]
                             + [loss_b.detach().reshape(1)])
             del grads
-            pending.append((buf, dist.all_reduce(buf, group=mesh.group,
-                                                 async_op=True)))
+            with span(SPAN + "allreduce"):
+                pending.append((buf, dist.all_reduce(buf, group=mesh.group,
+                                                     async_op=True)))
         total = None
-        for buf, work in pending:
-            work.wait()
-            total = buf if total is None else total + buf
+        with span(SPAN + "allreduce"):
+            for buf, work in pending:
+                work.wait()
+                total = buf if total is None else total + buf
         del pending
         grads, at = [], 0
         for p in inputs:
@@ -376,10 +384,11 @@ def make_sharded_train_step(settings: RenderSettings, num_samples: int,
                 *mask_args):
         loss, grads = value_and_grad(soft, cam, state, o, d, target,
                                      *mask_args)
-        for p, g in zip(state.params + state.cam_params, grads):
-            p.grad = g
-        state.opt.step()
-        state.opt.zero_grad(set_to_none=True)
+        with span(SPAN + "adam"):
+            for p, g in zip(state.params + state.cam_params, grads):
+                p.grad = g
+            state.opt.step()
+            state.opt.zero_grad(set_to_none=True)
         return state.model(detach=True), state.camera(detach=True), state, \
             loss
 

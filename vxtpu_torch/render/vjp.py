@@ -25,6 +25,11 @@ trilinear gather's int64 corner indices alone would be 25.5 GB.
             and the grid clip.
 
 Plain PyTorch: vxtpu's version calls no Pallas kernel either.
+
+While a profiler runs, the forward loop and the backward re-walk each
+record a span (``SPAN + "forward"``, ``SPAN + "backward"``); ``COUNTS``
+keeps the work they did since the last ``reset_counts()``, so that a
+reader of a trace can tell whether it recorded all of it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from vxtpu_torch.camera.rays import generate_rays
+from vxtpu_torch.obs.spans import span
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.shade import sky_color
 from vxtpu_torch.render.soft import (SoftGrid, _corners, grad8, lerp8,
@@ -40,6 +46,18 @@ from vxtpu_torch.render.soft_kernel import _enter_dt_soft, _shade_samples_cm
 from vxtpu_torch.world.lights import Lights
 
 _EPS = 1e-10
+SPAN = "vxtpu_torch.vjp."
+
+# Work since the last reset_counts(): samples marched by the forward loop,
+# samples re-walked by the backward, and corner rows added into the
+# gradient by index_add_ (8 a re-walked sample, one index_add_ a sample
+# step of the re-walk).
+COUNTS = {"samples_fwd": 0, "samples_bwd": 0, "rows_added": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _is_lit(settings: RenderSettings, lights) -> bool:
@@ -110,22 +128,26 @@ class _SoftRenderFast(torch.autograd.Function):
         lights = None if lpos is None else Lights(lpos, lrgb, lint)
         lit = _is_lit(settings, lights)
         bounds = None if b0 is None else (b0, b1)
-        tab = _table(sigma_raw, rgb_raw)
-        t_enter, dt, valid = _enter_dt_soft(o, d, dims, num_samples, bounds)
-        T = torch.ones_like(t_enter)
-        acc = torch.zeros_like(o)
-        for s in range(num_samples):
-            t_s = t_enter + dt * (s + 0.5)
-            p = o + t_s[:, None] * d
-            rows = _gather_rows(tab, _corner_index(p, dims))
-            sv, c = _sample_color(rows, p, d, lights, settings, lit)
-            sigma = softplus(sv)
-            if mask is not None:
-                sigma = sigma * mask_at(mask, mask_scale, p)
-            alpha = torch.where(valid, 1.0 - torch.exp(-sigma * dt), 0.0)
-            acc = acc + (T * alpha)[:, None] * c
-            T = T * (1.0 - alpha + _EPS)
-        color = acc + T[:, None] * sky_color(d, settings)
+        with span(SPAN + "forward"):
+            tab = _table(sigma_raw, rgb_raw)
+            t_enter, dt, valid = _enter_dt_soft(o, d, dims, num_samples,
+                                                bounds)
+            T = torch.ones_like(t_enter)
+            acc = torch.zeros_like(o)
+            for s in range(num_samples):
+                t_s = t_enter + dt * (s + 0.5)
+                p = o + t_s[:, None] * d
+                rows = _gather_rows(tab, _corner_index(p, dims))
+                sv, c = _sample_color(rows, p, d, lights, settings, lit)
+                sigma = softplus(sv)
+                if mask is not None:
+                    sigma = sigma * mask_at(mask, mask_scale, p)
+                alpha = torch.where(valid, 1.0 - torch.exp(-sigma * dt),
+                                    0.0)
+                acc = acc + (T * alpha)[:, None] * c
+                T = T * (1.0 - alpha + _EPS)
+            color = acc + T[:, None] * sky_color(d, settings)
+        COUNTS["samples_fwd"] += o.shape[0] * num_samples
         ctx.settings, ctx.num_samples = settings, num_samples
         ctx.mask_scale = mask_scale
         ctx.save_for_backward(sigma_raw, rgb_raw, o, d, lpos, lrgb, lint,
@@ -134,6 +156,11 @@ class _SoftRenderFast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        with span(SPAN + "backward"):
+            return _SoftRenderFast._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         (sigma_raw, rgb_raw, o, d, lpos, lrgb, lint, color, mask, b0,
          b1) = ctx.saved_tensors
         settings, S = ctx.settings, ctx.num_samples
@@ -198,6 +225,7 @@ class _SoftRenderFast(torch.autograd.Function):
                                         allow_unused=True,
                                         materialize_grads=True)
             gtab.index_add_(0, idx.reshape(-1), grads[0].reshape(-1, 4))
+            COUNTS["rows_added"] += idx.numel()
             gp = grads[1]
             gts = torch.sum(gp * d, dim=-1)                   # p = o + t_s d
             go = go + gp
@@ -210,6 +238,7 @@ class _SoftRenderFast(torch.autograd.Function):
             T = T * one_m
             acc = acc_new
 
+        COUNTS["samples_bwd"] += o.shape[0] * S
         # the sky: C += T_end sky(d); T_end's dependence on the samples is
         # inside the suffix above, only sky's own d remains
         with torch.enable_grad():

@@ -13,6 +13,10 @@ each target frame once and descends the replicated soft grid and its
 deliberately wrong camera-pose estimate, whose error is carried from
 frame to frame. Every rank runs this same code (``engine/platform.py``:
 ``init_multihost``).
+
+While a profiler runs, a frame records the spans ``SPAN + "target"`` (the
+target render), ``SPAN + "step"`` (once a step: its camera-frame rays
+and the sharded step) and ``SPAN + "eval"`` (the PSNR render).
 """
 
 from __future__ import annotations
@@ -23,13 +27,15 @@ import os
 import torch
 
 from vxtpu_torch.camera import paths
+from vxtpu_torch.camera.camera import Camera
 from vxtpu_torch.device import DEFAULT
 from vxtpu_torch.engine.platform import init_multihost
-from vxtpu_torch.engine.sharding import (camera_frame_rays, make_mesh,
-                                         make_sharded_train_step,
+from vxtpu_torch.engine.sharding import (ShardedTrainState, camera_frame_rays,
+                                         make_mesh, make_sharded_train_step,
                                          render_soft_image_sharded)
 from vxtpu_torch.obs.log import get_logger, process_rank
 from vxtpu_torch.obs.metrics import MetricsSink
+from vxtpu_torch.obs.spans import span
 from vxtpu_torch.render.settings import RenderSettings
 from vxtpu_torch.render.soft import SoftGrid
 from vxtpu_torch.train.checkpoint import (load_checkpoint, load_opt_state,
@@ -37,6 +43,27 @@ from vxtpu_torch.train.checkpoint import (load_checkpoint, load_opt_state,
 from vxtpu_torch.train.loss import psnr
 from vxtpu_torch.world import procgen
 from vxtpu_torch.world.lights import Lights
+
+
+SPAN = "vxtpu_torch.config5."
+
+
+@dataclasses.dataclass(frozen=True)
+class Config5Step:
+    """What ``run_config5``'s ``step_hook`` receives after each step:
+    ``step`` of ``frame``, its all-reduced loss (a 0-d tensor on the
+    device: reading it waits for the step), the grid and the pose
+    estimate after it, the step's optimizer state and the frame's target
+    [H*W, 3]. ``soft``, ``cam_est`` and ``state`` hold the live tensors,
+    which the next step updates in place: copy what is to be kept."""
+
+    frame: int
+    step: int
+    loss: torch.Tensor
+    soft: SoftGrid
+    cam_est: Camera
+    state: ShardedTrainState
+    target: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,15 +89,18 @@ class Config5:
 def run_config5(cfg: Config5, settings: RenderSettings, mesh=None,
                 out_dir: str | None = None, resume: str | None = None,
                 sink: MetricsSink | None = None, save_frames: bool = False,
-                end_frame: int | None = None, device=DEFAULT):
+                end_frame: int | None = None, device=DEFAULT,
+                step_hook=None):
     """Run the animated sharded per-frame optimisation on ``mesh`` (by
     default the whole process group, a 1-rank group of this process if
     there is none: ``init_multihost`` on ``device``).
 
     ``end_frame`` stops after the frames before it: the first frames of
     the cfg.frames-frame animation, on its orbit (by default all of
-    them). Returns a dict with the per-frame losses and PSNRs, the final
-    pose errors and the final (soft, cam)."""
+    them). ``step_hook``, if given, is called with a ``Config5Step`` after
+    every step; it may raise to end the run. Returns a dict with the
+    per-frame losses and PSNRs, the final pose errors and the final
+    (soft, cam)."""
     log = get_logger(log_dir=out_dir)
     if mesh is None:
         init_multihost(device=device)
@@ -122,9 +152,10 @@ def run_config5(cfg: Config5, settings: RenderSettings, mesh=None,
     last = cfg.frames if end_frame is None else min(end_frame, cfg.frames)
     for f in range(start_frame, last):
         cam_true = cam_path(f / cfg.fps)
-        target = render_soft_image_sharded(
-            truth, cam_true, settings, cfg.height, cfg.width,
-            cfg.num_samples, mesh, lights=lights).reshape(-1, 3)
+        with span(SPAN + "target"):
+            target = render_soft_image_sharded(
+                truth, cam_true, settings, cfg.height, cfg.width,
+                cfg.num_samples, mesh, lights=lights).reshape(-1, 3)
 
         # this frame's pose estimate: the true pose plus the carried error
         cam_est = dataclasses.replace(cam_true, yaw=cam_true.yaw + cam_off[0],
@@ -139,10 +170,15 @@ def run_config5(cfg: Config5, settings: RenderSettings, mesh=None,
                     state.load(restored)
 
         loss = None
-        for _ in range(cfg.steps_per_frame):
-            o_c, d_c = camera_frame_rays(cam_est, cfg.height, cfg.width)
-            soft, cam_est, state, loss = step_fn(soft, cam_est, state, o_c,
-                                                 d_c, target)
+        for k in range(cfg.steps_per_frame):
+            with span(SPAN + "step"):
+                o_c, d_c = camera_frame_rays(cam_est, cfg.height, cfg.width)
+                soft, cam_est, state, loss = step_fn(soft, cam_est, state,
+                                                     o_c, d_c, target)
+            if step_hook is not None:
+                step_hook(Config5Step(frame=f, step=k, loss=loss, soft=soft,
+                                      cam_est=cam_est, state=state,
+                                      target=target))
         # the pose error after this frame's descent, carried to the next
         cam_off = torch.stack([cam_est.yaw - cam_true.yaw,
                                cam_est.pitch - cam_true.pitch])
@@ -152,10 +188,11 @@ def run_config5(cfg: Config5, settings: RenderSettings, mesh=None,
             raise FloatingPointError(f"config5: non-finite loss at frame {f}")
         losses.append(lv)
 
-        pred = render_soft_image_sharded(
-            soft, cam_true, settings, cfg.height, cfg.width,
-            cfg.num_samples, mesh, lights=lights)
-        p = float(psnr(pred, target.reshape(cfg.height, cfg.width, 3)))
+        with span(SPAN + "eval"):
+            pred = render_soft_image_sharded(
+                soft, cam_true, settings, cfg.height, cfg.width,
+                cfg.num_samples, mesh, lights=lights)
+            p = float(psnr(pred, target.reshape(cfg.height, cfg.width, 3)))
         psnrs.append(p)
         sink.emit(frame=f, loss=lv, psnr=p,
                   yaw_err=float(cam_off[0]), pitch_err=float(cam_off[1]))
